@@ -1,0 +1,300 @@
+"""Llama-family decoder-only transformer in PyTorch: the serving subset.
+
+Counterpart of ``devspace_tpu/models/transformer.py``: the config and its
+presets, parameter init, the building blocks, the paged KV pool, and the
+two functions the serving engine runs — ``decode_tokens_paged`` (one
+decode step for every slot) and ``prefill_chunk_paged`` (one prompt
+chunk of one slot). Parameters are a plain dict of tensors in the
+reference's tree layout, linear weights ``[in, out]`` (``x @ w``), so a
+converted JAX tree (``models/convert.py``) computes the same function.
+RoPE, GQA and SwiGLU follow Llama-2; RMSNorm accumulates and logits come
+out in float32.
+
+Unlike the reference, the pool is written IN PLACE: ``decode_tokens_paged``
+and ``prefill_chunk_paged`` mutate the pool tensors they are given and
+return the same dict (JAX donates the pool to the same effect).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.paged_attention import dequantize_kv, paged_decode_attention, quantize_kv
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 32000
+    dim: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 32
+    ffn_dim: int = 11008
+    max_seq_len: int = 4096
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+
+LLAMA2_7B = TransformerConfig()
+LLAMA2_13B = TransformerConfig(dim=5120, n_layers=40, n_heads=40, n_kv_heads=40, ffn_dim=13824)
+TINY = TransformerConfig(
+    vocab_size=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=2, ffn_dim=128,
+    max_seq_len=128,
+)
+
+# -- params -----------------------------------------------------------------
+def init_params(cfg: TransformerConfig, generator: torch.Generator) -> dict:
+    """Seeded random params {embed, layers: [{wq,wk,wv,wo,w_gate,w_up,
+    w_down, attn_norm, ffn_norm}], final_norm, lm_head} on the
+    generator's device: normal * 0.02 in ``cfg.dtype``, norms ones in
+    float32 — the reference's recipe. A CUDA generator makes Llama-2-7B
+    in well under a second on the card. The draws cannot reproduce
+    ``jax.random``, so parity tests convert JAX params instead
+    (``models/convert.py``)."""
+    device = generator.device
+    hd = cfg.head_dim
+
+    def dense(shape):
+        w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        return (w * 0.02).to(cfg.dtype)
+
+    def ones():
+        return torch.ones(cfg.dim, dtype=torch.float32, device=device)
+
+    layers = []
+    for _ in range(cfg.n_layers):
+        layers.append({
+            "wq": dense((cfg.dim, cfg.n_heads * hd)),
+            "wk": dense((cfg.dim, cfg.n_kv_heads * hd)),
+            "wv": dense((cfg.dim, cfg.n_kv_heads * hd)),
+            "wo": dense((cfg.n_heads * hd, cfg.dim)),
+            "w_gate": dense((cfg.dim, cfg.ffn_dim)),
+            "w_up": dense((cfg.dim, cfg.ffn_dim)),
+            "w_down": dense((cfg.ffn_dim, cfg.dim)),
+            "attn_norm": ones(),
+            "ffn_norm": ones(),
+        })
+    return {
+        "embed": dense((cfg.vocab_size, cfg.dim)),
+        "layers": layers,
+        "final_norm": ones(),
+        "lm_head": dense((cfg.dim, cfg.vocab_size)),
+    }
+
+
+# -- building blocks --------------------------------------------------------
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    x32 = x.float()
+    norm = x32 * torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+    return (norm * weight).to(x.dtype)
+
+
+def rope_frequencies(cfg: TransformerConfig, positions: torch.Tensor):
+    """positions [T] -> (cos, sin) each [T, head_dim/2], float32."""
+    half = cfg.head_dim // 2
+    exponent = -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+    freqs = cfg.rope_theta ** exponent
+    angles = positions.float()[:, None] * freqs[None, :]
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, per_batch: bool = False):
+    """x [B, T, H, D]; rotate pairs (split-halves convention). ``cos``/
+    ``sin`` are [T, half] broadcast over batch, or with ``per_batch=True``
+    [B, half] broadcast over T=1 (every sequence at its own position)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    if per_batch:
+        cos, sin = cos[:, None, None, :], sin[:, None, None, :]
+    else:
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    out1 = x1 * cos - x2 * sin
+    out2 = x2 * cos + x1 * sin
+    return torch.cat([out1, out2], dim=-1).to(x.dtype)
+
+
+def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """[B, T, Hkv, D] -> [B, T, Hkv*n_rep, D] (GQA broadcast)."""
+    return x if n_rep == 1 else x.repeat_interleave(n_rep, dim=2)
+
+
+def _ffn(h: torch.Tensor, layer: dict, cfg: TransformerConfig) -> torch.Tensor:
+    x = rms_norm(h, layer["ffn_norm"], cfg.norm_eps)
+    gated = F.silu(x @ layer["w_gate"]) * (x @ layer["w_up"])
+    return h + (gated @ layer["w_down"]).to(h.dtype)
+
+
+# -- paged KV cache ---------------------------------------------------------
+def init_paged_pool(
+    cfg: TransformerConfig,
+    n_blocks: int,
+    block_size: int,
+    kv_dtype: Optional[str] = None,
+    device: Optional[torch.device] = None,
+) -> dict:
+    """Block pool: {"k","v"} of [L, n_blocks, Hkv, block_size, D] —
+    head-major, each (block, head) a contiguous [bs, D] tile, the layout
+    the paged-decode kernel reads. Block 0 is reserved as scratch by the
+    engine (parked writes land there; unallocated table entries point at
+    it). ``kv_dtype="int8"`` stores K/V quantized with per-token per-head
+    amax/127 scales in "k_scale"/"v_scale" [L, n_blocks, Hkv, bs] f32."""
+    shape = (cfg.n_layers, n_blocks, cfg.n_kv_heads, block_size, cfg.head_dim)
+    if kv_dtype in ("int8", torch.int8):
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            "v_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+        }
+    if kv_dtype is not None and kv_dtype != cfg.dtype:
+        raise ValueError(f"unsupported kv_dtype {kv_dtype!r} (use 'int8', None, or the model dtype)")
+    return {
+        "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+    }
+
+
+def _quantize_kv_values(k: torch.Tensor, v: torch.Tensor) -> dict:
+    """Quantize a K/V pair for an int8 pool — the one place the scale
+    convention lives; every pool write scatters exactly these values."""
+    kq, ks = quantize_kv(k)
+    vq, vs = quantize_kv(v)
+    return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+
+
+def _paged_pool_write(pool: dict, li: int, blk, off, k, v) -> None:
+    """Scatter per-token K/V ([M, Hkv, D] each, at (blk[m], :, off[m]))
+    into layer ``li`` of the pool IN PLACE, quantizing when it is int8."""
+    vals = _quantize_kv_values(k, v) if "k_scale" in pool else {"k": k, "v": v}
+    for key, val in vals.items():
+        pool[key][li][blk, :, off] = val
+
+
+def _gather_pages(pool_layer: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """[n_blocks, H, bs, D] gathered by table [B, max_blocks] ->
+    [B, max_blocks*bs, H, D] (a slot's logical cache view)."""
+    b, mb = table.shape
+    _, h, bs, d = pool_layer.shape
+    return pool_layer[table].transpose(2, 3).reshape(b, mb * bs, h, d)
+
+
+def _gather_scales(scale_layer: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """[n_blocks, H, bs] scales gathered by table [B, max_blocks] ->
+    [B, max_blocks*bs, H] (aligned with _gather_pages)."""
+    b, mb = table.shape
+    _, h, bs = scale_layer.shape
+    return scale_layer[table].transpose(2, 3).reshape(b, mb * bs, h)
+
+
+def decode_tokens_paged(
+    params: dict,
+    pool: dict,
+    tables: torch.Tensor,
+    tokens: torch.Tensor,
+    positions: torch.Tensor,
+    cfg: TransformerConfig,
+) -> tuple[torch.Tensor, dict]:
+    """One decode step for every sequence -> (logits [B, vocab] f32, pool).
+
+    ``tables`` [B, max_blocks] block ids, ``tokens`` [B] last token per
+    sequence, ``positions`` [B] its logical write position. The new
+    token's K/V is written in place at (table[pos // bs], pos % bs), then
+    attention reads each slot's blocks through ``paged_decode_attention``
+    (the CUDA kernel on the card, the gather version on the CPU)."""
+    b = tokens.shape[0]
+    hd = cfg.head_dim
+    bs = pool["k"].shape[3]
+    positions = positions.long()
+    cos, sin = rope_frequencies(cfg, positions)
+    rows = torch.arange(b, device=tokens.device)
+    blk = tables.long()[rows, positions // bs]
+    off = positions % bs
+    tables32 = tables.to(torch.int32).contiguous()
+    lengths = (positions + 1).to(torch.int32)  # valid entries incl. the new token
+    h = params["embed"][tokens.long()][:, None, :]
+    for li, layer in enumerate(params["layers"]):
+        x = rms_norm(h, layer["attn_norm"], cfg.norm_eps)
+        q = (x @ layer["wq"]).view(b, 1, cfg.n_heads, hd)
+        k = (x @ layer["wk"]).view(b, 1, cfg.n_kv_heads, hd)
+        v = (x @ layer["wv"]).view(b, 1, cfg.n_kv_heads, hd)
+        q = apply_rope(q, cos, sin, per_batch=True)
+        k = apply_rope(k, cos, sin, per_batch=True)
+        _paged_pool_write(pool, li, blk, off, k[:, 0], v[:, 0])
+        ctx = paged_decode_attention(
+            q[:, 0].contiguous(), pool["k"][li], pool["v"][li], tables32, lengths,
+            pool["k_scale"][li] if "k_scale" in pool else None,
+            pool["v_scale"][li] if "v_scale" in pool else None,
+        )  # [B, H, D]
+        h = h + (ctx.reshape(b, 1, -1) @ layer["wo"]).to(h.dtype)
+        h = _ffn(h, layer, cfg)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    logits = (h[:, 0] @ params["lm_head"]).float()
+    return logits, pool
+
+
+def prefill_chunk_paged(
+    params: dict,
+    pool: dict,
+    table: torch.Tensor,
+    tokens: torch.Tensor,
+    offset: int,
+    cfg: TransformerConfig,
+) -> tuple[torch.Tensor, dict]:
+    """One prompt chunk of chunked prefill -> (logits [C, vocab] f32, pool).
+
+    ``table`` [max_blocks] is ONE slot's block table, ``tokens`` [C] the
+    chunk (may be padded), ``offset`` the logical position of tokens[0].
+    The chunk's K/V is written in place at positions offset..offset+C-1,
+    then it attends with the block-causal mask (every chunk token sees
+    all cache positions <= its own); chained over chunks this equals the
+    full-sequence forward. Pad-tail writes land at positions >= the true
+    prompt length; decode overwrites each position in the same step that
+    first attends to it, so they are never read. Attention here is a
+    gather plus float32 einsums, as in the reference (no kernel)."""
+    c = tokens.shape[0]
+    hd = cfg.head_dim
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    bs = pool["k"].shape[3]
+    table = table.long()
+    t_alloc = table.shape[0] * bs
+    positions = offset + torch.arange(c, device=tokens.device)
+    cos, sin = rope_frequencies(cfg, positions)
+    blk = table[positions // bs]
+    off = positions % bs
+    mask = torch.arange(t_alloc, device=tokens.device)[None, :] <= positions[:, None]
+    quantized = "k_scale" in pool
+    h = params["embed"][tokens.long()][None]  # [1, C, D]
+    for li, layer in enumerate(params["layers"]):
+        x = rms_norm(h, layer["attn_norm"], cfg.norm_eps)
+        q = (x @ layer["wq"]).view(1, c, cfg.n_heads, hd)
+        k = (x @ layer["wk"]).view(1, c, cfg.n_kv_heads, hd)
+        v = (x @ layer["wv"]).view(1, c, cfg.n_kv_heads, hd)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        _paged_pool_write(pool, li, blk, off, k[0], v[0])
+        keys = _gather_pages(pool["k"][li], table[None])
+        vals = _gather_pages(pool["v"][li], table[None])
+        if quantized:
+            keys = dequantize_kv(keys, _gather_scales(pool["k_scale"][li], table[None]), h.dtype)
+            vals = dequantize_kv(vals, _gather_scales(pool["v_scale"][li], table[None]), h.dtype)
+        keys = repeat_kv(keys, n_rep)
+        vals = repeat_kv(vals, n_rep)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), keys.float()) / math.sqrt(hd)
+        scores = scores.masked_fill(~mask[None, None], -1e30)
+        probs = torch.softmax(scores, dim=-1)
+        ctx = torch.einsum("bhqk,bkhd->bqhd", probs, vals.float()).to(h.dtype)
+        h = h + (ctx.reshape(1, c, -1) @ layer["wo"]).to(h.dtype)
+        h = _ffn(h, layer, cfg)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    logits = (h[0] @ params["lm_head"]).float()  # [C, vocab]
+    return logits, pool
