@@ -1,1 +1,1 @@
-"""Models of the port (the Llama-family transformer, serving subset)."""
+"""Models of the port (the Llama-family transformer: serving and training)."""

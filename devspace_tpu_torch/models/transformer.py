@@ -1,10 +1,11 @@
-"""Llama-family decoder-only transformer in PyTorch: the serving subset.
+"""Llama-family decoder-only transformer in PyTorch.
 
 Counterpart of ``devspace_tpu/models/transformer.py``: the config and its
-presets, parameter init, the building blocks, the paged KV pool, and the
-two functions the serving engine runs — ``decode_tokens_paged`` (one
-decode step for every slot) and ``prefill_chunk_paged`` (one prompt
-chunk of one slot). Parameters are a plain dict of tensors in the
+presets, parameter init, the building blocks, the training forward
+(``layer_apply``, ``forward``; attention through ``ops/attention.py``),
+the paged KV pool, and the two functions the serving engine runs —
+``decode_tokens_paged`` (one decode step for every slot) and
+``prefill_chunk_paged`` (one prompt chunk of one slot). Parameters are a plain dict of tensors in the
 reference's tree layout, linear weights ``[in, out]`` (``x @ w``), so a
 converted JAX tree (``models/convert.py``) computes the same function.
 RoPE, GQA and SwiGLU follow Llama-2; RMSNorm accumulates and logits come
@@ -19,11 +20,14 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional
+from functools import partial
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ..ops.attention import fused_attention
 from ..ops.paged_attention import dequantize_kv, paged_decode_attention, quantize_kv
 
 
@@ -132,6 +136,67 @@ def _ffn(h: torch.Tensor, layer: dict, cfg: TransformerConfig) -> torch.Tensor:
     x = rms_norm(h, layer["ffn_norm"], cfg.norm_eps)
     gated = F.silu(x @ layer["w_gate"]) * (x @ layer["w_up"])
     return h + (gated @ layer["w_down"]).to(h.dtype)
+
+
+# -- training forward -------------------------------------------------------
+def default_attention(q, k, v, causal: bool = True):
+    """[B, T, H, D] self-attention through ``fused_attention`` (flash for
+    long T). The reference's other branch, ring attention over a sequence
+    mesh for T_q != T_k, waits for the port of ``parallel/``."""
+    if q.shape[1] != k.shape[1]:
+        raise NotImplementedError("ring attention (T_q != T_k) waits for the port of parallel/")
+    out = fused_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal)
+    return out.transpose(1, 2)
+
+
+def layer_apply(h, layer: dict, cfg: TransformerConfig, cos, sin, attention_fn=None):
+    """One transformer layer (attention + SwiGLU FFN with pre-RMSNorm
+    residuals) -> (h', (k, v)), k and v roped, before the GQA repeat.
+    The reference's ``pre_block``/``post_block`` hooks belong to the
+    tensor-parallel pipeline and wait for ``parallel/``."""
+    attn = attention_fn or partial(default_attention, causal=True)
+    b, t, _ = h.shape
+    hd = cfg.head_dim
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    x = rms_norm(h, layer["attn_norm"], cfg.norm_eps)
+    q = (x @ layer["wq"]).view(b, t, cfg.n_heads, hd)
+    k = (x @ layer["wk"]).view(b, t, cfg.n_kv_heads, hd)
+    v = (x @ layer["wv"]).view(b, t, cfg.n_kv_heads, hd)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    ctx = attn(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep))
+    h = h + (ctx.reshape(b, t, -1) @ layer["wo"]).to(h.dtype)
+    return _ffn(h, layer, cfg), (k, v)
+
+
+def forward(
+    params: dict,
+    tokens: torch.Tensor,
+    cfg: TransformerConfig,
+    attention_fn: Optional[Callable] = None,
+    positions: Optional[torch.Tensor] = None,
+    remat: bool = False,
+) -> torch.Tensor:
+    """Training forward: tokens [B, T] -> logits [B, T, vocab] (float32).
+
+    ``attention_fn(q, k, v) -> ctx`` on [B, T, H, D] (K/V heads already
+    repeated) defaults to causal ``default_attention``. ``remat=True``
+    recomputes each layer in the backward pass
+    (``torch.utils.checkpoint``) instead of keeping its activations."""
+    attn = attention_fn or partial(default_attention, causal=True)
+    t = tokens.shape[1]
+    if positions is None:
+        positions = torch.arange(t, device=tokens.device)
+    cos, sin = rope_frequencies(cfg, positions)
+    h = params["embed"][tokens.long()]
+
+    def layer_fn(h, layer):
+        return layer_apply(h, layer, cfg, cos, sin, attention_fn=attn)[0]
+
+    for layer in params["layers"]:
+        h = checkpoint(layer_fn, h, layer, use_reentrant=False) if remat else layer_fn(h, layer)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return (h @ params["lm_head"]).float()
 
 
 # -- paged KV cache ---------------------------------------------------------

@@ -61,38 +61,47 @@ def library_path(source: Path) -> Path:
     return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Optional[float]:
-    """Build ``csrc/<name>.cu`` unless a library for its current hash
-    exists. Returns the seconds nvcc took, or None when nothing was
-    built. Raises RuntimeError with the compiler output when the build
-    fails."""
+def build(*names: str) -> dict[str, Optional[float]]:
+    """Build ``csrc/<name>.cu`` for each name whose library for the
+    current hash is missing, one nvcc process per source, all started
+    together. Returns, per name, the seconds from the start of the builds
+    until its nvcc had finished, or None when nothing was built. Raises RuntimeError with the compiler output when
+    a build fails."""
     with _LOCK:
-        return _build_locked(name)
+        return _build_locked(names)
 
 
-def _build_locked(name: str) -> Optional[float]:
-    src = CSRC_DIR / f"{name}.cu"
-    if not src.exists():
-        raise FileNotFoundError(f"no CUDA source {src}")
-    out = library_path(src)
-    if out.exists():
-        return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+def _build_locked(names) -> dict[str, Optional[float]]:
+    jobs = {}
+    for name in names:
+        src = CSRC_DIR / f"{name}.cu"
+        if not src.exists():
+            raise FileNotFoundError(f"no CUDA source {src}")
+        out = library_path(src)
+        if not out.exists():
+            jobs[name] = (src, out, out.with_name(f"{out.name}.{os.getpid()}.tmp"))
+    if jobs:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.monotonic()
-    proc = subprocess.run(
-        nvcc_command(src, tmp),
-        stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT,
-        text=True,
-        check=False,
-    )
-    BUILD_LOG[name] = proc.stdout
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {src.name} (exit {proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, out)
-    return time.monotonic() - t0
+    procs = {
+        name: subprocess.Popen(nvcc_command(src, tmp), stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True)
+        for name, (src, _, tmp) in jobs.items()
+    }
+    seconds: dict[str, Optional[float]] = dict.fromkeys(names)
+    failed = []
+    for name, proc in procs.items():
+        BUILD_LOG[name] = proc.communicate()[0]
+        seconds[name] = time.monotonic() - t0
+        src, out, tmp = jobs[name]
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed for {src.name} (exit {proc.returncode}):\n{BUILD_LOG[name]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return seconds
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -101,7 +110,7 @@ def library(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            _build_locked(name)
+            _build_locked([name])
             lib = ctypes.CDLL(str(library_path(CSRC_DIR / f"{name}.cu")))
             _LIBS[name] = lib
         return lib

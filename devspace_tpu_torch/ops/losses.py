@@ -1,0 +1,124 @@
+"""Fused softmax cross-entropy: the Hopper kernel (``csrc/cross_entropy.cu``)
+and its plain PyTorch version.
+
+Counterpart of ``devspace_tpu/ops/losses.py``. The forward computes the
+per-row ``logsumexp(logits) - logits[label]`` in one pass over the row
+and keeps the lse as the only residual; the backward
+``(softmax - onehot) * g`` is plain tensor math, as in the reference,
+with the one-hot replaced by a subtraction at the label (a one-hot of a
+``[16384, 32000]`` batch would be another 2.1 GB of f32).
+
+Dispatch follows the tensors (``ops/dispatch.py``): CPU tensors take the
+plain version, CUDA tensors launch the kernel or raise. The
+vocab-parallel loss waits for the port of ``parallel/``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .dispatch import on_cuda
+
+# Last dispatch decision and the kernel's launches (moved only where the
+# CUDA kernel was launched).
+LAST_DISPATCH = {"impl": None}
+LAUNCHES = 0
+
+_KERNEL = None
+
+
+def _kernel():
+    global _KERNEL
+    if _KERNEL is None:
+        fn = _build.library("cross_entropy").cross_entropy_fwd
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+            ctypes.c_void_p
+        ]
+        fn.restype = ctypes.c_int
+        _KERNEL = fn
+    return _KERNEL
+
+
+def cross_entropy_reference(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits [B, V] f32/bf16, labels [B] int -> [B] f32 losses."""
+    return _xent_fwd_reference(logits, labels)[0]
+
+
+def _xent_fwd_reference(logits, labels):
+    """(loss, lse), each f32 [B]: the plain version of the kernel."""
+    f32 = logits.float()
+    lse = torch.logsumexp(f32, dim=-1)
+    picked = f32.gather(-1, labels.long()[:, None])[:, 0]
+    return lse - picked, lse
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"cross_entropy kernel: {msg}")
+
+
+def _launch_kernel(logits, labels):
+    """Validate, allocate (loss, lse), launch on the current stream.
+    Labels are taken as int64, as tokens arrive; a label outside [0, V)
+    gives a NaN loss."""
+    global LAUNCHES
+    _check(logits.dim() == 2, f"logits must be [B, V], got {tuple(logits.shape)}")
+    _check(logits.dtype in (torch.float32, torch.bfloat16), f"logits dtype {logits.dtype}")
+    b, v = logits.shape
+    _check(tuple(labels.shape) == (b,), f"labels shape {tuple(labels.shape)} != {(b,)}")
+    _check(labels.dtype == torch.int64, f"labels dtype {labels.dtype} (int64)")
+    _check(logits.is_contiguous() and labels.is_contiguous(), "inputs must be contiguous")
+    _check(v > 0, "empty vocabulary")
+    loss = torch.empty(b, dtype=torch.float32, device=logits.device)
+    lse = torch.empty(b, dtype=torch.float32, device=logits.device)
+    if b == 0:
+        return loss, lse
+    err = _kernel()(
+        int(logits.dtype == torch.bfloat16), logits.data_ptr(), labels.data_ptr(),
+        loss.data_ptr(), lse.data_ptr(), b, v,
+        torch.cuda.current_stream(logits.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"cross_entropy kernel launch failed: cudaError {err}")
+    LAUNCHES += 1
+    LAST_DISPATCH["impl"] = "cuda"
+    return loss, lse
+
+
+def xent_fwd(logits: torch.Tensor, labels: torch.Tensor):
+    """(loss, lse) f32 [B]: the kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    if not on_cuda(logits, labels):
+        LAST_DISPATCH["impl"] = "reference"
+        return _xent_fwd_reference(logits, labels)
+    return _launch_kernel(logits, labels)
+
+
+def xent_bwd(logits, labels, lse, g):
+    """d loss / d logits = (softmax - onehot) * g, in the logits' dtype;
+    the one-hot is a subtraction at each row's label."""
+    grad = torch.exp(logits.float() - lse[:, None])
+    grad[torch.arange(grad.shape[0], device=grad.device), labels.long()] -= 1.0
+    return grad.mul_(g[:, None]).to(logits.dtype)
+
+
+class _Xent(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, labels):
+        loss, lse = xent_fwd(logits, labels)
+        ctx.save_for_backward(logits, labels, lse)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, lse = ctx.saved_tensors
+        return xent_bwd(logits, labels, lse, g), None
+
+
+def fused_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-example losses [B] f32, differentiable in the logits (take the
+    mean outside; the caller keeps the choice of reduction)."""
+    return _Xent.apply(logits.contiguous(), labels.long().contiguous())

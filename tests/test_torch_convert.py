@@ -15,7 +15,7 @@ import torch
 
 from devspace_tpu.models import transformer as jtfm
 from devspace_tpu_torch.models import transformer as ttfm
-from devspace_tpu_torch.models.convert import params_from_numpy, tensor_from_numpy
+from devspace_tpu_torch.models.convert import params_from_numpy, params_to_numpy, tensor_from_numpy
 
 
 LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "attn_norm", "ffn_norm")
@@ -100,3 +100,18 @@ def test_converted_model_reproduces_jax_prefill_logits(trees):
     )
     atol = 1e-4 if cfg.dtype == jnp.float32 else 2e-2
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=atol)
+
+
+def test_params_to_numpy_inverts_the_conversion(trees):
+    """Trained params and grads go back to numpy bit for bit (bf16 as
+    numpy's bfloat16), in the reference's tree, so tests can hold them
+    against JAX's; ``trainable=True`` makes leaves that take grads."""
+    _, _, tree = trees
+    params = params_from_numpy(tree, "cpu", trainable=True)
+    assert all(t.requires_grad and t.is_leaf for t in leaves(params))
+    back = params_to_numpy(params)
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
+    for got, ref in zip(leaves(back), leaves(tree)):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        np.testing.assert_array_equal(np_bits(got), np_bits(ref))
+    assert not params_from_numpy(tree, "cpu")["embed"].requires_grad

@@ -72,3 +72,51 @@ def test_nvcc_command_targets_sm90a(tmp_path):
     # source never loads a stale build
     lib = _build.library_path(src)
     assert lib.parent == _build.BUILD_DIR and lib.name.startswith("libpaged_decode-")
+
+
+def test_every_kernel_source_builds_for_sm90a(tmp_path):
+    sources = sorted(_build.CSRC_DIR.glob("*.cu"))
+    assert {s.stem for s in sources} >= {"paged_decode", "flash_attention", "cross_entropy"}
+    for src in sources:
+        cmd = _build.nvcc_command(src, tmp_path / "lib.so")
+        assert "arch=compute_90a,code=sm_90a" in cmd and cmd[-1] == str(src)
+        assert _build.library_path(src).name.startswith(f"lib{src.stem}-")
+
+
+def test_build_starts_every_source_and_reports_failures(tmp_path, monkeypatch):
+    """``build`` runs one compiler process per source, all started before
+    any is waited for, skips sources already built, and raises with the
+    compiler's output when one fails. A stand-in compiler runs here."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("a", "b", "bad"):
+        (csrc / f"{name}.cu").write_text(f"// {name}\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    started = tmp_path / "started"
+    started.mkdir()
+    # each stand-in marks its start, then waits until all three started
+    compiler = (
+        "import pathlib, sys, time\n"
+        "out, src = pathlib.Path(sys.argv[1]), pathlib.Path(sys.argv[2])\n"
+        f"marks = pathlib.Path({str(started)!r})\n"
+        "(marks / src.stem).touch()\n"
+        "deadline = time.monotonic() + 60\n"
+        "while len(list(marks.iterdir())) < 3 and time.monotonic() < deadline:\n"
+        "    time.sleep(0.01)\n"
+        "if src.stem == 'bad':\n"
+        "    sys.exit('error: bad source')\n"
+        "out.write_text('built')\n"
+    )
+    monkeypatch.setattr(_build, "nvcc_command",
+                        lambda src, out: [sys.executable, "-c", compiler, str(out), str(src)])
+    try:
+        _build.build("a", "b", "bad")
+    except RuntimeError as e:
+        assert "bad.cu" in str(e) and "error: bad source" in str(e)
+    else:
+        raise AssertionError("a failed build must raise")
+    assert len(list(started.iterdir())) == 3
+    assert _build.library_path(csrc / "a.cu").read_text() == "built"
+    assert not _build.library_path(csrc / "bad.cu").exists()
+    assert _build.build("a", "b") == {"a": None, "b": None}  # already built

@@ -1,6 +1,7 @@
-"""The Hopper paged-decode kernel against its plain PyTorch version, on
-the card. Imports no JAX (the machine with the card has none); skips
-where there is no CUDA device. Run on the card with
+"""The Hopper kernels against their plain PyTorch versions, on the card:
+paged decode, flash attention (forward, backward dq, backward dk/dv) and
+the fused cross-entropy. Imports no JAX (the machine with the card has
+none); skips where there is no CUDA device. Run on the card with
 
     python -m pytest -m cuda tests/test_torch_kernels_cuda.py
 
@@ -9,13 +10,21 @@ holds the Pallas kernel to the same); bfloat16 max abs error <= 2e-2 on
 unit-normal inputs and, per live (row, head), a max error of at most
 1e-2 of that head's largest output (both accumulate in float32; outputs
 round to bf16, so they differ by about one bf16 ulp). Live rows only;
-dead rows (length 0) must be exactly zero.
+dead rows (length 0) must be exactly zero. Flash attention: float32
+(TF32 off) the same ``rtol=2e-4, atol=2e-5`` on O, lse, dq, dk and dv;
+bfloat16 per (batch·head) a max error of at most 1e-2 of that head's
+largest reference value (both round P for P·V and dS for dS·K to bf16
+and the outputs to bf16, about one bf16 ulp apart). Cross-entropy: both
+compute in float32 from the same values, ``rtol=1e-5, atol=1e-5``.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from devspace_tpu_torch.ops import attention as tattn
+from devspace_tpu_torch.ops import flash_attention as tfa
+from devspace_tpu_torch.ops import losses as tlosses
 from devspace_tpu_torch.ops import paged_attention as tpa
 
 RTOL, ATOL = 2e-4, 2e-5
@@ -27,6 +36,7 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -85,3 +95,88 @@ def test_cuda_empty_batch_launches_nothing(cuda_device):
     before = tpa.LAUNCHES
     out = tpa.paged_decode_attention(t[0], t[1], t[2], t[3], lengths)
     assert out.shape == (0, 4, 16) and tpa.LAUNCHES == before
+
+
+def assert_kernel_close(got, ref, name):
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL, msg=name)
+        return
+    diff = (got.float() - ref.float()).abs().flatten(1).amax(-1)
+    head_max = ref.float().abs().flatten(1).amax(-1)
+    assert (diff <= BF16_HEAD_REL * head_max).all(), (name, (diff / head_max).max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("T", [256, 200], ids=["T256", "T200-ragged"])
+def test_cuda_flash_kernels_match_plain_versions(cuda_device, dtype, causal, D, T):
+    rng = np.random.default_rng(11)
+    q, k, v, do = [torch.from_numpy(rng.normal(size=(6, T, D)).astype(np.float32))
+                   .to(cuda_device, dtype) for _ in range(4)]
+    before = dict(tfa.LAUNCHES)
+    o, lse = tfa.flash_fwd(q, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = tfa.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert tfa.LAST_DISPATCH["impl"] == "cuda"
+    assert tfa.LAUNCHES == {key: n + 1 for key, n in before.items()}
+    ro, rlse = tfa.flash_fwd_reference(q, k, v, causal)
+    assert_kernel_close(o, ro, "o")
+    torch.testing.assert_close(lse, rlse, rtol=RTOL, atol=1e-4 if dtype == torch.bfloat16 else ATOL)
+    # the backward kernels from the kernel's own residuals
+    assert_kernel_close(dq, tfa.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal), "dq")
+    rdk, rdv = tfa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal)
+    assert_kernel_close(dk, rdk, "dk")
+    assert_kernel_close(dv, rdv, "dv")
+
+
+@pytest.mark.cuda
+def test_cuda_flash_autograd_is_deterministic_and_counts(cuda_device):
+    """bf16 grads through the autograd Function: every kernel owns its
+    outputs (no atomics), so two runs agree bit for bit."""
+    rng = np.random.default_rng(12)
+    x = [torch.from_numpy(rng.normal(size=(2, 4, 1280, 64)).astype(np.float32))
+         .to(cuda_device, torch.bfloat16) for _ in range(4)]
+    runs = []
+    for _ in range(2):
+        q, k, v = [t.clone().requires_grad_() for t in x[:3]]
+        before = dict(tfa.LAUNCHES)
+        tattn.fused_attention(q, k, v).backward(x[3])
+        torch.cuda.synchronize()
+        assert tfa.LAUNCHES == {key: n + 1 for key, n in before.items()}
+        runs.append([q.grad, k.grad, v.grad])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_short_sequence_attention_raises(cuda_device):
+    q = torch.zeros(1, 2, 512, 64, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
+        tattn.fused_attention(q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(64, 32000), (7, 1001)], ids=["64x32000", "7x1001-unaligned"])
+def test_cuda_cross_entropy_matches_plain_version(cuda_device, dtype, shape):
+    b, v = shape
+    rng = np.random.default_rng(13)
+    logits = torch.from_numpy((3 * rng.normal(size=(b, v))).astype(np.float32)).to(cuda_device, dtype)
+    labels = torch.from_numpy(rng.integers(0, v, size=b)).to(cuda_device)
+    before = tlosses.LAUNCHES
+    x = logits.clone().requires_grad_()
+    loss = tlosses.fused_cross_entropy(x, labels)
+    g = torch.from_numpy(rng.normal(size=b).astype(np.float32)).to(cuda_device)
+    loss.backward(g)
+    torch.cuda.synchronize()
+    assert tlosses.LAUNCHES == before + 1 and tlosses.LAST_DISPATCH["impl"] == "cuda"
+    ref_x = logits.clone().requires_grad_()
+    ref = tlosses.cross_entropy_reference(ref_x, labels)
+    ref.backward(g)
+    torch.testing.assert_close(loss.detach(), ref.detach(), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(x.grad.float(), ref_x.grad.float(), rtol=1e-4,
+                               atol=1e-6 if dtype == torch.float32 else 1e-2)
