@@ -7,7 +7,7 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper GPU
 and the CUDA toolkit. It builds the port's CUDA kernels from the sources
 in the checkout (one nvcc per source, all started together), holds each
 against its plain PyTorch version and times it, then drives the port's
-two paths:
+three paths:
 
 - training: the LM that bench.py trains on a chip (vocab 32000, dim
   1024, 8 layers, 16 heads, ffn 4096, bf16; random weights from seed 0)
@@ -15,7 +15,19 @@ two paths:
   cross-entropy kernels;
 - serving: at the full width and depth of Llama-2-7B, the engine answers
   concurrent requests with a bf16 KV pool and an int8 one through the
-  paged-decode kernel, and one request goes through the HTTP server.
+  paged-decode kernel, and one request goes through the HTTP server;
+- speculative serving: the target and draft LMs of
+  scripts/train_draft_pair.py (target: vocab 32000, dim 1024, 8 layers,
+  8 heads, ffn 2816; draft: dim 256, 2 layers, 4 heads, ffn 704; bf16)
+  train on the Markov corpus at batch 32 x 129 through the
+  short-sequence attention and cross-entropy kernels, then an engine
+  with the draft answers greedy and sampled requests (draft prefill
+  through the short-sequence kernel, verification blocks through the
+  paged-decode kernel) beside an engine without it, and one request goes
+  through HTTP ``/generate_speculative``.
+
+The RMSNorm kernel lies on no model's path (as in the JAX package); it is
+built, held against its plain version and timed.
 
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The line before the last lists the kernels; the last is
@@ -25,6 +37,7 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -34,6 +47,8 @@ import subprocess
 import sys
 import threading
 import time
+from typing import Optional
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -42,10 +57,13 @@ import torch.nn.functional as F
 
 from devspace_tpu_torch import serve
 from devspace_tpu_torch.inference import InferenceEngine
+from devspace_tpu_torch.inference import speculative as spec
 from devspace_tpu_torch.models import transformer as tfm
 from devspace_tpu_torch.ops import _build
+from devspace_tpu_torch.ops import attention as sa
 from devspace_tpu_torch.ops import flash_attention as fa
 from devspace_tpu_torch.ops import losses as xl
+from devspace_tpu_torch.ops import normalization as rn
 from devspace_tpu_torch.ops import paged_attention as pa
 from devspace_tpu_torch.training import data as tdata
 from devspace_tpu_torch.training import trainer as ttrainer
@@ -70,7 +88,7 @@ XENT_RTOL, XENT_ATOL = 1e-5, 1e-5
 # the one kernel of the serving path, and the TPU kernel it replaces
 KERNEL_SOURCE = "devspace_tpu_torch/csrc/paged_decode.cu"
 KERNEL_REPLACES = "devspace_tpu/ops/paged_attention.py:95"  # _kernel
-SOURCES = ("paged_decode", "flash_attention", "cross_entropy")
+SOURCES = ("paged_decode", "flash_attention", "cross_entropy", "attention", "rms_norm")
 # the kernels of the training path: name -> (launch counter, source, the
 # TPU kernel body it replaces)
 TRAIN_KERNELS = {
@@ -93,6 +111,47 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 10
 # flash attention at the bench LM's shape ([B*H, T, D]) and at D = 128
 FLASH_SHAPES = {"bench": (8 * 16, 2048, 64), "d128": (4 * 8, 2048, 128)}
 XENT_SHAPE = (TRAIN_BATCH * TRAIN_SEQ, 32000)
+# the pair scripts/train_draft_pair.py trains and bench.py serves
+# (train_draft_pair.py:47-73), bf16, at that script's batch, sequence,
+# optimizer and corpus
+PAIR_TARGET = tfm.TransformerConfig(
+    vocab_size=32000, dim=1024, n_layers=8, n_heads=8, n_kv_heads=8, ffn_dim=2816,
+    max_seq_len=1024,
+)
+PAIR_DRAFT = tfm.TransformerConfig(
+    vocab_size=32000, dim=256, n_layers=2, n_heads=4, n_kv_heads=4, ffn_dim=704,
+    max_seq_len=1024,
+)
+PAIR_BATCH, PAIR_SEQ, PAIR_LR, PAIR_STEPS = 32, 129, 3e-4, 600
+PAIR_CORPUS = {"active": 512, "noise": 0.02, "seed": 0}
+SPEC_K, SPEC_NEW_TOKENS = 4, 64
+SPEC_PROMPT_LENS = (7, 33, 64, 120, 250, 500)
+# the current token's position in each of the 8 slots of a verification
+# block (None: a parked slot); the last one ends at max_len
+VERIFY_POSITIONS = (8, 64, 250, 563, None, 1, 1019, None)
+# two greedy streams may part only at a near-tie of the target. The bound
+# is measured on the trained target (``logit_path_gaps``): g, the largest
+# logit difference between the [40, D] verification block and [8, D]
+# decode steps at the same positions, and f, between the full-sequence
+# forward (which recomputes the logits where two streams part) and those
+# decode steps. Two paths can order two tokens differently only if their
+# margin is at most 2g, and the recomputed margin is off by at most 2f,
+# so both candidates must lie within NEAR_TIE_GAPS * (g + f) of the
+# recomputed top logit, in absolute logits
+NEAR_TIE_GAPS = 2
+# the paths themselves may differ by bf16 rounding only: logits leave the
+# lm_head product in bf16, one ulp of which is 2^-8 of the value
+LOGIT_PATH_REL = 2.0 ** -6
+# the short-sequence attention kernel at the pair's training shapes
+# ([B*H, T, D]: target, draft) and the RMSNorm shapes
+ATTN_TRAIN_SHAPES = {"target": (32 * 8, 128, 128), "draft": (32 * 4, 128, 64)}
+ATTN_KERNEL = ("devspace_tpu_torch/csrc/attention.cu", "devspace_tpu/ops/attention.py:36")
+RMS_KERNEL = ("devspace_tpu_torch/csrc/rms_norm.cu", "devspace_tpu/ops/normalization.py:24")
+RMS_SHAPES = ((4096, 1024), (4096, 256), (8, 4096), (33, 1001))
+# RMSNorm kernel vs plain version: float32 the same arithmetic summed in
+# another order; bf16 outputs within one bf16 ulp
+RMS_F32_TOL = dict(rtol=1e-5, atol=1e-6)
+RMS_BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-6)
 
 
 def emit(obj: dict) -> None:
@@ -149,6 +208,24 @@ def paged_inputs(seed, lengths, H, Hkv, D, bs, dtype, int8, dev):
     return q, pk.to(dtype), pv.to(dtype), tables, lens, None, None
 
 
+def verify_inputs(seed, dtype, dev):
+    """The paged-decode kernel's inputs as ``decode_block_paged`` makes
+    them for the pair's speculative engine: 8 slots x (spec_k + 1) flat
+    rows, H = Hkv = 8, D = 128, block 64, a table of max_len / 64 = 16
+    blocks per slot repeated for its 5 rows, row (b, j) of length
+    pos_b + j + 1. A parked slot has a zeroed table (scratch block 0)
+    and lengths 1..5."""
+    k1 = SPEC_K + 1
+    lengths = [pos + j + 1 if pos is not None else j + 1
+               for pos in VERIFY_POSITIONS for j in range(k1)]
+    q, pk, pv, tables, lens, _, _ = paged_inputs(
+        seed, lengths, PAIR_TARGET.n_heads, PAIR_TARGET.n_kv_heads, PAIR_TARGET.head_dim, 64,
+        dtype, False, dev)
+    tables = tables[::k1].clone()
+    tables[torch.tensor([pos is None for pos in VERIFY_POSITIONS], device=dev)] = 0
+    return q, pk, pv, tables.repeat_interleave(k1, dim=0).contiguous(), lens, None, None
+
+
 def library_attention(q, pk, pv, tables, lengths, ks, vs):
     """Gather + scaled_dot_product_attention: the library yardstick for
     the kernel (timed here only; the port never calls it)."""
@@ -187,7 +264,8 @@ def phase_parity(dev) -> dict:
     """Kernel vs plain version at main-path shapes: D=128, bs=64; ragged
     lengths (full table >= 2048, partial last block, length 1, dead
     slot); MHA (H=Hkv=32, Llama-2-7B) and GQA (H=32, Hkv=8); float and
-    int8 pools, bf16 and f32."""
+    int8 pools, bf16 and f32. Then the [B*K = 40] verification rows of
+    the speculative path (``verify_inputs``), bf16 and f32."""
     lengths = [2560, 700, 1, 0, 2100]
     errs, head_rel = {}, {}
     for H, Hkv in ((32, 32), (32, 8)):
@@ -210,6 +288,24 @@ def phase_parity(dev) -> dict:
                     assert err <= BF16_MAX_ABS, f"{name}: bf16 max abs error {err}"
                     assert rel <= BF16_HEAD_REL, f"{name}: bf16 per-head relative error {rel}"
                 errs[name], head_rel[name] = err, rel
+    # the speculative path's verification rows
+    for dtype in (torch.bfloat16, torch.float32):
+        args = verify_inputs(3, dtype, dev)
+        assert args[0].shape == (40, 8, 128) and args[3].shape == (40, 16)
+        got = pa.paged_decode_attention(*args)
+        torch.cuda.synchronize()
+        assert pa.LAST_DISPATCH["impl"] == "cuda"
+        ref = pa.paged_decode_reference(*args)
+        diff = (got.float() - ref.float()).abs()
+        err = diff.max().item()
+        rel = (diff.amax(-1) / ref.float().abs().amax(-1)).max().item()
+        name = f"verify/{str(dtype)[6:]}/float"
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, ref, rtol=F32_RTOL, atol=F32_ATOL)
+        else:
+            assert err <= BF16_MAX_ABS, f"{name}: bf16 max abs error {err}"
+            assert rel <= BF16_HEAD_REL, f"{name}: bf16 per-head relative error {rel}"
+        errs[name], head_rel[name] = err, rel
     return errs, head_rel
 
 
@@ -395,12 +491,23 @@ def phase_engine(params, dev, card) -> tuple[dict, InferenceEngine]:
     }, engine
 
 
-def phase_http(engine, card) -> dict:
-    httpd = serve.make_http_server(serve.Server(engine, "llama2-7b"), "127.0.0.1", 0)
+@contextlib.contextmanager
+def http_server(engine, model: str):
+    """The port's HTTP server over ``engine`` on a free local port: yields
+    its base URL, shuts the server down on exit."""
+    httpd = serve.make_http_server(serve.Server(engine, model), "127.0.0.1", 0)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     try:
-        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        yield f"http://127.0.0.1:{httpd.server_address[1]}"
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+
+
+def phase_http(engine, card) -> dict:
+    with http_server(engine, "llama2-7b") as url:
         body = json.dumps({"prompt_ids": list(range(100, 140)), "max_new_tokens": 8}).encode()
         t0 = time.monotonic()
         with urllib.request.urlopen(urllib.request.Request(url + "/generate", data=body),
@@ -410,10 +517,6 @@ def phase_http(engine, card) -> dict:
         elapsed = time.monotonic() - t0
         with urllib.request.urlopen(url + "/healthz", timeout=60) as resp:
             health = json.loads(resp.read())
-    finally:
-        httpd.shutdown()
-        httpd.server_close()
-        thread.join(timeout=30)
     assert len(tokens) == 8 and all(0 <= t < engine.cfg.vocab_size for t in tokens)
     assert health["ok"] and health["requests_failed"] == 0
     return {"phase": "http", "card": card, "tokens": len(tokens), "round_trip_s": elapsed}
@@ -733,6 +836,419 @@ def phase_train(dev, card) -> dict:
     }
 
 
+# -- speculative path ---------------------------------------------------------
+def phase_short_attention_parity(dev) -> dict:
+    """The short-sequence kernel against ``attention_reference``: float32
+    (TF32 off) and bf16, causal and not, at lengths below, at, across and
+    far past the kernel's tile, D = 64 and 128, and the two training
+    shapes; then the autograd route: the Function's grads are the plain
+    version's."""
+    out = {}
+    shapes = [((2, 3, t, d), f"T{t}/D{d}") for t in (1, 7, 37, 64, 128, 200, 256, 512, 768, 1024)
+              for d in (64, 128)]
+    shapes += [((32, bh // 32, t, d), name) for name, (bh, t, d) in ATTN_TRAIN_SHAPES.items()]
+    for shape, name in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                q, k, v = flash_inputs(7, shape, dtype, dev)[:3]
+                before = sa.LAUNCHES
+                got = sa.fused_attention(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                assert sa.LAUNCHES == before + 1 and sa.LAST_DISPATCH["impl"] == "cuda"
+                ref = sa.attention_reference(q, k, v, causal)
+                key = f"{name}/{str(dtype)[6:]}/{'causal' if causal else 'full'}"
+                out[key] = kernel_err(got.flatten(0, 1), ref.flatten(0, 1), key)
+    worst_grad = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        base = flash_inputs(8, (4, 100, 8, 64), dtype, dev)  # [B, T, H, D], as the model hands over
+        grads = []
+        for fn in (sa.fused_attention, sa.attention_reference):
+            q, k, v = [x.clone().requires_grad_() for x in base[:3]]
+            fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True).backward(
+                base[3].transpose(1, 2))
+            grads.append((q.grad, k.grad, v.grad))
+        for a, b in zip(*grads):
+            worst_grad = max(worst_grad, (a.float() - b.float()).abs().max().item())
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    return {"errors": {k: v for k, v in out.items() if "bfloat16" in k or "target" in k},
+            "max_abs_err_f32": max(e for k, (e, _) in out.items() if "float32" in k),
+            "max_head_rel_bf16": max(h for k, (_, h) in out.items() if "bfloat16" in k),
+            "cases": len(out), "grad_max_abs_diff": worst_grad}
+
+
+def rms_inputs(seed, shape, dtype, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    w = 1 + 0.1 * torch.randn(shape[-1], generator=g, device=dev)
+    return x, w, torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
+def phase_rms_norm_parity(dev) -> dict:
+    """The RMSNorm kernel against ``rms_norm_reference``, float32 and
+    bf16, at the repo's widths and one width that is no multiple of 8;
+    forward, and the analytic backward through the Function against
+    autograd through the plain version."""
+    out = {}
+    for shape in RMS_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, g = rms_inputs(9, shape, dtype, dev)
+            before = rn.LAUNCHES
+            xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
+            got = rn.fused_rms_norm(xk, wk, block_rows=min(256, shape[0]))
+            got.backward(g)
+            torch.cuda.synchronize()
+            assert rn.LAUNCHES == before + 1 and rn.LAST_DISPATCH["impl"] == "cuda"
+            xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+            ref = rn.rms_norm_reference(xr, wr)
+            ref.backward(g)
+            f32 = dtype == torch.float32
+            torch.testing.assert_close(got.detach(), ref.detach(), **(RMS_F32_TOL if f32 else RMS_BF16_TOL))
+            # grads: the same formula in float32 on both sides of autograd
+            torch.testing.assert_close(xk.grad, xr.grad, rtol=1e-4 if f32 else 2.0 ** -6,
+                                       atol=1e-5 if f32 else 2e-2)
+            torch.testing.assert_close(wk.grad, wr.grad, rtol=1e-4 if f32 else 1e-3,
+                                       atol=1e-4 if f32 else 1e-2 * shape[0] ** 0.5)
+            out[f"{shape[0]}x{shape[1]}/{str(dtype)[6:]}"] = {
+                "y": (got.detach().float() - ref.detach().float()).abs().max().item(),
+                "dx": (xk.grad.float() - xr.grad.float()).abs().max().item(),
+                "dw": (wk.grad - wr.grad).abs().max().item(),
+            }
+    return out
+
+
+def phase_spec_kernel_timing(dev) -> dict:
+    """The two kernels beside their plain versions, one library call and
+    their bounds: attention at the target's training shape (bf16, causal,
+    [256, 128, 128]) and the draft's; RMSNorm at [4096, 1024] bf16."""
+    out = {}
+    for name, (bh, t, d) in ATTN_TRAIN_SHAPES.items():
+        q, k, v = flash_inputs(10, (32, bh // 32, t, d), torch.bfloat16, dev)[:3]
+        ms, _ = device_ms(lambda: sa.attention_fwd(q, k, v, True), 50)
+        plain_ms, _ = device_ms(lambda: sa.attention_reference(q, k, v, True), 20)
+        lib_ms, _ = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 50)
+        lib_err = (F.scaled_dot_product_attention(q, k, v, is_causal=True).float()
+                   - sa.attention_fwd(q, k, v, True).float()).abs().max().item()
+        # q, k, v read and o written once; 4 D flops per live pair
+        bound_ms, bound_by = bound_of(4 * bh * t * d * 2, 4 * d * bh * t * (t + 1) // 2,
+                                      BF16_FLOPS_PER_S)
+        out[f"attention_{name}"] = {"kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                                    "bound_ms": bound_ms, "bound_by": bound_by,
+                                    "library_max_abs_err": lib_err}
+    rows, d = RMS_SHAPES[0]
+    x, w, _ = rms_inputs(11, (rows, d), torch.bfloat16, dev)
+    wb = w.to(torch.bfloat16)  # the library call takes the weight in x's dtype
+    ms, _ = device_ms(lambda: rn.rms_norm_fwd(x, w), 100)
+    plain_ms, _ = device_ms(lambda: rn.rms_norm_reference(x, w), 50)
+    lib_ms, _ = device_ms(lambda: F.rms_norm(x, (d,), wb, 1e-5), 100)
+    # x read and y written once, the weight read once; ~4 f32 operations
+    # per element
+    bound_ms, bound_by = bound_of(2 * rows * d * 2 + d * 4, 4 * rows * d, F32_FLOPS_PER_S)
+    out["rms_norm"] = {"kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by}
+    return out
+
+
+def reset_counts() -> None:
+    reset_train_counts()
+    sa.LAUNCHES = rn.LAUNCHES = pa.LAUNCHES = 0
+
+
+def serving_copy(params: dict) -> dict:
+    return ttrainer.tree_like(params, [p.detach() for p in ttrainer.param_leaves(params)])
+
+
+def train_one(name: str, cfg, sample, seed: int, dev) -> tuple[dict, dict]:
+    """``train_one`` of scripts/train_draft_pair.py: Adam steps on the
+    corpus from seeded params -> (trained params, report). Each step runs
+    the short-sequence attention kernel once per layer (T = 128) and the
+    loss kernel once; flash attention never."""
+    params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+    for p in ttrainer.param_leaves(params):
+        p.requires_grad_()
+    opt = ttrainer.adam(PAIR_LR)
+    state = ttrainer.init_train_state(params, opt)
+    inner = ttrainer.make_lm_train_step(tfm.forward, cfg, opt)
+    losses = []
+
+    def step_fn(state, batch):
+        state, loss = inner(state, batch)
+        losses.append(loss)
+        return state, loss
+
+    batches = (sample(PAIR_BATCH, PAIR_SEQ, seed=seed * 100_000 + s) for s in range(PAIR_STEPS))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = ttrainer.train_loop(step_fn, state, batches)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = {"attention": sa.LAUNCHES, **train_counts()}
+    expect = {"attention": cfg.n_layers * PAIR_STEPS, "flash_fwd": 0, "flash_bwd_dq": 0,
+              "flash_bwd_dkv": 0, "cross_entropy": PAIR_STEPS}
+    assert counts == expect, (name, counts, expect)
+    assert sa.LAST_DISPATCH["impl"] == "cuda" and xl.LAST_DISPATCH["impl"] == "cuda"
+    losses = [x.item() for x in losses]
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], (losses[0], losses[-1])
+    n_params = sum(p.numel() for p in ttrainer.param_leaves(params))
+    return serving_copy(state["params"]), {
+        "params_m": n_params / 1e6, "steps": PAIR_STEPS,
+        "step_ms": elapsed * 1e3 / PAIR_STEPS,  # sampling each batch on the host included
+        "tok_per_s": PAIR_BATCH * (PAIR_SEQ - 1) * PAIR_STEPS / elapsed,
+        "first_loss": losses[0], "last_loss": losses[-1], "launches": counts,
+    }
+
+
+def greedy_agreement(t_params, d_params, sample) -> dict:
+    """``greedy_agreement`` of scripts/train_draft_pair.py: held-out
+    greedy next-token agreement between target and draft, and each
+    model's accuracy against the corpus, at positions with full order-2
+    context (T = 64: the short-sequence kernel)."""
+    tokens = sample(64, 65, seed=9)
+    with torch.no_grad():
+        tp = tfm.forward(t_params, tokens[:, :-1], PAIR_TARGET).argmax(-1)[:, 1:]
+        dp = tfm.forward(d_params, tokens[:, :-1], PAIR_DRAFT).argmax(-1)[:, 1:]
+    actual = tokens[:, 2:]
+    return {"target_draft_agreement": (tp == dp).float().mean().item(),
+            "target_accuracy": (tp == actual).float().mean().item(),
+            "draft_accuracy": (dp == actual).float().mean().item()}
+
+
+def phase_train_pair(dev, card) -> tuple[dict, dict, dict]:
+    sample = tdata.markov_sampler(**PAIR_CORPUS, device=dev)
+    t_params, t_report = train_one("target", PAIR_TARGET, sample, 0, dev)
+    d_params, d_report = train_one("draft", PAIR_DRAFT, sample, 1, dev)
+    before = sa.LAUNCHES
+    agreement = greedy_agreement(t_params, d_params, sample)
+    assert sa.LAUNCHES - before == PAIR_TARGET.n_layers + PAIR_DRAFT.n_layers
+    return {
+        "phase": "train_pair", "card": card, "batch": PAIR_BATCH, "seq": PAIR_SEQ,
+        "optimizer": f"adam({PAIR_LR})", "corpus": PAIR_CORPUS,
+        "target": t_report, "draft": d_report, **agreement,
+        "attention_launches": t_report["launches"]["attention"] + d_report["launches"]["attention"],
+        "xent_launches": t_report["launches"]["cross_entropy"] + d_report["launches"]["cross_entropy"],
+    }, t_params, d_params
+
+
+def phase_spec_small_reference(dev) -> dict:
+    """Float32 TINY (two layers) on the card with TF32 off:
+    ``generate_speculative`` equals ``generate`` token for token with a
+    same-weights and an unrelated draft, and the engine with a draft
+    equals the engine without, exactly. Every run stays under 30 new
+    tokens (the TINY/seed-0 trajectory meets an exact float32 tie near
+    38)."""
+    cfg = dataclasses.replace(tfm.TINY, dtype=torch.float32)
+    params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    other = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(123))
+    prompt = torch.tensor([[5, 1, 4], [2, 9, 9]], device=dev)
+    with torch.no_grad():
+        ref = tfm.generate(params, prompt, cfg, 24)
+    rates = {}
+    for name, draft in (("same", params), ("unrelated", other)):
+        got, stats = spec.generate_speculative(params, draft, prompt, cfg, cfg, 24, k=4)
+        assert torch.equal(got, ref), f"generate_speculative ({name} draft) left greedy generate"
+        rates[name] = stats.acceptance_rate
+    assert rates["same"] > 0.8, rates
+    requests = [([5, 1, 4], 24), ([2, 9, 9], 20), ([7, 3], 16), (list(range(1, 21)), 12)]
+    streams = {}
+    for name, kw in (("plain", {}), ("same", dict(draft_params=params, draft_cfg=cfg, spec_k=3)),
+                     ("unrelated", dict(draft_params=other, draft_cfg=cfg, spec_k=4, spec_depth=2))):
+        engine = InferenceEngine(params, cfg, device=dev, max_slots=2, max_len=64, **kw).start()
+        try:
+            handles = [engine.submit(p, n) for p, n in requests]
+            streams[name] = [h.result(timeout=300) for h in handles]
+            st = engine.stats()
+        finally:
+            engine.stop()
+        assert st["requests_failed"] == 0
+        assert (st["spec_rounds"] > 0) == (name != "plain")
+    assert streams["same"] == streams["plain"] and streams["unrelated"] == streams["plain"]
+    assert streams["plain"][0] == ref[0].tolist()
+    return {"generate_speculative_acceptance": rates, "engine_streams_equal": True}
+
+
+def logit_path_gaps(t_params, seqs, dev) -> dict:
+    """The trained target's logits at the last spec_k + 1 positions of
+    each sequence, computed three ways from one prefilled pool laid out
+    as the engine's (8 slots, parked ones with a zeroed table and
+    positions from 0): spec_k + 1 ``decode_tokens_paged`` steps of 8
+    rows, one ``decode_block_paged`` of 40 rows, and the full-sequence
+    ``forward``. -> the largest absolute differences, which must be bf16
+    rounding (LOGIT_PATH_REL of the largest logit): a verification row
+    that read another row's table or length would differ by whole
+    logits."""
+    cfg, bs, k1, B = PAIR_TARGET, 64, SPEC_K + 1, 8
+    mb = cfg.max_seq_len // bs
+    n = len(seqs)
+    pool = tfm.init_paged_pool(cfg, 1 + B * mb, bs, None, dev)
+    tables = torch.zeros((B, mb), dtype=torch.int32, device=dev)
+    tables[:n] = torch.arange(1, 1 + n * mb, dtype=torch.int32, device=dev).view(n, mb)
+    tokens = torch.zeros((B, k1), dtype=torch.int64, device=dev)
+    positions = torch.arange(k1, device=dev).repeat(B, 1)
+    full = []
+    with torch.no_grad():
+        for i, seq in enumerate(seqs):
+            toks = torch.tensor(seq, device=dev)
+            start = len(seq) - k1
+            tfm.prefill_chunk_paged(t_params, pool, tables[i], toks[:start], 0, cfg)
+            tokens[i], positions[i] = toks[start:], torch.arange(start, len(seq), device=dev)
+            full.append(tfm.forward(t_params, toks[None], cfg)[0, start:].float())
+        steps = torch.stack([
+            tfm.decode_tokens_paged(t_params, pool, tables, tokens[:, j], positions[:, j], cfg)[0]
+            for j in range(k1)], dim=1)[:n]
+        block = tfm.decode_block_paged(t_params, pool, tables, tokens, positions, cfg)[0][:n]
+    gaps = {"verify_vs_decode": (block - steps).abs().max().item(),
+            "forward_vs_decode": (torch.stack(full) - steps).abs().max().item(),
+            "max_abs_logit": steps.abs().max().item()}
+    ceiling = LOGIT_PATH_REL * gaps["max_abs_logit"]
+    assert max(gaps["verify_vs_decode"], gaps["forward_vs_decode"]) <= ceiling, (gaps, ceiling)
+    return gaps
+
+
+def near_tie(t_params, prompt, a, b, bound) -> Optional[dict]:
+    """None for two equal greedy streams. Where they part: the target's
+    logits at the first differing position, recomputed by one
+    full-sequence forward over the common prefix; both candidates must
+    lie within ``bound`` (absolute logits, from ``logit_path_gaps``) of
+    the top logit."""
+    if a == b:
+        return None
+    pos = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+    toks = torch.tensor([prompt + a[:pos]], device=t_params["embed"].device)
+    with torch.no_grad():
+        logits = tfm.forward(t_params, toks, PAIR_TARGET)[0, -1]
+    top = logits.max().item()
+    gap = top - min(logits[a[pos]].item(), logits[b[pos]].item())
+    assert gap <= bound, (f"streams part at {pos}: tokens {a[pos]} / {b[pos]} lie {gap} below "
+                          f"the top logit {top}, beyond the near-tie bound {bound}")
+    return {"position": pos, "tokens": [a[pos], b[pos]], "gap": gap, "bound": bound}
+
+
+def spec_http(engine, body: dict) -> tuple[int, dict]:
+    """(status, reply) of one POST to ``/generate_speculative``."""
+    with http_server(engine, "draft-pair") as url:
+        req = urllib.request.Request(url + "/generate_speculative", data=json.dumps(body).encode())
+        try:
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                return resp.status, json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+
+def drive_spec_engine(engine, requests) -> dict:
+    """Submit every request at once and wait for all, with the kernels'
+    launches, decode steps, spec dispatches and draft prefills counted
+    over exactly this run."""
+    reset_counts()
+    before = engine.stats()
+    t0 = time.monotonic()
+    handles = [engine.submit(p, n, **kw) for p, n, kw in requests]
+    results = [h.result(timeout=600) for h in handles]
+    wall = time.monotonic() - t0
+    st = engine.stats()
+    delta = {k: st[k] - before[k] for k in ("decode_steps", "spec_dispatches", "draft_prefills",
+                                            "spec_rounds", "spec_proposed", "spec_accepted",
+                                            "spec_committed", "tokens_generated",
+                                            "spec_draft_s", "spec_verify_s", "spec_readback_s")}
+    assert st["requests_failed"] == 0
+    # every decode step and every verification block is one paged-decode
+    # launch per target layer; every draft prefill one short-attention
+    # launch per draft layer (the target's prefill runs no kernel)
+    verify = delta["spec_dispatches"] * engine.spec_depth
+    assert pa.LAUNCHES == engine.cfg.n_layers * (delta["decode_steps"] + verify), (pa.LAUNCHES, delta)
+    if engine.draft_cfg is not None:
+        assert sa.LAUNCHES == engine.draft_cfg.n_layers * delta["draft_prefills"], (sa.LAUNCHES, delta)
+    else:
+        assert sa.LAUNCHES == 0
+    return {"results": results, "wall_s": wall, "tok_per_s": delta["tokens_generated"] / wall,
+            "paged_decode_launches": pa.LAUNCHES, "attention_launches": sa.LAUNCHES, **delta}
+
+
+def phase_spec_engine(t_params, d_params, dev, card) -> dict:
+    """The trained pair through an engine with the draft and one without:
+    six greedy requests with corpus prompts, then one sampled request
+    twice, then HTTP."""
+    sample = tdata.markov_sampler(**PAIR_CORPUS, device="cpu")
+    prompts = [sample(1, n, seed=100 + i)[0].tolist() for i, n in enumerate(SPEC_PROMPT_LENS)]
+    requests = [(p, SPEC_NEW_TOKENS, {}) for p in prompts]
+    kw = dict(device=dev, max_slots=8, max_len=1024, block_size=64)
+    engines = {
+        "spec": InferenceEngine(t_params, PAIR_TARGET, draft_params=d_params, draft_cfg=PAIR_DRAFT,
+                                spec_k=SPEC_K, spec_depth=1, **kw),
+        "plain": InferenceEngine(t_params, PAIR_TARGET, **kw),
+    }
+    runs = {}
+    try:
+        for name, engine in engines.items():
+            engine.start()
+            engine.submit(prompts[0], 4).result(timeout=600)  # warm-up, not counted
+            runs[name] = drive_spec_engine(engine, requests)
+            assert [len(r) for r in runs[name]["results"]] == [SPEC_NEW_TOKENS] * len(requests)
+        assert runs["spec"]["spec_rounds"] > 0 and runs["plain"]["spec_rounds"] == 0
+        gaps = logit_path_gaps(
+            t_params, [p + r for p, r in zip(prompts, runs["plain"]["results"])], dev)
+        tie_bound = NEAR_TIE_GAPS * (gaps["verify_vs_decode"] + gaps["forward_vs_decode"])
+        ties = [near_tie(t_params, p, a, b, tie_bound) for p, a, b in
+                zip(prompts, runs["plain"]["results"], runs["spec"]["results"])]
+        ties = [t for t in ties if t is not None]
+        # the standalone path on the shorter prompts, one at a time: both
+        # models prefill at the prompt's own length through the
+        # short-sequence kernel, and the stream is the plain engine's
+        reset_counts()
+        standalone = spec.SpecStats()
+        for p, want in zip(prompts[:4], runs["plain"]["results"]):
+            got, st = spec.generate_speculative(
+                t_params, d_params, torch.tensor([p], device=dev), PAIR_TARGET, PAIR_DRAFT,
+                SPEC_NEW_TOKENS, k=SPEC_K)
+            tie = near_tie(t_params, p, want, got[0].tolist(), tie_bound)
+            ties += [tie] if tie else []
+            standalone.accepted += st.accepted
+            standalone.proposed += st.proposed
+        standalone_launches = sa.LAUNCHES
+        assert standalone_launches == 4 * (PAIR_TARGET.n_layers + PAIR_DRAFT.n_layers)
+        # one sampled request, twice: it rides the speculative path and
+        # repeats token for token from its seed
+        sampled = [(prompts[2], 48, {"temperature": 0.8, "seed": 7})]
+        first = drive_spec_engine(engines["spec"], sampled)
+        again = drive_spec_engine(engines["spec"], sampled)
+        assert first["spec_rounds"] > 0 and len(first["results"][0]) == 48
+        assert first["results"] == again["results"], "a sampled stream must repeat from its seed"
+        body = {"prompt_ids": prompts[3], "max_new_tokens": 16}
+        code, reply = spec_http(engines["spec"], body)
+        assert code == 200 and reply["speculative"]["rounds"] > 0, (code, reply)
+        http_tie = near_tie(t_params, prompts[3], runs["spec"]["results"][3][:16], reply["tokens"],
+                            tie_bound)
+        code_plain, _ = spec_http(engines["plain"], body)
+        assert code_plain == 501, code_plain
+        code_bad, _ = spec_http(engines["spec"], {**body, "temperature": 0.0})
+        assert code_bad == 400, code_bad
+    finally:
+        for engine in engines.values():
+            engine.stop()
+    line = {"phase": "spec_engine", "model": "draft-pair", "card": card, "spec_k": SPEC_K,
+            "prompt_lens": list(SPEC_PROMPT_LENS), "max_new_tokens": SPEC_NEW_TOKENS,
+            "streams_identical": not ties, "near_ties": ties, "near_tie_bound": tie_bound,
+            "logit_path_gaps": gaps, "logit_path_rel": LOGIT_PATH_REL,
+            "acceptance_rate": runs["spec"]["spec_accepted"] / runs["spec"]["spec_proposed"],
+            "tokens_per_round": runs["spec"]["spec_committed"] / runs["spec"]["spec_rounds"],
+            # host clock inside the engine's own rounds, per dispatch: the
+            # draft scan and the verify block are enqueue times, the
+            # readback waits for the device to finish both
+            "dispatch_host_ms": {
+                part: runs["spec"][f"spec_{part}_s"] * 1e3 / runs["spec"]["spec_dispatches"]
+                for part in ("draft", "verify", "readback")},
+            "generate_speculative": {"prompt_lens": list(SPEC_PROMPT_LENS[:4]),
+                                     "acceptance_rate": standalone.acceptance_rate,
+                                     "attention_launches": standalone_launches},
+            "sampled": {"tokens": 48, "repeats": True, "spec_rounds": first["spec_rounds"],
+                        "acceptance_rate": first["spec_accepted"] / first["spec_proposed"]},
+            "http": {"status": 200, "speculative": reply["speculative"], "near_tie": http_tie,
+                     "no_draft": code_plain, "sampling_field": code_bad}}
+    for name, run in runs.items():
+        line[name] = {k: v for k, v in run.items() if k != "results"}
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card", file=sys.stderr)
@@ -778,6 +1294,24 @@ def main() -> int:
     emit(train_line)
     torch.cuda.empty_cache()
 
+    attn_parity = phase_short_attention_parity(dev)
+    emit({"phase": "short_attention_parity", "card": card, "f32_tol": [F32_RTOL, F32_ATOL],
+          "bf16_head_rel": BF16_HEAD_REL, **attn_parity})
+    rms_parity = phase_rms_norm_parity(dev)
+    emit({"phase": "rms_norm_parity", "card": card, "f32_tol": RMS_F32_TOL,
+          "bf16_tol": RMS_BF16_TOL, "max_abs_err": rms_parity})
+    spec_timing = phase_spec_kernel_timing(dev)
+    emit({"phase": "spec_kernel_timing", "card": card,
+          "shape": f"attention bf16 causal [B*H, T, D] {ATTN_TRAIN_SHAPES}; "
+                   f"rms_norm bf16 {list(RMS_SHAPES[0])}", **spec_timing})
+    pair_line, t_params, d_params = phase_train_pair(dev, card)
+    emit(pair_line)
+    emit({"phase": "spec_small_reference", "card": card, **phase_spec_small_reference(dev)})
+    spec_line = phase_spec_engine(t_params, d_params, dev, card)
+    emit(spec_line)
+    del t_params, d_params
+    torch.cuda.empty_cache()
+
     t0 = time.monotonic()
     gen = torch.Generator(device=dev).manual_seed(0)
     params = tfm.init_params(tfm.LLAMA2_7B, gen)
@@ -801,13 +1335,22 @@ def main() -> int:
     for variant, line in (("bf16", engine_line), ("int8", int8_line)):
         t = timing[variant]
         pool = "float" if variant == "bf16" else "int8"
+        # the speculative path's pool is bf16: its decode steps and its
+        # [B*K] verification blocks
+        by_path = {"serving": line["launches"]}
+        err_by_path = {"serving": max(errs[f"mha/bfloat16/{pool}"], errs[f"gqa/bfloat16/{pool}"])}
+        if variant == "bf16":
+            by_path["speculative"] = spec_line["spec"]["paged_decode_launches"]
+            err_by_path["speculative"] = errs["verify/bfloat16/float"]
         kernels.append({
             "name": f"paged_decode[{variant} pool]",
             "route": "cuda",
             "source": KERNEL_SOURCE,
             "replaces": KERNEL_REPLACES,
-            "launches": line["launches"],
-            "max_abs_err": max(errs[f"mha/bfloat16/{pool}"], errs[f"gqa/bfloat16/{pool}"]),
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(err_by_path.values()),
+            "max_abs_err_by_path": err_by_path,
             "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
@@ -833,7 +1376,28 @@ def main() -> int:
             # computes either kernel's part alone
             entry["library_ms"] = train_timing["bwd_pair"]["library_ms"]
             entry["library_covers"] = "dq, dk and dv together (SDPA backward)"
+        if name == "cross_entropy":
+            entry["launches_by_path"] = {"train": entry["launches"],
+                                         "train_pair": pair_line["xent_launches"]}
+            entry["launches"] = sum(entry["launches_by_path"].values())
         kernels.append(entry)
+    attn_paths = {"train_pair": pair_line["attention_launches"],
+                  "spec_engine": spec_line["spec"]["attention_launches"],
+                  "generate_speculative": spec_line["generate_speculative"]["attention_launches"]}
+    for name, (source, replaces), paths, err, t in (
+        ("short_attention", ATTN_KERNEL, attn_paths,
+         attn_parity["errors"]["target/bfloat16/causal"][0], spec_timing["attention_target"]),
+        # on no model's path, as in the JAX package: launched by the
+        # parity and timing phases only
+        ("rms_norm", RMS_KERNEL, {}, rms_parity["4096x1024/bfloat16"]["y"],
+         spec_timing["rms_norm"]),
+    ):
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(paths.values()), "launches_by_path": paths, "max_abs_err": err,
+            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        })
     emit({"phase": "done", "seconds": time.monotonic() - t_start, "card": card})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -48,129 +48,15 @@
 // the steps of a tile, and runs mma.sync through wmma rather than
 // wgmma: those are the known gaps to the bound.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "tile.cuh"  // tiles, tile products, row reductions
 
 namespace {
-
-using bf16 = __nv_bfloat16;
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr float kNegInf = -1e30f;  // the reference's NEG_INF mask value
-
-template <typename T>
-struct Tile;
-template <>
-struct Tile<bf16> {
-  static constexpr int rows = 64;
-};
-template <>
-struct Tile<float> {
-  static constexpr int rows = 32;
-};
-
-__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_float<bf16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to()
-}
-
-// Shared-memory row strides, padded by 16 bytes so that neighbouring rows
-// start in other banks (the tile products and the row loops read down
-// columns); 16 bytes keep every wmma fragment 32-byte aligned.
-template <typename T, int N>
-struct Ld {
-  static constexpr int value = N + 16 / static_cast<int>(sizeof(T));
-};
-
-// Rows row0 .. row0+R-1 of a [T, D] matrix into dst [R, ld D] with 16-byte
-// vectors; rows at or past T are zero-filled.
-template <typename T, int D, int R>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, int row0,
-                                          int t_len) {
-  constexpr int kVec = D * static_cast<int>(sizeof(T)) / 16;  // per row
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-  uint4* d = reinterpret_cast<uint4*>(dst);
-  for (int i = threadIdx.x; i < R * kVec; i += kThreads) {
-    const int r = i / kVec;
-    const int c = i - r * kVec;
-    const int row = row0 + r;
-    d[r * (kVec + 1) + c] = row < t_len ? s[static_cast<size_t>(row) * kVec + c]
-                                        : make_uint4(0u, 0u, 0u, 0u);
-  }
-}
 
 template <int R>
 __device__ __forceinline__ void load_vec(float* dst, const float* src,
                                          int row0, int t_len) {
   for (int i = threadIdx.x; i < R; i += kThreads)
     dst[i] = row0 + i < t_len ? src[row0 + i] : 0.f;
-}
-
-// C[M, N] (f32, shared) = (accumulate ? C : 0) + op(A) op(B), op(A) [M, K]
-// and op(B) [K, N]. TA: A is stored [K, M] (lda = M's stride), else
-// [M, K]; TB: B is stored [N, K], else [K, N]. All row-major in shared
-// memory. Every 16x16 output tile belongs to one warp, the same warp in
-// every call with the same M and N.
-template <bool TA, bool TB, int M, int N, int K>
-__device__ __forceinline__ void tile_mma(const bf16* A, int lda, const bf16* B,
-                                         int ldb, float* C, int ldc,
-                                         bool accumulate) {
-  using namespace nvcuda;
-  using LayoutA =
-      typename std::conditional<TA, wmma::col_major, wmma::row_major>::type;
-  using LayoutB =
-      typename std::conditional<TB, wmma::col_major, wmma::row_major>::type;
-  constexpr int kTilesN = N / 16;
-  const int warp = threadIdx.x >> 5;
-  for (int t = warp; t < (M / 16) * kTilesN; t += kWarps) {
-    const int tm = t / kTilesN;
-    const int tn = t - tm * kTilesN;
-    float* cp = C + tm * 16 * ldc + tn * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    if (accumulate)
-      wmma::load_matrix_sync(c, cp, ldc, wmma::mem_row_major);
-    else
-      wmma::fill_fragment(c, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < K; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayoutA> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayoutB> b;
-      wmma::load_matrix_sync(a, TA ? A + kk * lda + tm * 16 : A + tm * 16 * lda + kk, lda);
-      wmma::load_matrix_sync(b, TB ? B + tn * 16 * ldb + kk : B + kk * ldb + tn * 16, ldb);
-      wmma::mma_sync(c, a, b, c);
-    }
-    wmma::store_matrix_sync(cp, c, ldc, wmma::mem_row_major);
-  }
-}
-
-// The same product in scalar f32 (one thread per output element).
-template <bool TA, bool TB, int M, int N, int K>
-__device__ __forceinline__ void tile_mma(const float* A, int lda,
-                                         const float* B, int ldb, float* C,
-                                         int ldc, bool accumulate) {
-  for (int i = threadIdx.x; i < M * N; i += kThreads) {
-    const int m = i / N;
-    const int n = i - m * N;
-    float acc = accumulate ? C[m * ldc + n] : 0.f;
-#pragma unroll 8
-    for (int k = 0; k < K; ++k) {
-      const float a = TA ? A[k * lda + m] : A[m * lda + k];
-      const float b = TB ? B[n * ldb + k] : B[k * ldb + n];
-      acc = fmaf(a, b, acc);
-    }
-    C[m * ldc + n] = acc;
-  }
 }
 
 // An [M, N] f32 accumulator the block owns across its loop (dq, dk, dv:
@@ -250,25 +136,6 @@ struct Acc<float, M, N> {
 
   __device__ __forceinline__ const float* to_smem(float*, int) { return p; }
 };
-
-__device__ __forceinline__ bool live(int q_pos, int k_pos, int t_len,
-                                     int causal) {
-  return k_pos < t_len && q_pos < t_len && (!causal || q_pos >= k_pos);
-}
-
-// Reductions over the kTPR neighbouring lanes that share one row.
-template <int kTPR>
-__device__ __forceinline__ float group_max(float v) {
-  for (int o = kTPR / 2; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-template <int kTPR>
-__device__ __forceinline__ float group_sum(float v) {
-  for (int o = kTPR / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // ---------------------------------------------------------------- forward
 template <typename T, int D>
@@ -560,18 +427,6 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ----------------------------------------------------------------- launch
-// Dynamic shared memory beyond 48 KB, and the largest shared-memory share
-// of the SM's on-chip memory, so that as many blocks fit on an SM as
-// their shared memory allows.
-template <typename K>
-cudaError_t prepare(K kernel, size_t smem) {
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                       cudaSharedmemCarveoutMaxShared);
-  if (e != cudaSuccess || smem <= 48 * 1024) return e;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, int bh, int t_len, int causal,
@@ -624,26 +479,6 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// Returns LAUNCH<T, D>(args...) for the runtime dtype flag `is_bf16` and
-// head dim `d`; head dims other than 16, 32, 64 and 128 are refused.
-#define FLASH_DISPATCH(LAUNCH, ...)                                         \
-  switch (d) {                                                              \
-    case 16:                                                                \
-      return is_bf16 ? LAUNCH<bf16, 16>(__VA_ARGS__)                        \
-                     : LAUNCH<float, 16>(__VA_ARGS__);                      \
-    case 32:                                                                \
-      return is_bf16 ? LAUNCH<bf16, 32>(__VA_ARGS__)                        \
-                     : LAUNCH<float, 32>(__VA_ARGS__);                      \
-    case 64:                                                                \
-      return is_bf16 ? LAUNCH<bf16, 64>(__VA_ARGS__)                        \
-                     : LAUNCH<float, 64>(__VA_ARGS__);                      \
-    case 128:                                                               \
-      return is_bf16 ? LAUNCH<bf16, 128>(__VA_ARGS__)                       \
-                     : LAUNCH<float, 128>(__VA_ARGS__);                     \
-    default:                                                                \
-      return cudaErrorInvalidValue;                                         \
-  }
-
 }  // namespace
 
 // Plain C entry points (bound with ctypes). is_bf16: every [BH, T, D]
@@ -653,7 +488,7 @@ extern "C" int flash_fwd(int is_bf16, const void* q, const void* k,
                          const void* v, void* o, void* lse, int bh, int t_len,
                          int d, int causal, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(launch_fwd, q, k, v, o, lse, bh, t_len, causal, st)
+  TILE_DISPATCH(launch_fwd, q, k, v, o, lse, bh, t_len, causal, st)
 }
 
 extern "C" int flash_bwd_dq(int is_bf16, const void* q, const void* k,
@@ -661,7 +496,7 @@ extern "C" int flash_bwd_dq(int is_bf16, const void* q, const void* k,
                             const void* delta, void* dq, int bh, int t_len,
                             int d, int causal, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, bh, t_len, causal,
+  TILE_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, bh, t_len, causal,
                  st)
 }
 
@@ -670,6 +505,6 @@ extern "C" int flash_bwd_dkv(int is_bf16, const void* q, const void* k,
                              const void* delta, void* dk, void* dv, int bh,
                              int t_len, int d, int causal, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, bh, t_len,
+  TILE_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, bh, t_len,
                  causal, st)
 }

@@ -1,8 +1,8 @@
 """Continuous-batching inference engine (iteration-level scheduling).
 
 Counterpart of ``devspace_tpu/inference/engine.py`` as that engine runs
-with ``prefix_cache=False``, ``kv_tier=None``, no draft model,
-``dispatch_depth=1`` and ``metrics=False``:
+with ``prefix_cache=False``, ``kv_tier=None``, ``dispatch_depth=1`` and
+``metrics=False``:
 
 - **Paged KV cache** (vLLM-style): K/V live in a block pool
   ``[layers, n_blocks, kv_heads, block_size, head_dim]`` with per-slot
@@ -22,9 +22,18 @@ with ``prefix_cache=False``, ``kv_tier=None``, no draft model,
   chunk. A slot that finishes mid-chunk wastes at most chunk_max-1
   tokens (truncated host-side; every position is rewritten in the same
   step that first attends to it).
+- **Speculative decoding** (with ``draft_params``): slots that have a
+  seeded draft cache ride one speculative dispatch per iteration — the
+  draft proposes ``spec_k`` tokens per slot from a dense per-slot cache,
+  the target scores them in ONE paged verification block
+  (``decode_block_paged``) and 1..``spec_k``+1 tokens commit per slot;
+  the other ready slots take the plain decode chunk in the same
+  iteration. Greedy streams are those of plain decoding, token for token.
 
-Every decode step's attention runs through the paged-decode CUDA kernel
-when the engine lives on the card (``ops/paged_attention.py``).
+Every decode step's and every verification block's attention runs
+through the paged-decode CUDA kernel when the engine lives on the card
+(``ops/paged_attention.py``), and the draft's prefill through the
+short-sequence attention kernel (``ops/attention.py``).
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ import torch
 from ..device import resolve_device
 from ..models import transformer as tfm
 from .sampling import sample_tokens
+from .speculative import _draft_propose, _draft_propose_sampled, spec_accept_commit
 
 log = logging.getLogger(__name__)
 
@@ -117,11 +127,12 @@ class Request:
 
 class _Slot:
     __slots__ = ("req", "length", "remaining", "last_token", "ready",
-                 "prefill_pos", "prompt", "admitted_at")
+                 "prefill_pos", "prompt", "admitted_at", "draft_ready")
 
     def __init__(self):
         self.req: Optional[Request] = None
         self.ready = False
+        self.draft_ready = False
 
 
 class InferenceEngine:
@@ -139,9 +150,23 @@ class InferenceEngine:
     (per-token per-head scales): half the bytes, at ~0.5% quantization
     noise in attention reads, so greedy near-ties can flip.
 
+    ``draft_params``/``draft_cfg`` turn on speculative decoding: slots
+    whose draft cache is seeded, that use no ``logit_bias``, are past
+    their ``min_new_tokens`` and are far enough from max_len ride a
+    speculative dispatch (``spec_k`` draft tokens + one paged verify
+    block, ``spec_depth`` such rounds chained per dispatch with ONE
+    readback), committing 1..k+1 tokens per round; everything else takes
+    the plain decode chunk in the same iteration. The draft keeps a DENSE
+    per-slot cache (paging bounds the target's K/V; a draft is small).
+    Greedy requests commit only the target's argmax choices, so the
+    stream never depends on the draft, which only changes how many tokens
+    commit per round; sampled requests commit through speculative
+    sampling, distributed as plain sampling from the target.
+
     ``device`` is where the engine runs: ``None`` means cuda and raises
-    without it; ``"cpu"`` runs the plain PyTorch path. ``params`` must
-    already live there (see ``models.transformer.init_params`` and
+    without it; ``"cpu"`` runs the plain PyTorch path. ``params`` (and
+    ``draft_params``) must already live there (see
+    ``models.transformer.init_params`` and
     ``models.convert.params_from_numpy``)."""
 
     def __init__(
@@ -156,6 +181,10 @@ class InferenceEngine:
         prefill_chunk: int = 512,
         kv_dtype: Optional[str] = None,
         device: Optional[Union[str, torch.device]] = None,
+        draft_params: Optional[dict] = None,
+        draft_cfg: Optional[tfm.TransformerConfig] = None,
+        spec_k: int = 4,
+        spec_depth: int = 1,
     ):
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
@@ -181,6 +210,37 @@ class InferenceEngine:
         self.chunk_max = max(1, int(chunk_max))
         self.kv_dtype = kv_dtype
         self.pool = self._fresh_pool()
+        # speculative decoding state (unused when there is no draft model)
+        if draft_params is not None and draft_cfg is None:
+            raise ValueError("draft_params requires draft_cfg")
+        if draft_params is not None and draft_params["embed"].device != self.device:
+            raise ValueError(
+                f"draft params live on {draft_params['embed'].device}, engine runs on {self.device}"
+            )
+        if spec_k < 1 or spec_k > 16:
+            raise ValueError("spec_k must be in 1..16")
+        if spec_depth < 1 or spec_depth > 16:
+            raise ValueError("spec_depth must be in 1..16")
+        self.draft_params = draft_params
+        self.draft_cfg = draft_cfg
+        self.spec_k = int(spec_k)
+        self.spec_depth = int(spec_depth)
+        # the spec counters all measure REPLAYED slot-rounds (rounds whose
+        # commits the host consumed), so rounds/proposed/accepted stay
+        # mutually consistent when a slot finishes mid-dispatch
+        self.spec_rounds = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_committed = 0
+        self.spec_dispatches = 0
+        # host clock over the parts of every spec dispatch: enqueueing the
+        # draft scans, enqueueing the verify blocks with their accept
+        # rule, and the readback (which waits for the device)
+        self.spec_draft_s = 0.0
+        self.spec_verify_s = 0.0
+        self.spec_readback_s = 0.0
+        self.draft_prefills = 0
+        self._draft_cache = self._fresh_draft_cache()
         # host-side allocator state
         self._free_blocks: list[int] = list(range(1, self.n_blocks))
         self._tables = np.zeros((self.max_slots, self.max_blocks), np.int32)
@@ -217,6 +277,21 @@ class InferenceEngine:
     def _fresh_pool(self) -> dict:
         return tfm.init_paged_pool(
             self.cfg, self.n_blocks, self.block_size, self.kv_dtype, self.device
+        )
+
+    def _fresh_draft_cache(self) -> Optional[dict]:
+        """The draft's dense cache, one row per slot, with a scratch TAIL
+        of ``spec_k + 1`` positions past max_len: a parked slot's propose
+        loop still writes k+1 K/V entries into its own row, and pointing
+        parked rows at position max_len lands those writes in the tail,
+        which no live position ever reads (eligibility caps live writes
+        at max_len - 1). Without the tail a spec round in the iteration
+        that completed a peer's draft prefill would overwrite that row's
+        freshly seeded prompt K/V."""
+        if self.draft_params is None:
+            return None
+        return tfm.init_kv_cache(
+            self.draft_cfg, self.max_slots, self.max_len + self.spec_k + 1, self.device
         )
 
     # -- public API --------------------------------------------------------
@@ -296,7 +371,10 @@ class InferenceEngine:
 
     def stats(self) -> dict:
         """Serving counters: requests, tokens, slots, pool, queue depth,
-        uptime, mean tokens/sec, and decode dispatch/step counts."""
+        uptime, mean tokens/sec, decode dispatch/step counts, and the
+        speculative rounds, proposals, acceptances, commits, dispatches,
+        the host seconds of a dispatch's parts (draft, verify, readback)
+        and draft prefills."""
         uptime = time.monotonic() - self._started_at if self._started_at else 0.0
         return {
             "requests_completed": self.requests_completed,
@@ -315,6 +393,18 @@ class InferenceEngine:
             "decode_dispatches": self.decode_dispatches,
             "decode_steps": self.decode_steps,
             "readback_wait_s": round(self.readback_wait_s, 4),
+            "spec_rounds": self.spec_rounds,
+            "spec_proposed": self.spec_proposed,
+            "spec_accepted": self.spec_accepted,
+            "spec_committed": self.spec_committed,
+            "spec_acceptance": (
+                round(self.spec_accepted / self.spec_proposed, 4) if self.spec_proposed else 0.0
+            ),
+            "spec_dispatches": self.spec_dispatches,
+            "spec_draft_s": round(self.spec_draft_s, 4),
+            "spec_verify_s": round(self.spec_verify_s, 4),
+            "spec_readback_s": round(self.spec_readback_s, 4),
+            "draft_prefills": self.draft_prefills,
         }
 
     # -- block allocator ---------------------------------------------------
@@ -342,6 +432,7 @@ class InferenceEngine:
     def _reset_pool(self) -> None:
         """Fresh pool + allocator state after a failed decode dispatch."""
         self.pool = self._fresh_pool()
+        self._reset_draft_cache()
         self._free_blocks = list(range(1, self.n_blocks))
         self._tables[:] = 0
         self._nalloc = [0] * self.max_slots
@@ -419,6 +510,7 @@ class InferenceEngine:
         slot.prompt = prompt
         slot.prefill_pos = 0
         slot.ready = False
+        slot.draft_ready = False
         slot.length = len(prompt)
         slot.remaining = req.max_new_tokens - len(req.tokens)
         slot.admitted_at = time.monotonic()
@@ -504,8 +596,146 @@ class InferenceEngine:
             sampling=req.temperature > 0,
             filters=req.top_k > 0 or req.top_p < 1.0,
         )
+        if self.draft_params is not None and not req.logit_bias:
+            # logit_bias slots never ride a spec round, so their draft
+            # prefill would be dead work; min_new_tokens slots become
+            # eligible later, so theirs pays off
+            self._draft_prefill(slot_idx)
         slot.ready = True
         self._emit(slot_idx, int(first[0]))
+
+    def _draft_prefill(self, slot_idx: int) -> None:
+        """Seed the slot's dense draft-cache row with ONE full-sequence
+        draft forward over the prompt padded with token 0 to a power of
+        two (clamped at max_len), which bounds the set of shapes. Causal
+        masking keeps the real rows clean, and the pad tail's K/V is
+        rewritten by the propose loop before anything attends it."""
+        slot = self.slots[slot_idx]
+        t = len(slot.prompt)
+        c = 1
+        while c < t:
+            c *= 2
+        c = min(c, self.max_len)
+        toks = torch.tensor(slot.prompt + [0] * (c - t), dtype=torch.int64, device=self.device)
+        _, (dk, dv) = tfm.forward(self.draft_params, toks[None], self.draft_cfg, return_kv=True)
+        self._draft_cache["k"][:, slot_idx, :c] = dk[:, 0]
+        self._draft_cache["v"][:, slot_idx, :c] = dv[:, 0]
+        self.draft_prefills += 1
+        slot.draft_ready = True
+
+    def _reset_draft_cache(self) -> None:
+        """After a failed dispatch that may have left partial writes:
+        rebuild the draft cache empty and stop speccing resident slots
+        (they go on with plain decode; no stream depends on draft state)."""
+        if self.draft_params is None:
+            return
+        self._draft_cache = self._fresh_draft_cache()
+        for s in self.slots:
+            s.draft_ready = False
+
+    def _spec_eligible(self, ready: list[int]) -> list[int]:
+        """Slots riding this iteration's speculative dispatch: draft cache
+        seeded, far enough from max_len that a depth-R verification
+        window fits, and using no per-slot sampling extras (the spec
+        round samples without them: biased slots would commit unbiased
+        tokens, and min-length slots could commit a suppressed EOS; both
+        take the plain path, which applies them)."""
+        if self.draft_params is None:
+            return []
+        # a depth-R dispatch can advance R*(k+1) tokens; its last verify
+        # write lands at length-2 + R*(k+1), which must stay inside
+        # max_len (R=1 reduces to length+k <= max_len)
+        spec_span = self.spec_depth * (self.spec_k + 1)
+        return [
+            i
+            for i in ready
+            if self.slots[i].draft_ready
+            and self.slots[i].length + spec_span - 1 <= self.max_len
+            and not self.slots[i].req.logit_bias
+            and len(self.slots[i].req.tokens) >= self.slots[i].req.min_new_tokens
+        ]
+
+    def _run_spec_round(self, spec_idx: list[int]) -> None:
+        """One speculative dispatch for the ``spec_idx`` slots:
+        ``spec_depth`` chained rounds, each the draft's ``spec_k``
+        proposals per slot (sampled for temperature > 0 rows), ONE paged
+        verification block on the target and the accept/correct rule on
+        the device, which also advances each active slot's current token
+        and positions between rounds; then ONE readback and the host-side
+        emits. Every other row is parked: zeroed table and verify
+        positions from 0 (writes land in scratch block 0), draft
+        positions from max_len (the cache's scratch tail); its outputs
+        are discarded and its positions never move. A rejected position's
+        K/V is overwritten by the next round's writes before anything
+        attends it."""
+        B, dev, k = self.max_slots, self.device, self.spec_k
+        active = np.zeros((B,), bool)
+        active[spec_idx] = True
+        # token, draft position, verify position, top_k, seed
+        ints = np.zeros((B, 5), np.int64)
+        ints[:, 1] = self.max_len
+        floats = np.zeros((B, 2), np.float32)  # temperature, top_p
+        floats[:, 1] = 1.0
+        for i in spec_idx:
+            s = self.slots[i]
+            ints[i] = (s.last_token, s.length - 1, s.length - 1, s.req.top_k, self._seeds[i])
+            floats[i] = (s.req.temperature, s.req.top_p)
+        tables = torch.from_numpy(np.where(active[:, None], self._tables, 0)).to(dev)
+        cur, pos_d, pos_v, top_ks, seeds = torch.from_numpy(ints).to(dev).unbind(1)
+        temps, top_ps = torch.from_numpy(floats).to(dev).unbind(1)
+        live = torch.from_numpy(active).to(dev)
+        reqs = [self.slots[i].req for i in spec_idx]
+        sampling = any(r.temperature > 0 for r in reqs)
+        filters = any(r.temperature > 0 and (r.top_k > 0 or r.top_p < 1.0) for r in reqs)
+        steps = torch.arange(k + 1, device=dev)
+        rounds = []
+        for _ in range(self.spec_depth):
+            t0 = time.monotonic()
+            if sampling:
+                props, d_probs, _ = _draft_propose_sampled(
+                    self.draft_params, self._draft_cache, cur, pos_d, self.draft_cfg, k,
+                    seeds, temps)
+            else:
+                d_probs = None
+                props, _ = _draft_propose(
+                    self.draft_params, self._draft_cache, cur, pos_d, self.draft_cfg, k)
+            t1 = time.monotonic()
+            self.spec_draft_s += t1 - t0
+            block = torch.cat([cur[:, None], props], dim=1)
+            logits, _ = tfm.decode_block_paged(
+                self.params, self.pool, tables, block, pos_v[:, None] + steps[None], self.cfg)
+            commit, n_commit = spec_accept_commit(
+                props, d_probs, logits, temps, seeds, pos_v, top_ks, top_ps, use_filters=filters)
+            rounds.append(torch.cat([commit, n_commit[:, None]], dim=1))
+            # the corrected/bonus token (the last committed) seeds the
+            # next round
+            new_cur = commit.gather(1, (n_commit - 1)[:, None])[:, 0]
+            cur = torch.where(live, new_cur, cur)
+            pos_d = torch.where(live, pos_d + n_commit, pos_d)
+            pos_v = torch.where(live, pos_v + n_commit, pos_v)
+            self.spec_verify_s += time.monotonic() - t1
+        t0 = time.monotonic()
+        out = torch.stack(rounds).cpu().numpy()  # [R, B, k+2]: the one readback
+        waited = time.monotonic() - t0
+        self.readback_wait_s += waited
+        self.spec_readback_s += waited
+        self.spec_dispatches += 1
+        for i in spec_idx:
+            for r in range(self.spec_depth):
+                if self.slots[i].req is None:
+                    break  # finished mid-dispatch; later rounds are discarded
+                n = int(out[r, i, k + 1])
+                # accepted/proposed measure the draft-match rate: raw
+                # n - 1, not capped by how many tokens the request had
+                # room to commit; spec_committed counts actual emits
+                self.spec_rounds += 1
+                self.spec_proposed += k
+                self.spec_accepted += n - 1
+                for j in range(n):
+                    if self.slots[i].req is None:
+                        break  # hit EOS / max_new mid-commit
+                    self._emit(i, int(out[r, i, j]))
+                    self.spec_committed += 1
 
     def _decode_chunk(self, plain: list[int], k_steps: int) -> None:
         """``k_steps`` decode steps for the ``plain`` slots (every other
@@ -639,6 +869,9 @@ class InferenceEngine:
                 self.slots[i].req = None
                 self._fail(req, str(e))
 
+    def _still_ready(self, group: list[int]) -> list[int]:
+        return [i for i in group if self.slots[i].req is not None and self.slots[i].ready]
+
     def _next_prefill_slot(self, prefilling: list[int]) -> int:
         """Rotating pick over prefilling slots: lowest index strictly above
         the previous pick, wrapping to the lowest, so high-index
@@ -681,37 +914,58 @@ class InferenceEngine:
                     self._free_slot_blocks(i)
                     if req is not None and not req.done.is_set():
                         self._fail(req, str(e))
+                    self._reset_draft_cache()  # the draft prefill may have died
             if not ready:
                 continue
-            # chunk size: the LONGEST remaining want, rounded down to a
-            # power of two (clamping to the shortest would put the batch
+            # split the ready slots into the SPECULATIVE group and the
+            # PLAIN decode group; both dispatch in this iteration, so
+            # neither starves, and a slot that outgrows spec eligibility
+            # (near max_len) finishes on the plain path
+            spec_idx = self._spec_eligible(ready)
+            plain = [i for i in ready if i not in spec_idx]
+            # plain chunk size: the LONGEST remaining want, rounded down to
+            # a power of two (clamping to the shortest would put the batch
             # back into one round trip per token whenever a short request
             # is co-resident); slots finishing mid-chunk truncate host-side
-            want = max(self.slots[i].remaining for i in ready)
-            room = min(self.max_len - self.slots[i].length for i in ready)
-            k_steps = self._pick_chunk(max(1, min(want, room + 1)))
-            # grow every slot's table to cover this chunk's writes;
+            k_steps = 1
+            if plain:
+                want = max(self.slots[i].remaining for i in plain)
+                room = min(self.max_len - self.slots[i].length for i in plain)
+                k_steps = self._pick_chunk(max(1, min(want, room + 1)))
+            # grow every slot's table to cover this iteration's writes;
             # preempt youngest-first when the pool runs dry
             for i in list(ready):
                 s = self.slots[i]
                 if s.req is None or not s.ready:
                     ready.remove(i)  # preempted as a victim earlier in this pass
                     continue
-                need_upto = min(s.length + k_steps, self.max_len)
+                if i in spec_idx:
+                    # verification writes reach position
+                    # length-2 + depth*(k+1), which eligibility keeps
+                    # inside max_len
+                    need_upto = s.length - 1 + self.spec_depth * (self.spec_k + 1)
+                else:
+                    need_upto = min(s.length + k_steps, self.max_len)
                 while not self._alloc(i, need_upto):
                     if not self._preempt_youngest(keep=i):
                         self._preempt(i)
                         break
                 if s.req is None:
                     ready.remove(i)
-            plain = [i for i in ready if self.slots[i].req is not None and self.slots[i].ready]
-            if not plain:
-                continue
+            # liveness re-filter for BOTH groups: a preemption victim is
+            # picked by admission time, not index order, so one whose own
+            # turn already passed is still listed
+            spec_idx = self._still_ready(spec_idx)
+            plain = self._still_ready(plain)
             try:
-                self._decode_chunk(plain, k_steps)
+                if spec_idx:
+                    self._run_spec_round(spec_idx)
+                if plain:
+                    self._decode_chunk(plain, k_steps)
             except Exception as e:  # noqa: BLE001 — device errors (OOM, …)
                 log.exception("decode dispatch failed")
-                # the pool may hold partial writes: fail the residents and
-                # rebuild it; queued requests are served from the new pool
+                # the pool and the draft cache may hold partial writes:
+                # fail the residents and rebuild both; queued requests are
+                # served from the new pool
                 self._fail_outstanding(f"decode failed: {e}", drain_queue=False)
                 self._reset_pool()

@@ -5,11 +5,15 @@ Counterpart of ``engine.sample_logits`` and
 a batch of rows with per-row parameters. Temperature <= 0 is greedy.
 
 Randomness is counter-based: the draw for a row is Gumbel-max over
-uniforms hashed from (seed, position, token id), so a request's stream
-depends only on its seed and on the absolute position it samples from —
-never on which other requests share the batch, the decode chunk size,
-or where a preemption landed. (The reference keys ``fold_in(PRNGKey(seed),
-position)`` the same way; its threefry bits cannot be reproduced here.)
+uniforms hashed from (seed, position, purpose, token id), so a request's
+stream depends only on its seed and on the absolute position it samples
+from — never on which other requests share the batch, the decode chunk
+size, or where a preemption landed. (The reference keys
+``fold_in(PRNGKey(seed), position)`` the same way; its threefry bits
+cannot be reproduced here.) ``purpose`` separates the draws one position
+can need: the plain decode sample, and the three of a speculative round
+(the draft's proposal, the accept test, the corrected token), which a
+replayed round draws again unchanged.
 """
 
 from __future__ import annotations
@@ -17,6 +21,9 @@ from __future__ import annotations
 import torch
 
 _M32 = 0xFFFFFFFF
+
+# what a draw is for (``purpose``); PLAIN leaves the hash as it was
+PLAIN, DRAFT, ACCEPT, CORRECT = 0, 1, 2, 3
 
 
 def filter_scaled_logits(
@@ -55,16 +62,32 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def gumbel_noise(seeds: torch.Tensor, positions: torch.Tensor, vocab: int) -> torch.Tensor:
-    """[B, vocab] standard Gumbel noise, a pure function of (seed,
-    position, token id) per element."""
-    ids = torch.arange(vocab, device=seeds.device, dtype=torch.int64)
+def _row_hash(seeds: torch.Tensor, positions: torch.Tensor, purpose: int) -> torch.Tensor:
     h = _mix32((seeds.long() & _M32) ^ 0x2545F491)
     h = _mix32(h ^ (positions.long() & _M32))
-    h = _mix32(h[:, None] ^ ids[None, :])
-    # 23 bits -> a uniform strictly inside (0, 1), exact in float32
-    u = ((h >> 9).float() + 0.5) / float(1 << 23)
-    return -torch.log(-torch.log(u))
+    return _mix32(h ^ (purpose * 0x9E3779B1 & _M32)) if purpose else h
+
+
+def _unit(h: torch.Tensor) -> torch.Tensor:
+    """23 bits of a hash -> a uniform strictly inside (0, 1), exact in
+    float32."""
+    return ((h >> 9).float() + 0.5) / float(1 << 23)
+
+
+def uniform_noise(seeds: torch.Tensor, positions: torch.Tensor, purpose: int = PLAIN) -> torch.Tensor:
+    """One uniform in (0, 1) per row: a pure function of (seed, position,
+    purpose). ``seeds`` and ``positions`` have one shape, the result's."""
+    return _unit(_mix32(_row_hash(seeds, positions, purpose) ^ 0x5BD1E995))
+
+
+def gumbel_noise(
+    seeds: torch.Tensor, positions: torch.Tensor, vocab: int, purpose: int = PLAIN
+) -> torch.Tensor:
+    """[B, vocab] standard Gumbel noise, a pure function of (seed,
+    position, purpose, token id) per element."""
+    ids = torch.arange(vocab, device=seeds.device, dtype=torch.int64)
+    h = _mix32(_row_hash(seeds, positions, purpose)[:, None] ^ ids[None, :])
+    return -torch.log(-torch.log(_unit(h)))
 
 
 def sample_tokens(

@@ -1,19 +1,26 @@
 """Llama-family decoder-only transformer in PyTorch.
 
 Counterpart of ``devspace_tpu/models/transformer.py``: the config and its
-presets, parameter init, the building blocks, the training forward
-(``layer_apply``, ``forward``; attention through ``ops/attention.py``),
-the paged KV pool, and the two functions the serving engine runs —
-``decode_tokens_paged`` (one decode step for every slot) and
+presets, parameter init, the building blocks, the training
+and prefill forward (``layer_apply``, ``forward``; attention through
+``ops/attention.py``), the dense KV cache with its decode functions
+(``decode_tokens``, ``decode_block``, ``decode_step``, ``generate``: the
+draft model's cache and the standalone speculative path), the paged KV
+pool, and the functions the serving engine runs over it —
+``decode_tokens_paged`` (one decode step for every slot),
+``decode_block_paged`` (K tokens per slot: speculative verification) and
 ``prefill_chunk_paged`` (one prompt chunk of one slot). Parameters are a plain dict of tensors in the
 reference's tree layout, linear weights ``[in, out]`` (``x @ w``), so a
 converted JAX tree (``models/convert.py``) computes the same function.
 RoPE, GQA and SwiGLU follow Llama-2; RMSNorm accumulates and logits come
 out in float32.
 
-Unlike the reference, the pool is written IN PLACE: ``decode_tokens_paged``
-and ``prefill_chunk_paged`` mutate the pool tensors they are given and
-return the same dict (JAX donates the pool to the same effect).
+Unlike the reference, caches are written IN PLACE: the paged functions
+mutate the pool tensors they are given and return the same dict, and the
+dense decode functions mutate ``cache["k"]``/``cache["v"]`` and return
+them (JAX donates the buffers to the same effect). An out-of-range write
+position raises here where JAX drops the scatter, so callers size their
+caches for every position they write.
 """
 
 from __future__ import annotations
@@ -176,13 +183,21 @@ def forward(
     attention_fn: Optional[Callable] = None,
     positions: Optional[torch.Tensor] = None,
     remat: bool = False,
-) -> torch.Tensor:
-    """Training forward: tokens [B, T] -> logits [B, T, vocab] (float32).
+    return_kv: bool = False,
+):
+    """Training/prefill forward: tokens [B, T] -> logits [B, T, vocab]
+    (float32).
 
     ``attention_fn(q, k, v) -> ctx`` on [B, T, H, D] (K/V heads already
     repeated) defaults to causal ``default_attention``. ``remat=True``
     recomputes each layer in the backward pass
-    (``torch.utils.checkpoint``) instead of keeping its activations."""
+    (``torch.utils.checkpoint``) instead of keeping its activations.
+    ``return_kv=True`` also returns the per-layer roped K/V stacks
+    ([L, B, T, Hkv, D] each), the layout ``decode_tokens`` consumes, so a
+    prefill is one full-sequence forward; it does not compose with
+    ``remat``."""
+    if return_kv and remat:
+        raise ValueError("return_kv does not compose with remat")
     attn = attention_fn or partial(default_attention, causal=True)
     t = tokens.shape[1]
     if positions is None:
@@ -190,13 +205,182 @@ def forward(
     cos, sin = rope_frequencies(cfg, positions)
     h = params["embed"][tokens.long()]
 
+    kv_out = []
+
     def layer_fn(h, layer):
-        return layer_apply(h, layer, cfg, cos, sin, attention_fn=attn)[0]
+        h, kv = layer_apply(h, layer, cfg, cos, sin, attention_fn=attn)
+        if return_kv:
+            kv_out.append(kv)
+        return h
 
     for layer in params["layers"]:
         h = checkpoint(layer_fn, h, layer, use_reentrant=False) if remat else layer_fn(h, layer)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return (h @ params["lm_head"]).float()
+    logits = (h @ params["lm_head"]).float()
+    if return_kv:
+        return logits, (torch.stack([k for k, _ in kv_out]), torch.stack([v for _, v in kv_out]))
+    return logits
+
+
+# -- dense KV cache ---------------------------------------------------------
+def init_kv_cache(
+    cfg: TransformerConfig,
+    batch: int,
+    max_len: Optional[int] = None,
+    device: Optional[torch.device] = None,
+) -> dict:
+    """{"k","v"} zeros [L, B, max_len, Hkv, D] in ``cfg.dtype`` plus a
+    "length" counter (``decode_step``'s lockstep position)."""
+    shape = (cfg.n_layers, batch, max_len or cfg.max_seq_len, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        "length": 0,
+    }
+
+
+def _rope_rows(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x [B, K, H, D] rotated at per-(b, k) positions (cos/sin [B*K, half])."""
+    b, kk, h, d = x.shape
+    return apply_rope(x.reshape(b * kk, 1, h, d), cos, sin, per_batch=True).reshape(b, kk, h, d)
+
+
+def _dense_attention(q, k_cache, v_cache, positions, n_rep: int):
+    """q [B, K, H, D] against a dense cache [B, T, Hkv, D]: each query
+    sees the cache up to and including its own position ([B, K]). Float32
+    scores and softmax with the ``-1e30`` mask, as the reference."""
+    keys = repeat_kv(k_cache, n_rep)
+    vals = repeat_kv(v_cache, n_rep)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), keys.float()) / math.sqrt(q.shape[-1])
+    t = k_cache.shape[1]
+    mask = torch.arange(t, device=q.device)[None, None, :] <= positions[:, :, None]
+    scores = scores.masked_fill(~mask[:, None], -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, vals.float()).to(q.dtype)
+
+
+def decode_tokens(
+    params: dict,
+    cache: dict,
+    tokens: torch.Tensor,
+    positions: torch.Tensor,
+    cfg: TransformerConfig,
+) -> tuple[torch.Tensor, dict]:
+    """One decode iteration with PER-SEQUENCE positions -> (logits
+    [B, vocab] f32, {"k","v"}: the cache's own tensors, written in place).
+
+    ``cache["k"]``/``["v"]`` [L, B, T, Hkv, D]; ``tokens`` [B] last token
+    per sequence, ``positions`` [B] its write position. RoPE, the K/V
+    write and the causal mask all follow ``positions``; a position is
+    written before anything attends to it, so stale entries past a
+    sequence's position never matter. Kept as its own body next to
+    :func:`decode_block`, as in the reference."""
+    b = tokens.shape[0]
+    hd = cfg.head_dim
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    positions = positions.long()
+    cos, sin = rope_frequencies(cfg, positions)
+    rows = torch.arange(b, device=tokens.device)
+    h = params["embed"][tokens.long()][:, None, :]
+    for li, layer in enumerate(params["layers"]):
+        x = rms_norm(h, layer["attn_norm"], cfg.norm_eps)
+        q = (x @ layer["wq"]).view(b, 1, cfg.n_heads, hd)
+        k = (x @ layer["wk"]).view(b, 1, cfg.n_kv_heads, hd)
+        v = (x @ layer["wv"]).view(b, 1, cfg.n_kv_heads, hd)
+        q = apply_rope(q, cos, sin, per_batch=True)
+        k = apply_rope(k, cos, sin, per_batch=True)
+        cache["k"][li][rows, positions] = k[:, 0]
+        cache["v"][li][rows, positions] = v[:, 0]
+        ctx = _dense_attention(q, cache["k"][li], cache["v"][li], positions[:, None], n_rep)
+        h = h + (ctx.reshape(b, 1, -1) @ layer["wo"]).to(h.dtype)
+        h = _ffn(h, layer, cfg)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    logits = (h[:, 0] @ params["lm_head"]).float()
+    return logits, {"k": cache["k"], "v": cache["v"]}
+
+
+def decode_block(
+    params: dict,
+    cache: dict,
+    tokens: torch.Tensor,
+    positions: torch.Tensor,
+    cfg: TransformerConfig,
+) -> tuple[torch.Tensor, dict]:
+    """K-token generalization of ``decode_tokens`` -> (logits
+    [B, K, vocab] f32, {"k","v"} written in place). ``tokens`` and
+    ``positions`` are [B, K] (consecutive positions per sequence); every
+    token attends the cache up to and including its own position. The
+    verification forward of speculative decoding: one call scores all K
+    drafted tokens."""
+    b, kk = tokens.shape
+    hd = cfg.head_dim
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    positions = positions.long()
+    pos_flat = positions.reshape(-1)
+    cos, sin = rope_frequencies(cfg, pos_flat)
+    rows = torch.arange(b, device=tokens.device).repeat_interleave(kk)
+    h = params["embed"][tokens.long()]
+    for li, layer in enumerate(params["layers"]):
+        x = rms_norm(h, layer["attn_norm"], cfg.norm_eps)
+        q = (x @ layer["wq"]).view(b, kk, cfg.n_heads, hd)
+        k = (x @ layer["wk"]).view(b, kk, cfg.n_kv_heads, hd)
+        v = (x @ layer["wv"]).view(b, kk, cfg.n_kv_heads, hd)
+        q = _rope_rows(q, cos, sin)
+        k = _rope_rows(k, cos, sin)
+        cache["k"][li][rows, pos_flat] = k.reshape(b * kk, cfg.n_kv_heads, hd)
+        cache["v"][li][rows, pos_flat] = v.reshape(b * kk, cfg.n_kv_heads, hd)
+        ctx = _dense_attention(q, cache["k"][li], cache["v"][li], positions, n_rep)
+        h = h + (ctx.reshape(b, kk, -1) @ layer["wo"]).to(h.dtype)
+        h = _ffn(h, layer, cfg)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    # flattened projection [B*K, D] @ [D, V]: for K = 1 the very product
+    # decode_tokens computes, so the two agree bit for bit
+    logits = (h.reshape(b * kk, -1) @ params["lm_head"]).view(b, kk, -1).float()
+    return logits, {"k": cache["k"], "v": cache["v"]}
+
+
+def decode_step(
+    params: dict, cache: dict, tokens: torch.Tensor, cfg: TransformerConfig
+) -> tuple[torch.Tensor, dict]:
+    """One incremental decode step, every sequence at ``cache["length"]``
+    -> (logits [B, vocab], cache with length + 1). ``tokens`` [B, 1]."""
+    pos = cache["length"]
+    positions = torch.full((tokens.shape[0],), pos, dtype=torch.int64, device=tokens.device)
+    logits, kv = decode_tokens(params, cache, tokens[:, 0], positions, cfg)
+    return logits, {"k": kv["k"], "v": kv["v"], "length": pos + 1}
+
+
+def generate(
+    params: dict,
+    prompt: torch.Tensor,
+    cfg: TransformerConfig,
+    max_new_tokens: int,
+    temperature: float = 0.0,
+    seed: int = 0,
+) -> torch.Tensor:
+    """Greedy or temperature sampling: the prompt [B, T] is fed one token
+    at a time, then ``max_new_tokens`` decode steps -> [B, max_new_tokens].
+    Sampled draws are keyed by (seed, position) (``inference/sampling``);
+    they cannot reproduce the reference's ``jax.random`` bits."""
+    # the sampler lives with the engine, which imports this module
+    from ..inference.sampling import sample_tokens
+
+    b, t = prompt.shape
+    dev = prompt.device
+    cache = init_kv_cache(cfg, b, t + max_new_tokens, device=dev)
+    for j in range(t):
+        logits, cache = decode_step(params, cache, prompt[:, j:j + 1], cfg)
+    temps = torch.full((b,), float(temperature), device=dev)
+    zeros = torch.zeros((b,), dtype=torch.int64, device=dev)
+    seeds = int(seed) + torch.arange(b, device=dev)  # one stream per sequence
+    out = []
+    for _ in range(max_new_tokens):
+        pos = torch.full((b,), cache["length"] - 1, dtype=torch.int64, device=dev)
+        tok = sample_tokens(logits, temps, zeros, temps.new_ones(b), seeds, pos,
+                            sampling=temperature > 0, filters=False)
+        out.append(tok)
+        logits, cache = decode_step(params, cache, tok[:, None], cfg)
+    return torch.stack(out, dim=1)
 
 
 # -- paged KV cache ---------------------------------------------------------
@@ -304,6 +488,62 @@ def decode_tokens_paged(
         h = _ffn(h, layer, cfg)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = (h[:, 0] @ params["lm_head"]).float()
+    return logits, pool
+
+
+def decode_block_paged(
+    params: dict,
+    pool: dict,
+    tables: torch.Tensor,
+    tokens: torch.Tensor,
+    positions: torch.Tensor,
+    cfg: TransformerConfig,
+) -> tuple[torch.Tensor, dict]:
+    """K-token generalization of ``decode_tokens_paged`` -> (logits
+    [B, K, vocab] f32, pool): the verification forward of the engine's
+    speculative decoding.
+
+    Each token (b, j) writes its K/V at ``(tables[b, p // bs], p % bs)``
+    and attends its slot's pooled cache up to and including its own
+    position: the flat (b, j) rows go to ``paged_decode_attention`` as
+    B*K independent queries that share their slot's table, with per-row
+    ``lengths = position + 1``, so one kernel serves one-token decode and
+    K-token verification. All K writes of a layer land before that layer
+    attends, so a previous round's rejected K/V at positions >= the
+    block's start is rewritten before anything reads it. Parked slots
+    arrive with a zeroed table row and positions from 0: their writes
+    land in scratch block 0."""
+    b, kk = tokens.shape
+    hd = cfg.head_dim
+    bs = pool["k"].shape[3]
+    pos_flat = positions.long().reshape(-1)
+    cos, sin = rope_frequencies(cfg, pos_flat)
+    rows = torch.arange(b, device=tokens.device).repeat_interleave(kk)
+    blk = tables.long()[rows, pos_flat // bs]
+    off = pos_flat % bs
+    tables_flat = tables.to(torch.int32).repeat_interleave(kk, dim=0).contiguous()
+    lengths = (pos_flat + 1).to(torch.int32)
+    h = params["embed"][tokens.long()]
+    for li, layer in enumerate(params["layers"]):
+        x = rms_norm(h, layer["attn_norm"], cfg.norm_eps)
+        q = (x @ layer["wq"]).view(b, kk, cfg.n_heads, hd)
+        k = (x @ layer["wk"]).view(b, kk, cfg.n_kv_heads, hd)
+        v = (x @ layer["wv"]).view(b, kk, cfg.n_kv_heads, hd)
+        q = _rope_rows(q, cos, sin)
+        k = _rope_rows(k, cos, sin)
+        _paged_pool_write(pool, li, blk, off, k.reshape(b * kk, cfg.n_kv_heads, hd),
+                          v.reshape(b * kk, cfg.n_kv_heads, hd))
+        ctx = paged_decode_attention(
+            q.reshape(b * kk, cfg.n_heads, hd).contiguous(), pool["k"][li], pool["v"][li],
+            tables_flat, lengths,
+            pool["k_scale"][li] if "k_scale" in pool else None,
+            pool["v_scale"][li] if "v_scale" in pool else None,
+        )  # [B*K, H, D]
+        h = h + (ctx.reshape(b, kk, -1) @ layer["wo"]).to(h.dtype)
+        h = _ffn(h, layer, cfg)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    # flattened projection, for bit-parity with decode_tokens_paged at K = 1
+    logits = (h.reshape(b * kk, -1) @ params["lm_head"]).view(b, kk, -1).float()
     return logits, pool
 
 

@@ -3,7 +3,7 @@
     python -m devspace_tpu_torch.serve --port N [--device cpu]
 
 Speaks the contract of the reference server
-(``examples/llama-inference/serve.py``) for plain serving:
+(``examples/llama-inference/serve.py``) for plain and speculative serving:
 
 - ``POST /generate`` — JSON ``{"prompt_ids": [...], "max_new_tokens": N}``
   plus optional ``temperature``, ``eos_id``, ``seed``, ``top_k``,
@@ -14,15 +14,24 @@ Speaks the contract of the reference server
 - ``GET /readyz`` — 200, or 503 while draining.
 - ``POST /drain`` — enter drain mode (``{"off": true}`` leaves it):
   ``/readyz`` answers 503 while ``/healthz`` stays 200.
-- ``POST /generate_speculative`` — 501: speculative decoding is not in
-  this port yet, as the reference answers with ``SPEC=0``.
+- ``POST /generate_speculative`` — greedy only, through the engine's
+  speculative path: ``{"prompt_ids": [...], "max_new_tokens": N}`` plus
+  an optional ``k`` that must equal the engine's. Replies ``{"tokens":
+  [...], "speculative": {rounds, acceptance_rate, tokens_per_round}}``
+  (engine-cumulative); the tokens are those of ``/generate`` at
+  temperature 0. A sampling, EOS or stream field is a 400 whatever its
+  value; 501 when the engine has no draft model.
 - anything else — 404.
 
 Weights are random, drawn from a seeded ``torch.Generator`` on the
 device. Environment: ``MODEL`` (tiny | llama2-7b | llama2-13b, default
 tiny), ``KV_DTYPE`` (int8 for a quantized pool), ``MAX_SLOTS``,
-``CHUNK_MAX``, ``PORT`` (``--port`` wins). ``--device`` defaults to
-cuda, and no CUDA is an error.
+``CHUNK_MAX``, ``PORT`` (``--port`` wins); ``SPEC`` (0 turns the draft
+model off), ``SPEC_K``, ``SPEC_DEPTH`` and ``DRAFT_MODEL`` (a config
+name; default: tiny drafts for itself, any other model has no draft).
+``DRAFT_CHECKPOINT`` is refused: restoring weights waits for the port of
+the checkpoint modules. ``--device`` defaults to cuda, and no CUDA is an
+error.
 """
 
 from __future__ import annotations
@@ -45,6 +54,16 @@ CONFIGS = {"tiny": tfm.TINY, "llama2-7b": tfm.LLAMA2_7B, "llama2-13b": tfm.LLAMA
 log = logging.getLogger(__name__)
 
 
+# fields /generate_speculative cannot honour: their PRESENCE is refused (a
+# value-based allowlist would misread temperature 1.0 or eos_id 0)
+SPEC_UNSUPPORTED = ("temperature", "eos_id", "top_k", "top_p", "stream", "stop",
+                    "min_new_tokens", "logit_bias")
+
+
+class SpecDisabled(RuntimeError):
+    """The engine has no draft model (SPEC=0, or no DRAFT_MODEL)."""
+
+
 class Server:
     """The engine plus the server's own state (drain mode)."""
 
@@ -52,6 +71,36 @@ class Server:
         self.engine = engine
         self.model = model
         self.draining = False
+
+    def generate_speculative(self, prompt_ids, max_new_tokens: int, k: Optional[int] = None):
+        """Greedy generation through the engine's speculative path ->
+        (tokens, engine-cumulative speculation stats)."""
+        if self.engine.draft_params is None:
+            raise SpecDisabled(
+                "speculative decoding disabled (SPEC=0, or no DRAFT_MODEL "
+                "configured for a non-tiny MODEL)"
+            )
+        spec_k = self.engine.spec_k
+        if k is not None:
+            if not 1 <= k <= 16:
+                raise ValueError(f"k must be in [1, 16], got {k}")
+            if k != spec_k:
+                raise ValueError(
+                    f"k is engine-level: this server runs SPEC_K={spec_k}; omit k or pass {spec_k}"
+                )
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        tokens = self.engine.submit(prompt_ids, max_new_tokens).result(timeout=600)
+        st = self.engine.stats()
+        return tokens, {
+            # engine-cumulative: slots interleave, so per-request numbers
+            # would need per-slot counters
+            "rounds": st["spec_rounds"],
+            "acceptance_rate": st["spec_acceptance"],
+            "tokens_per_round": (
+                round(st["spec_committed"] / st["spec_rounds"], 2) if st["spec_rounds"] else 0.0
+            ),
+        }
 
 
 def _generate_kwargs(body: dict) -> dict:
@@ -118,7 +167,27 @@ def make_handler(server: Server):
                 self._json(200, {"draining": server.draining})
                 return
             if self.path == "/generate_speculative":
-                self._json(501, {"error": "speculative decoding is not available in this server"})
+                try:
+                    body = self._body()
+                    unsupported = [f for f in SPEC_UNSUPPORTED if f in body]
+                    if unsupported:
+                        self._json(400, {
+                            "error": "greedy-only endpoint; unsupported field(s): "
+                            f"{', '.join(unsupported)} — use /generate for sampling/eos"
+                        })
+                        return
+                    tokens, stats = server.generate_speculative(
+                        body["prompt_ids"], int(body.get("max_new_tokens", 16)),
+                        k=int(body["k"]) if "k" in body else None,
+                    )
+                    self._json(200, {"tokens": tokens, "speculative": stats})
+                except SpecDisabled as e:
+                    self._json(501, {"error": str(e)})
+                except (ValueError, KeyError, TypeError) as e:  # client input
+                    self._json(400, {"error": str(e)})
+                except Exception:  # noqa: BLE001 — no internals in the reply
+                    log.exception("speculative request failed")
+                    self._json(500, {"error": "internal server error"})
                 return
             if self.path != "/generate":
                 self._json(404, {"error": "not found"})
@@ -173,18 +242,51 @@ def build_engine(
     kv_dtype: Optional[str] = None,
     max_slots: int = 8,
     chunk_max: int = 8,
+    draft_model: Optional[str] = None,
+    spec_k: int = 4,
+    spec_depth: int = 1,
 ) -> InferenceEngine:
-    """An engine for ``model`` with random weights (seed 0) on ``device``."""
+    """An engine for ``model`` with random weights (seed 0) on ``device``;
+    with ``draft_model`` (a config name sharing the vocabulary), also a
+    draft with random weights (seed 1) for speculative decoding."""
     if model not in CONFIGS:
         raise ValueError(f"MODEL={model!r} unknown (choices: {', '.join(CONFIGS)})")
     cfg = CONFIGS[model]
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = tfm.init_params(cfg, gen)
+    params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    draft_params = draft_cfg = None
+    if draft_model is not None:
+        if draft_model not in CONFIGS:
+            raise ValueError(
+                f"DRAFT_MODEL={draft_model!r} unknown (choices: {', '.join(CONFIGS)})"
+            )
+        draft_cfg = CONFIGS[draft_model]
+        if draft_cfg.vocab_size != cfg.vocab_size:
+            raise ValueError(
+                f"draft model '{draft_model}' has vocab_size {draft_cfg.vocab_size} != "
+                f"target {cfg.vocab_size}: a draft must share the target's vocabulary"
+            )
+        draft_params = tfm.init_params(draft_cfg, torch.Generator(device=dev).manual_seed(1))
     return InferenceEngine(
         params, cfg, max_slots=max_slots, chunk_max=chunk_max,
         kv_dtype=kv_dtype, device=dev,
+        draft_params=draft_params, draft_cfg=draft_cfg, spec_k=spec_k, spec_depth=spec_depth,
     )
+
+
+def draft_model_from_env(model: str) -> Optional[str]:
+    """The reference server's draft policy: ``SPEC=0`` turns speculation
+    off; otherwise ``DRAFT_MODEL`` names the draft's config, and by
+    default only tiny drafts for itself (for a real model a self-draft
+    would double the weights and speed nothing up)."""
+    if os.environ.get("DRAFT_CHECKPOINT"):
+        raise SystemExit(
+            "DRAFT_CHECKPOINT is not supported yet: restoring weights waits for the "
+            "port of the checkpoint modules; unset it to draft with random weights"
+        )
+    if os.environ.get("SPEC", "1") == "0":
+        return None
+    return os.environ.get("DRAFT_MODEL", "tiny" if model == "tiny" else None)
 
 
 def main(argv=None) -> None:
@@ -201,6 +303,9 @@ def main(argv=None) -> None:
         kv_dtype=os.environ.get("KV_DTYPE") or None,
         max_slots=int(os.environ.get("MAX_SLOTS", 8)),
         chunk_max=int(os.environ.get("CHUNK_MAX", 8)),
+        draft_model=draft_model_from_env(model),
+        spec_k=int(os.environ.get("SPEC_K", 4)),
+        spec_depth=int(os.environ.get("SPEC_DEPTH", 1)),
     ).start()
     httpd = make_http_server(Server(engine, model), args.host, args.port)
     print(f"serving {model} on {engine.device} at :{httpd.server_address[1]}", flush=True)

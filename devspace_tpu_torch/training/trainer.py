@@ -11,7 +11,8 @@ The optimizer is a factory ``params -> torch.optim.Optimizer``.
 0.999, eps 1e-8 and weight decay 1e-4, while ``torch.optim.AdamW``
 defaults to weight decay 1e-2, so the factory passes every value
 explicitly. The two apply the same update (decoupled decay of the
-pre-update parameter, bias-corrected moments).
+pre-update parameter, bias-corrected moments). ``adam(lr)`` is optax's
+``adam(lr)``: the same moments and no weight decay.
 """
 
 from __future__ import annotations
@@ -30,6 +31,12 @@ ADAMW_DEFAULTS = {"betas": (0.9, 0.999), "eps": 1e-8, "weight_decay": 1e-4}
 def adamw(lr: float, **overrides) -> Callable:
     """``optax.adamw(lr)`` as a factory of ``torch.optim.AdamW``."""
     return partial(torch.optim.AdamW, lr=lr, **{**ADAMW_DEFAULTS, **overrides})
+
+
+def adam(lr: float, **overrides) -> Callable:
+    """``optax.adam(lr)`` as a factory of ``torch.optim.Adam``."""
+    defaults = {"betas": ADAMW_DEFAULTS["betas"], "eps": ADAMW_DEFAULTS["eps"]}
+    return partial(torch.optim.Adam, lr=lr, **{**defaults, **overrides})
 
 
 def param_leaves(params: dict) -> list[torch.Tensor]:

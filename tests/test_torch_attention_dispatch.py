@@ -1,6 +1,7 @@
 """The route of the port's ``fused_attention`` (ops/attention.py) against
-the JAX package's, and the raise where the short-sequence kernel is not
-ported yet.
+the JAX package's: flash for long sequences, the plain version where the
+query block does not divide T, the short-sequence kernel's wrapper
+everywhere else.
 
 Numerics are held to the JAX package's own dispatch at the same inputs
 (unit normals from a numpy seed, float32): ``atol=2e-4, rtol=2e-4``, the
@@ -65,13 +66,26 @@ def test_short_sequence_on_cpu_takes_the_reference():
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
-@pytest.mark.parametrize("t", [512, 64, 1024])
-def test_short_sequence_on_cuda_raises(monkeypatch, t):
-    """T <= 1024 with a dividing block runs the unported short-sequence
-    kernel on the card: the port raises, naming it, and never runs the
-    plain version there."""
-    monkeypatch.setattr(tattn, "on_cuda", lambda *tensors: True)
+@pytest.mark.parametrize("t", [512, 64, 1024, 7, 256, 768])
+def test_short_sequence_takes_the_kernel_wrapper(monkeypatch, t):
+    """Every T the JAX route sends to its kernel goes to the kernel's
+    wrapper (``attention_fwd``: the kernel on a CUDA tensor), and the
+    forward never computes the plain version beside it."""
+    calls = []
+    monkeypatch.setattr(tattn, "attention_fwd",
+                        lambda q, k, v, causal: calls.append(causal) or torch.zeros_like(q))
     monkeypatch.setattr(tattn, "attention_reference", lambda *a, **kw: pytest.fail("plain"))
     q = torch.zeros(1, 1, t, 16)
-    with pytest.raises(NotImplementedError, match="_attention_kernel.*ROADMAP B4"):
-        tattn.fused_attention(q, q, q)
+    out = tattn.fused_attention(q, q, q, causal=False)
+    assert calls == [False] and out.shape == q.shape
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch):
+    """On a CUDA tensor the wrapper raises on a head dim or dtype outside
+    the kernel's set; it never computes the plain version there."""
+    monkeypatch.setattr(tattn, "on_cuda", lambda *tensors: True)
+    monkeypatch.setattr(tattn, "attention_reference", lambda *a, **kw: pytest.fail("plain"))
+    with pytest.raises(ValueError, match="head_dim 24"):
+        tattn.attention_fwd(*[torch.zeros(1, 1, 8, 24)] * 3)
+    with pytest.raises(ValueError, match="dtype torch.float16"):
+        tattn.attention_fwd(*[torch.zeros(1, 1, 8, 16, dtype=torch.float16)] * 3)

@@ -1,6 +1,6 @@
 """The Hopper kernels against their plain PyTorch versions, on the card:
-paged decode, flash attention (forward, backward dq, backward dk/dv) and
-the fused cross-entropy. Imports no JAX (the machine with the card has
+paged decode, flash attention (forward, backward dq, backward dk/dv), the
+fused cross-entropy, short-sequence attention and RMSNorm. Imports no JAX (the machine with the card has
 none); skips where there is no CUDA device. Run on the card with
 
     python -m pytest -m cuda tests/test_torch_kernels_cuda.py
@@ -16,6 +16,10 @@ bfloat16 per (batch·head) a max error of at most 1e-2 of that head's
 largest reference value (both round P for P·V and dS for dS·K to bf16
 and the outputs to bf16, about one bf16 ulp apart). Cross-entropy: both
 compute in float32 from the same values, ``rtol=1e-5, atol=1e-5``.
+Short-sequence attention is held like flash attention's O (its bf16
+kernel rounds the normalised P to bf16 for P·V where the plain version
+keeps it in float32: within the same per-head bound); RMSNorm states its
+own tolerances.
 """
 
 import numpy as np
@@ -25,6 +29,7 @@ import torch
 from devspace_tpu_torch.ops import attention as tattn
 from devspace_tpu_torch.ops import flash_attention as tfa
 from devspace_tpu_torch.ops import losses as tlosses
+from devspace_tpu_torch.ops import normalization as tnorm
 from devspace_tpu_torch.ops import paged_attention as tpa
 
 RTOL, ATOL = 2e-4, 2e-5
@@ -84,6 +89,47 @@ def test_cuda_kernel_matches_plain_version(cuda_device, dtype, int8, shape):
         head_max = ref[live].float().abs().amax(-1)
         assert (diff.amax(-1) <= BF16_HEAD_REL * head_max).all()
     assert (got[~live] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+def test_cuda_kernel_matches_plain_version_on_verify_rows(cuda_device, dtype, int8):
+    """The flat [B*K] rows of a speculative verification block: 8 slots x
+    5 rows, H = Hkv = 8, D = 128, each slot's table repeated for its
+    rows, row (b, j) of length pos_b + j + 1; parked slots have a zeroed
+    table and lengths 1..5."""
+    B, K, H, D, bs, MB = 8, 5, 8, 128, 64, 16
+    q, pk, pv, _ = make_inputs(11, B=B * K, H=H, Hkv=H, D=D, bs=bs, n_blocks=1 + B * MB, MB=MB)
+    rng = np.random.default_rng(12)
+    tables = (1 + rng.permutation(B * MB)).reshape(B, MB).astype(np.int32)
+    pos = np.asarray([8, 64, 250, 563, 0, 1, 1019, 0])
+    parked = np.asarray([False, False, False, False, True, False, False, True])
+    tables[parked] = 0
+    lengths = (pos[:, None] + np.arange(K)[None] + 1).reshape(-1).astype(np.int32)
+    dev = cuda_device
+    tq = torch.from_numpy(q).to(dev, dtype)
+    if int8:
+        pk8, ks = tpa.quantize_kv(torch.from_numpy(pk))
+        pv8, vs = tpa.quantize_kv(torch.from_numpy(pv))
+        pools = [t.to(dev) for t in (pk8, pv8)]
+        scales = [t.to(dev) for t in (ks, vs)]
+    else:
+        pools = [torch.from_numpy(a).to(dev, dtype) for a in (pk, pv)]
+        scales = [None, None]
+    tt = torch.from_numpy(tables).to(dev).repeat_interleave(K, dim=0).contiguous()
+    tl = torch.from_numpy(lengths).to(dev)
+    before = tpa.LAUNCHES
+    got = tpa.paged_decode_attention(tq, *pools, tt, tl, *scales)
+    torch.cuda.synchronize()
+    assert tpa.LAUNCHES == before + 1 and tpa.LAST_DISPATCH["impl"] == "cuda"
+    ref = tpa.paged_decode_reference(tq, *pools, tt, tl, *scales)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+    else:
+        diff = (got.float() - ref.float()).abs()
+        assert diff.max().item() <= BF16_MAX_ABS
+        assert (diff.amax(-1) <= BF16_HEAD_REL * ref.float().abs().amax(-1)).all()
 
 
 @pytest.mark.cuda
@@ -153,10 +199,85 @@ def test_cuda_flash_autograd_is_deterministic_and_counts(cuda_device):
 
 
 @pytest.mark.cuda
-def test_cuda_short_sequence_attention_raises(cuda_device):
-    q = torch.zeros(1, 2, 512, 64, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
-        tattn.fused_attention(q, q, q)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("T", [1, 7, 37, 64, 65, 200, 256, 512, 768, 1024])
+def test_cuda_short_attention_matches_plain_version(cuda_device, dtype, causal, D, T):
+    """Every kind of T the route sends to the kernel: below, at and past
+    the tile (64 rows bf16, 32 f32), no multiple of it, and the three
+    long ones."""
+    rng = np.random.default_rng(21)
+    q, k, v = [torch.from_numpy(rng.normal(size=(2, 3, T, D)).astype(np.float32))
+               .to(cuda_device, dtype) for _ in range(3)]
+    before = tattn.LAUNCHES
+    got = tattn.fused_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tattn.LAUNCHES == before + 1 and tattn.LAST_DISPATCH["impl"] == "cuda"
+    ref = tattn.attention_reference(q, k, v, causal)
+    assert got.shape == ref.shape and got.dtype == dtype
+    assert_kernel_close(got.flatten(0, 1), ref.flatten(0, 1), f"T={T} D={D}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_short_attention_grads_are_the_plain_versions(cuda_device, dtype):
+    """The Function's backward differentiates the plain version on the
+    saved q, k, v: the same grads as the plain version's own autograd,
+    from a non-contiguous [B, T, H, D] layout as the model hands over."""
+    rng = np.random.default_rng(22)
+    base = [torch.from_numpy(rng.normal(size=(2, 100, 4, 64)).astype(np.float32))
+            .to(cuda_device, dtype) for _ in range(4)]
+    grads = []
+    for fn in (tattn.fused_attention, tattn.attention_reference):
+        q, k, v = [x.clone().requires_grad_() for x in base[:3]]
+        out = fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True)
+        out.backward(base[3].transpose(1, 2))
+        grads.append([q.grad, k.grad, v.grad])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_indivisible_length_takes_the_plain_version(cuda_device):
+    """T = 300 (256 does not divide it) is computed by the plain version in
+    the JAX package even on a TPU, and here too: no launch."""
+    q = torch.randn(1, 2, 300, 64, device=cuda_device)
+    before = tattn.LAUNCHES
+    out = tattn.fused_attention(q, q, q)
+    assert tattn.LAUNCHES == before
+    torch.testing.assert_close(out, tattn.attention_reference(q, q, q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(4096, 1024), (512, 256), (8, 4096), (2, 3, 64), (5, 1001), (1, 7)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_rms_norm_matches_plain_version(cuda_device, dtype, shape):
+    """Forward (float32 ``rtol=1e-5, atol=1e-6``: the same f32 arithmetic,
+    summed in another order; bf16 within one bf16 ulp, ``rtol=2**-7``) and
+    the analytic backward through the Function against autograd through
+    the plain version."""
+    rng = np.random.default_rng(23)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda_device, dtype)
+    w = torch.from_numpy(rng.normal(size=shape[-1]).astype(np.float32)).to(cuda_device)
+    g = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda_device, dtype)
+    rows = x.numel() // shape[-1]
+    before = tnorm.LAUNCHES
+    xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
+    got = tnorm.fused_rms_norm(xk, wk, block_rows=min(256, rows))
+    got.backward(g)
+    torch.cuda.synchronize()
+    assert tnorm.LAUNCHES == before + 1 and tnorm.LAST_DISPATCH["impl"] == "cuda"
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    ref = tnorm.rms_norm_reference(xr, wr)
+    ref.backward(g)
+    tol = dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32 else dict(rtol=2**-7, atol=1e-6)
+    torch.testing.assert_close(got.detach(), ref.detach(), **tol)
+    gtol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else dict(rtol=2**-6, atol=2e-2)
+    torch.testing.assert_close(xk.grad, xr.grad, **gtol)
+    torch.testing.assert_close(wk.grad, wr.grad, rtol=1e-3 if dtype == torch.bfloat16 else 1e-4,
+                               atol=1e-2 * rows**0.5 if dtype == torch.bfloat16 else 1e-4)
 
 
 @pytest.mark.cuda

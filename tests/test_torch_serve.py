@@ -1,7 +1,8 @@
 """The port's HTTP server (devspace_tpu_torch/serve.py) on the CPU with
-TINY: the reference server's contract for plain serving — /generate
-(JSON and ndjson stream), /healthz, /readyz and /drain, 501 on
-/generate_speculative, 404 elsewhere."""
+TINY: the reference server's contract — /generate (JSON and ndjson
+stream), /healthz, /readyz and /drain, /generate_speculative (greedy
+through the engine's speculative path; 400 on sampling fields, 501
+without a draft), 404 elsewhere."""
 
 import json
 import os
@@ -34,6 +35,23 @@ def url():
         engine.stop()
         thread.join(timeout=10)
         assert not thread.is_alive()
+
+
+@pytest.fixture(scope="module")
+def spec_url():
+    """TINY drafting for itself (the server's default draft policy)."""
+    engine = serve.build_engine("tiny", device="cpu", max_slots=2, draft_model="tiny",
+                                spec_k=3).start()
+    httpd = serve.make_http_server(serve.Server(engine, "tiny"), "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{httpd.server_address[1]}"
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        engine.stop()
+        thread.join(timeout=10)
 
 
 def call(url, path, body=None, timeout=60):
@@ -86,6 +104,61 @@ def test_speculative_501_and_unknown_404(url):
     assert call(url, "/generate_speculative", {"prompt_ids": [1], "max_new_tokens": 2})[0] == 501
     assert call(url, "/nope")[0] == 404
     assert call(url, "/nope", {})[0] == 404
+
+
+def test_generate_speculative_equals_generate(url, spec_url):
+    body = {"prompt_ids": [5, 1, 4], "max_new_tokens": 12}
+    code, raw = call(spec_url, "/generate_speculative", body)
+    assert code == 200
+    reply = json.loads(raw)
+    plain = json.loads(call(url, "/generate", body)[1])["tokens"]  # the server without a draft
+    assert reply["tokens"] == plain == json.loads(call(spec_url, "/generate", body)[1])["tokens"]
+    stats = reply["speculative"]
+    assert set(stats) == {"rounds", "acceptance_rate", "tokens_per_round"}
+    assert stats["rounds"] > 0 and 0.0 <= stats["acceptance_rate"] <= 1.0
+    assert stats["tokens_per_round"] >= 1.0
+    health = json.loads(call(spec_url, "/healthz")[1])
+    assert health["spec_rounds"] >= stats["rounds"] and health["draft_prefills"] >= 2
+
+
+@pytest.mark.parametrize("field,value", [("temperature", 0.0), ("eos_id", 0), ("top_k", 0),
+                                         ("top_p", 1.0), ("stream", False), ("stop", [[1]]),
+                                         ("min_new_tokens", 0), ("logit_bias", {})])
+def test_generate_speculative_refuses_sampling_fields_by_presence(spec_url, field, value):
+    body = {"prompt_ids": [5, 1, 4], "max_new_tokens": 4, field: value}
+    code, raw = call(spec_url, "/generate_speculative", body)
+    assert code == 400 and field in json.loads(raw)["error"]
+
+
+def test_generate_speculative_k_and_bad_input(spec_url):
+    ok = {"prompt_ids": [3, 3], "max_new_tokens": 3}
+    assert call(spec_url, "/generate_speculative", {**ok, "k": 3})[0] == 200  # the engine's k
+    assert call(spec_url, "/generate_speculative", {**ok, "k": 4})[0] == 400
+    assert call(spec_url, "/generate_speculative", {**ok, "k": 99})[0] == 400
+    assert call(spec_url, "/generate_speculative", {"max_new_tokens": 3})[0] == 400  # no prompt
+    assert call(spec_url, "/generate_speculative", {**ok, "max_new_tokens": 0})[0] == 400
+    assert call(spec_url, "/generate_speculative", {**ok, "max_new_tokens": 10_000})[0] == 400
+
+
+def test_draft_policy_from_env(monkeypatch):
+    for name in ("SPEC", "DRAFT_MODEL", "DRAFT_CHECKPOINT"):
+        monkeypatch.delenv(name, raising=False)
+    assert serve.draft_model_from_env("tiny") == "tiny"  # tiny drafts for itself
+    assert serve.draft_model_from_env("llama2-7b") is None
+    monkeypatch.setenv("DRAFT_MODEL", "llama2-13b")
+    assert serve.draft_model_from_env("llama2-7b") == "llama2-13b"
+    monkeypatch.setenv("SPEC", "0")
+    assert serve.draft_model_from_env("tiny") is None
+    monkeypatch.setenv("DRAFT_CHECKPOINT", "runs/draft")
+    with pytest.raises(SystemExit, match="DRAFT_CHECKPOINT"):
+        serve.draft_model_from_env("tiny")
+
+
+def test_build_engine_checks_the_draft():
+    with pytest.raises(ValueError, match="DRAFT_MODEL"):
+        serve.build_engine("tiny", device="cpu", draft_model="nope")
+    with pytest.raises(ValueError, match="vocab"):
+        serve.build_engine("tiny", device="cpu", draft_model="llama2-7b")
 
 
 def test_module_entry_point_takes_port():
