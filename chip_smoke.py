@@ -88,15 +88,16 @@ XENT_RTOL, XENT_ATOL = 1e-5, 1e-5
 # the one kernel of the serving path, and the TPU kernel it replaces
 KERNEL_SOURCE = "devspace_tpu_torch/csrc/paged_decode.cu"
 KERNEL_REPLACES = "devspace_tpu/ops/paged_attention.py:95"  # _kernel
-SOURCES = ("paged_decode", "flash_attention", "cross_entropy", "attention", "rms_norm")
+SOURCES = ("paged_decode", "flash_attention", "flash_backward", "cross_entropy", "attention",
+           "rms_norm")
 # the kernels of the training path: name -> (launch counter, source, the
 # TPU kernel body it replaces)
 TRAIN_KERNELS = {
     "flash_fwd": ("fwd", "devspace_tpu_torch/csrc/flash_attention.cu",
                   "devspace_tpu/ops/flash_attention.py:29"),  # _fwd_kernel
-    "flash_bwd_dq": ("bwd_dq", "devspace_tpu_torch/csrc/flash_attention.cu",
+    "flash_bwd_dq": ("bwd_dq", "devspace_tpu_torch/csrc/flash_backward.cu",
                      "devspace_tpu/ops/flash_attention.py:126"),  # _bwd_dq_kernel
-    "flash_bwd_dkv": ("bwd_dkv", "devspace_tpu_torch/csrc/flash_attention.cu",
+    "flash_bwd_dkv": ("bwd_dkv", "devspace_tpu_torch/csrc/flash_backward.cu",
                       "devspace_tpu/ops/flash_attention.py:178"),  # _bwd_dkv_kernel
     "cross_entropy": (None, "devspace_tpu_torch/csrc/cross_entropy.cu",
                       "devspace_tpu/ops/losses.py:30"),  # _xent_kernel
@@ -547,17 +548,37 @@ def bound_of(nbytes: float, flops: float, flops_per_s: float) -> tuple[float, st
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+# flops per live (query, key) pair in units of D: the work each flash
+# kernel computes (as flash_bound counts it), and the tensor-core work the
+# kernel issues for it: the dk/dv kernel runs dV = P^T dO and dK = dS^T Q
+# twice, on bf16 hi and lo terms of P and dS, so 12 D where the work is 8 D
+FLASH_WORK_D = {"fwd": 4, "bwd_dq": 6, "bwd_dkv": 8}
+FLASH_TENSOR_D = {"fwd": 4, "bwd_dq": 6, "bwd_dkv": 12}
+
+
 def flash_bound(kernel: str, bh: int, t: int, d: int, causal: bool, elem: int):
     """Least time for one flash kernel: its inputs read once and outputs
     written once, against 4 D (forward), 6 D (dq) or 8 D (dk/dv) flops
     per live (query, key) pair, at the dense bf16 peak."""
     pairs = t * (t + 1) // 2 if causal else t * t
-    flops = bh * pairs * d * {"fwd": 4, "bwd_dq": 6, "bwd_dkv": 8}[kernel]
+    flops = bh * pairs * d * FLASH_WORK_D[kernel]
     rows, vec = bh * t * d * elem, bh * t * 4
     nbytes = {"fwd": 4 * rows + vec,                 # q, k, v in; o, lse out
               "bwd_dq": 5 * rows + 2 * vec,          # q, k, v, dO, lse, delta in; dq out
               "bwd_dkv": 6 * rows + 2 * vec}[kernel]  # ...; dk, dv out
     return bound_of(nbytes, flops, BF16_FLOPS_PER_S)
+
+
+def flash_rates(kernel: str, bh: int, t: int, d: int, causal: bool, ms: float,
+                bound_ms: float) -> dict:
+    """Achieved rates of one flash kernel call that took ``ms``: the work
+    (GFLOP) and TFLOP/s, the tensor-core work it issues and that rate, and
+    the share of its bound (bound_ms / ms)."""
+    pairs = t * (t + 1) // 2 if causal else t * t
+    work = bh * pairs * d * FLASH_WORK_D[kernel] / 1e9
+    tensor = bh * pairs * d * FLASH_TENSOR_D[kernel] / 1e9
+    return {"gflop": work, "tflops": work / ms, "tensor_gflop": tensor,
+            "tensor_tflops": tensor / ms, "bound_share": bound_ms / ms}
 
 
 def xent_bound(b: int, v: int, elem: int):
@@ -662,15 +683,19 @@ def phase_train_kernel_timing(dev) -> dict:
         plain_ms, _ = device_ms(plain, 3, warmup=1)
         bound_ms, bound_by = flash_bound(name, bh, t, d, True, 2)
         out[name] = {"kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": None}
+                     "bound_by": bound_by, "library_ms": None,
+                     **flash_rates(name, bh, t, d, True, ms, bound_ms)}
     q4, k4, v4 = [x.view(8, 16, t, d).detach().requires_grad_() for x in (q, k, v)]
     out["fwd"]["library_ms"], _ = device_ms(
         lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True), 20)
     sdpa = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
     lib_bwd, _ = device_ms(
         lambda: torch.autograd.grad(sdpa, (q4, k4, v4), do.view(8, 16, t, d), retain_graph=True), 20)
-    out["bwd_pair"] = {"kernel_ms": out["bwd_dq"]["kernel_ms"] + out["bwd_dkv"]["kernel_ms"],
-                       "library_ms": lib_bwd}
+    pair_ms = out["bwd_dq"]["kernel_ms"] + out["bwd_dkv"]["kernel_ms"]
+    pair_gflop = out["bwd_dq"]["gflop"] + out["bwd_dkv"]["gflop"]
+    pair_bound = out["bwd_dq"]["bound_ms"] + out["bwd_dkv"]["bound_ms"]
+    out["bwd_pair"] = {"kernel_ms": pair_ms, "library_ms": lib_bwd, "gflop": pair_gflop,
+                       "tflops": pair_gflop / pair_ms, "bound_share": pair_bound / pair_ms}
     out["fwd"]["library_max_abs_err"] = (sdpa.detach().view(bh, t, d).float() - o.float()).abs().max().item()
     del q, k, v, do, o, lse, delta, q4, k4, v4, sdpa
     torch.cuda.empty_cache()
@@ -735,6 +760,21 @@ def train_counts() -> dict:
             for name, (key, _, _) in TRAIN_KERNELS.items()}
 
 
+def kernel_kind(name: str) -> str:
+    """The kind a device kernel counts under in ``device_breakdown``, from
+    its profiler name: the port's kernels by their symbols (any variant:
+    ``flash_bwd_dkv_sm90_kernel<64>``, ``flash_bwd_dq_f32_kernel<16>``,
+    ``flash_fwd_kernel<...>``, ``xent_kernel``), matrix products by
+    cuBLAS's and CUTLASS's names, everything else "other"."""
+    for symbol, kind in (("flash_bwd_dkv", "flash_bwd_dkv"), ("flash_bwd_dq", "flash_bwd_dq"),
+                         ("flash_fwd", "flash_fwd"), ("xent_kernel", "cross_entropy")):
+        if symbol in name:
+            return kind
+    if any(s in name.lower() for s in ("gemm", "xmma", "cutlass", "sm90_", "wgmma", "nvjet")):
+        return "matmul"
+    return "other"
+
+
 def device_breakdown(step_fn) -> dict:
     """One step under torch.profiler: device time by kind of kernel (the
     port's kernels, matrix products, the rest) against the step's wall
@@ -759,19 +799,7 @@ def device_breakdown(step_fn) -> dict:
         if us is None:
             us = evt.self_cuda_time_total
         name = evt.key
-        if "flash_fwd_kernel" in name:
-            kind = "flash_fwd"
-        elif "flash_bwd_dq_kernel" in name:
-            kind = "flash_bwd_dq"
-        elif "flash_bwd_dkv_kernel" in name:
-            kind = "flash_bwd_dkv"
-        elif "xent_kernel" in name:
-            kind = "cross_entropy"
-        elif any(s in name.lower() for s in ("gemm", "xmma", "cutlass", "sm90_", "wgmma", "nvjet")):
-            kind = "matmul"
-        else:
-            kind = "other"
-        kinds[kind] += us / 1e3
+        kinds[kernel_kind(name)] += us / 1e3
         top.append((us / 1e3, evt.count, name[:90]))
     busy = sum(kinds.values())
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
@@ -1267,7 +1295,8 @@ def main() -> int:
     t0 = time.monotonic()
     nvcc_s = _build.build(*SOURCES)
     ptxas = {name: [ln.strip() for ln in _build.BUILD_LOG.get(name, "").splitlines()
-                    if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+                    if any(w in ln for w in ("registers", "spill", "Compiling entry",
+                                             "Performance Loss"))]
              for name in SOURCES}
     emit({"phase": "build", "seconds": time.monotonic() - t0, "nvcc_s": nvcc_s,
           "ptxas": ptxas})
@@ -1371,6 +1400,9 @@ def main() -> int:
             "ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         }
+        if key is not None:
+            entry.update({f: t[f] for f in ("tflops", "bound_share", "gflop", "tensor_gflop",
+                                             "tensor_tflops")})
         if key in ("bwd_dq", "bwd_dkv"):
             # one SDPA backward computes dq, dk and dv: no library call
             # computes either kernel's part alone

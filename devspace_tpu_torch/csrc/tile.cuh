@@ -1,7 +1,8 @@
 // Tile helpers shared by the attention kernels (flash_attention.cu,
-// attention.cu): the element types, shared-memory row strides, tile loads
-// with a masked ragged edge, the tile product on the tensor cores (bf16)
-// or in scalar f32, and the row-group reductions of the softmax loops.
+// attention.cu, flash_backward.cu's f32 path): the element types,
+// shared-memory row strides, tile loads with a masked ragged edge, the
+// tile product on the tensor cores (bf16) or in scalar f32, and the
+// row-group reductions of the softmax loops.
 // Everything sits in an unnamed namespace: each source gets its own copy.
 
 #pragma once

@@ -1,5 +1,6 @@
-"""Flash attention: the Hopper kernels (``csrc/flash_attention.cu``) —
-forward, backward dq, backward dk/dv — and their plain PyTorch versions.
+"""Flash attention: the Hopper kernels — forward
+(``csrc/flash_attention.cu``), backward dq and backward dk/dv
+(``csrc/flash_backward.cu``) — and their plain PyTorch versions.
 
 Counterpart of ``devspace_tpu/ops/flash_attention.py``. The forward
 streams K/V tiles through an online softmax and keeps the f32
@@ -41,8 +42,10 @@ _KERNELS: dict = {}
 def _kernel(name: str):
     fn = _KERNELS.get(name)
     if fn is None:
-        n_ptr = {"flash_fwd": 5, "flash_bwd_dq": 7, "flash_bwd_dkv": 8}[name]
-        fn = getattr(_build.library("flash_attention"), name)
+        source, n_ptr = {"flash_fwd": ("flash_attention", 5),
+                         "flash_bwd_dq": ("flash_backward", 7),
+                         "flash_bwd_dkv": ("flash_backward", 8)}[name]
+        fn = getattr(_build.library(source), name)
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [
             ctypes.c_void_p
         ]

@@ -155,9 +155,12 @@ def assert_kernel_close(got, ref, name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("D", [16, 64, 128])
-@pytest.mark.parametrize("T", [256, 200], ids=["T256", "T200-ragged"])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("T", [256, 200, 1000, 2048 - 37],
+                         ids=["T256", "T200-ragged", "T1000-ragged", "T2011-ragged"])
 def test_cuda_flash_kernels_match_plain_versions(cuda_device, dtype, causal, D, T):
+    """T = 1000 and 2011 span many of the backward kernels' tiles (128
+    rows a block, 64 or 32 a ring stage) and end ragged in both."""
     rng = np.random.default_rng(11)
     q, k, v, do = [torch.from_numpy(rng.normal(size=(6, T, D)).astype(np.float32))
                    .to(cuda_device, dtype) for _ in range(4)]
@@ -177,6 +180,25 @@ def test_cuda_flash_kernels_match_plain_versions(cuda_device, dtype, causal, D, 
     rdk, rdv = tfa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal)
     assert_kernel_close(dk, rdk, "dk")
     assert_kernel_close(dv, rdv, "dv")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_cuda_flash_backward_kernels_repeat_bitwise_at_bench_shape(cuda_device, causal):
+    """dq, dk and dv straight from the two backward kernels at the bench
+    LM's shape ([B*H = 128, T = 2048, D = 64], bf16): each block owns its
+    output rows (no atomics), so two launches agree bit for bit."""
+    rng = np.random.default_rng(13)
+    q, k, v, do = [torch.from_numpy(rng.normal(size=(128, 2048, 64)).astype(np.float32))
+                   .to(cuda_device, torch.bfloat16) for _ in range(4)]
+    o, lse = tfa.flash_fwd(q, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1)
+    runs = [(tfa.flash_bwd_dq(q, k, v, do, lse, delta, causal),
+             *tfa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert tfa.LAST_DISPATCH["impl"] == "cuda"
+    for name, a, b in zip(("dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
