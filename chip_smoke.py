@@ -144,8 +144,11 @@ NEAR_TIE_GAPS = 2
 # lm_head product in bf16, one ulp of which is 2^-8 of the value
 LOGIT_PATH_REL = 2.0 ** -6
 # the short-sequence attention kernel at the pair's training shapes
-# ([B*H, T, D]: target, draft) and the RMSNorm shapes
+# ([B*H, T, D]: target, draft), at the draft's prefill of a 500-token
+# prompt (the 512 bucket, batch 1: the two-pass kernel), and the RMSNorm
+# shapes
 ATTN_TRAIN_SHAPES = {"target": (32 * 8, 128, 128), "draft": (32 * 4, 128, 64)}
+ATTN_PREFILL_SHAPE = (4, 512, 64)
 ATTN_KERNEL = ("devspace_tpu_torch/csrc/attention.cu", "devspace_tpu/ops/attention.py:36")
 RMS_KERNEL = ("devspace_tpu_torch/csrc/rms_norm.cu", "devspace_tpu/ops/normalization.py:24")
 RMS_SHAPES = ((4096, 1024), (4096, 256), (8, 4096), (33, 1001))
@@ -764,10 +767,12 @@ def kernel_kind(name: str) -> str:
     """The kind a device kernel counts under in ``device_breakdown``, from
     its profiler name: the port's kernels by their symbols (any variant:
     ``flash_bwd_dkv_sm90_kernel<64>``, ``flash_bwd_dq_f32_kernel<16>``,
-    ``flash_fwd_kernel<...>``, ``xent_kernel``), matrix products by
-    cuBLAS's and CUTLASS's names, everything else "other"."""
+    ``flash_fwd_sm90_kernel<64>``, ``attention_fwd_onepass_kernel<128,
+    128>``, ``xent_kernel``), matrix products by cuBLAS's and CUTLASS's
+    names, everything else "other"."""
     for symbol, kind in (("flash_bwd_dkv", "flash_bwd_dkv"), ("flash_bwd_dq", "flash_bwd_dq"),
-                         ("flash_fwd", "flash_fwd"), ("xent_kernel", "cross_entropy")):
+                         ("flash_fwd", "flash_fwd"), ("attention_fwd", "short_attention"),
+                         ("xent_kernel", "cross_entropy")):
         if symbol in name:
             return kind
     if any(s in name.lower() for s in ("gemm", "xmma", "cutlass", "sm90_", "wgmma", "nvjet")):
@@ -787,8 +792,8 @@ def device_breakdown(step_fn) -> dict:
         step_fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kinds = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0, "cross_entropy": 0.0,
-             "matmul": 0.0, "other": 0.0}
+    kinds = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0, "short_attention": 0.0,
+             "cross_entropy": 0.0, "matmul": 0.0, "other": 0.0}
     top = []  # (ms, calls, kernel name)
     for evt in prof.key_averages():
         if str(getattr(evt, "device_type", "")).split(".")[-1] != "CUDA":
@@ -868,11 +873,12 @@ def phase_train(dev, card) -> dict:
 def phase_short_attention_parity(dev) -> dict:
     """The short-sequence kernel against ``attention_reference``: float32
     (TF32 off) and bf16, causal and not, at lengths below, at, across and
-    far past the kernel's tile, D = 64 and 128, and the two training
-    shapes; then the autograd route: the Function's grads are the plain
-    version's."""
+    far past the one-pass kernels' 64 and 128 keys and the two-pass
+    kernel's tiles, D = 64 and 128, and the two training shapes; then the
+    autograd route: the Function's grads are the plain version's."""
     out = {}
-    shapes = [((2, 3, t, d), f"T{t}/D{d}") for t in (1, 7, 37, 64, 128, 200, 256, 512, 768, 1024)
+    shapes = [((2, 3, t, d), f"T{t}/D{d}") for t in (1, 7, 37, 64, 127, 128, 129, 200, 255, 256,
+                                                      512, 768, 1024)
               for d in (64, 128)]
     shapes += [((32, bh // 32, t, d), name) for name, (bh, t, d) in ATTN_TRAIN_SHAPES.items()]
     for shape, name in shapes:
@@ -944,23 +950,35 @@ def phase_rms_norm_parity(dev) -> dict:
     return out
 
 
+def attention_bound(bh: int, t: int, d: int) -> tuple[float, str]:
+    """Least time for one causal bf16 short-attention call: q, k, v read
+    and o written once, against 4 D flops per live (query, key) pair."""
+    return bound_of(4 * bh * t * d * 2, 4 * d * bh * t * (t + 1) // 2, BF16_FLOPS_PER_S)
+
+
 def phase_spec_kernel_timing(dev) -> dict:
     """The two kernels beside their plain versions, one library call and
     their bounds: attention at the target's training shape (bf16, causal,
-    [256, 128, 128]) and the draft's; RMSNorm at [4096, 1024] bf16."""
+    [256, 128, 128]), the draft's, and the draft's 500-token prefill
+    ([4, 512, 64]: the two-pass kernel); RMSNorm at [4096, 1024] bf16."""
     out = {}
-    for name, (bh, t, d) in ATTN_TRAIN_SHAPES.items():
-        q, k, v = flash_inputs(10, (32, bh // 32, t, d), torch.bfloat16, dev)[:3]
+    for name, (bh, t, d) in {**ATTN_TRAIN_SHAPES, "prefill512": ATTN_PREFILL_SHAPE}.items():
+        batch = 1 if name == "prefill512" else 32
+        q, k, v = flash_inputs(10, (batch, bh // batch, t, d), torch.bfloat16, dev)[:3]
         ms, _ = device_ms(lambda: sa.attention_fwd(q, k, v, True), 50)
         plain_ms, _ = device_ms(lambda: sa.attention_reference(q, k, v, True), 20)
         lib_ms, _ = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 50)
+        got = sa.attention_fwd(q, k, v, True)
         lib_err = (F.scaled_dot_product_attention(q, k, v, is_causal=True).float()
-                   - sa.attention_fwd(q, k, v, True).float()).abs().max().item()
-        # q, k, v read and o written once; 4 D flops per live pair
-        bound_ms, bound_by = bound_of(4 * bh * t * d * 2, 4 * d * bh * t * (t + 1) // 2,
-                                      BF16_FLOPS_PER_S)
+                   - got.float()).abs().max().item()
+        err = kernel_err(got.flatten(0, 1), sa.attention_reference(q, k, v, True).flatten(0, 1),
+                         f"attention_{name}")
+        bound_ms, bound_by = attention_bound(bh, t, d)
         out[f"attention_{name}"] = {"kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                                     "bound_ms": bound_ms, "bound_by": bound_by,
+                                    "bound_share": bound_ms / ms,
+                                    "gbytes_per_s": 4 * bh * t * d * 2 / ms / 1e6,
+                                    "max_abs_err": err[0], "max_head_rel_err": err[1],
                                     "library_max_abs_err": lib_err}
     rows, d = RMS_SHAPES[0]
     x, w, _ = rms_inputs(11, (rows, d), torch.bfloat16, dev)
@@ -1331,8 +1349,9 @@ def main() -> int:
           "bf16_tol": RMS_BF16_TOL, "max_abs_err": rms_parity})
     spec_timing = phase_spec_kernel_timing(dev)
     emit({"phase": "spec_kernel_timing", "card": card,
-          "shape": f"attention bf16 causal [B*H, T, D] {ATTN_TRAIN_SHAPES}; "
-                   f"rms_norm bf16 {list(RMS_SHAPES[0])}", **spec_timing})
+          "shape": f"attention bf16 causal [B*H, T, D] {ATTN_TRAIN_SHAPES}, "
+                   f"prefill512 {ATTN_PREFILL_SHAPE}; rms_norm bf16 {list(RMS_SHAPES[0])}",
+          **spec_timing})
     pair_line, t_params, d_params = phase_train_pair(dev, card)
     emit(pair_line)
     emit({"phase": "spec_small_reference", "card": card, **phase_spec_small_reference(dev)})
@@ -1424,12 +1443,21 @@ def main() -> int:
         ("rms_norm", RMS_KERNEL, {}, rms_parity["4096x1024/bfloat16"]["y"],
          spec_timing["rms_norm"]),
     ):
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(paths.values()), "launches_by_path": paths, "max_abs_err": err,
             "ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-        })
+        }
+        if name == "short_attention":
+            # the draft's training shape and its long prefill beside the
+            # target's shape above
+            entry["bound_share"] = t["bound_share"]
+            entry["other_shapes"] = {
+                shape: {f: spec_timing[f"attention_{shape}"][f]
+                        for f in ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_share")}
+                for shape in ("draft", "prefill512")}
+        kernels.append(entry)
     emit({"phase": "done", "seconds": time.monotonic() - t_start, "card": card})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

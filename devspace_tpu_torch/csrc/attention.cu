@@ -15,35 +15,39 @@
 // bf16 (q, k, v read, o written), which is T/4 flops per byte causal and
 // T/2 otherwise. The H100's tensor cores, not memory, are the limit only
 // above ~295 flops per byte, so bytes bound every causal call (T <= 1024)
-// and every call at the training shapes (T = 128); even so the tile
-// products need the tensor cores to stay near that bound (nvcuda::wmma
-// m16n16k16, bf16 in, f32 accumulate) for bf16 inputs; f32 inputs take a
-// scalar f32 path with the same structure, for parity at full precision.
+// and every call at the training shapes (T = 128).
 //
-// Design:
-//   - the TPU body holds the whole K and V rows in VMEM; at T = 1024,
-//     D = 128 those are 256 KB each in bf16, more than an SM's shared
-//     memory, so K and V stream through shared memory in tiles, and one
-//     block owns one (bh, q-tile);
-//   - two passes over the K tiles keep the reference's rounding: pass 1
-//     recomputes nothing but the row statistics (m, l), online; pass 2
-//     computes the scores again, forms exp(s - m) / l, rounds it to V's
-//     dtype and accumulates P V in f32. The scores are computed twice
-//     and K is read twice (from L2 the second time); V once;
-//   - causal: tiles wholly above the diagonal are skipped, the diagonal
-//     tile is masked element by element; the heaviest tiles launch first;
-//   - tiles are 64 rows for bf16 and 32 for f32; rows past T are
-//     zero-filled on load and masked, so any T from 1 works;
-//   - each row's (m, l) lives in the registers of the 4 (bf16) or 8 (f32)
-//     threads that share the row, reduced by shuffles.
-// Like the flash kernels, this version does not overlap loads with math,
-// syncs the block between the steps of a tile and keeps the O accumulator
-// in shared memory: those are the known gaps to the bound.
+// bf16, T <= 128 (every training shape; draft prefill buckets up to 128):
+// one pass. One block per bh of T / 64 (rounded up) warpgroups, 64 query
+// rows each, loads Q, K and V once with cp.async into 128-byte-swizzled
+// shared memory (V in a second copy group, which lands while S is
+// computed). S [64, T] is one wgmma into f32 registers; the row max, the
+// exponentials, the row sum and the divide run in those registers; P is
+// rounded to bf16 and repacked in place as the A operand of O = P V (a
+// wgmma reading V MN-major); O goes from registers to device memory. Q K^T
+// runs once and nothing but the inputs touches shared memory. The kernel
+// is bytes-bound, so it aims at blocks in flight (two an SM), not at a
+// pipeline: a block's loads overlap the other block's math.
+//
+// bf16, T > 128: the two-pass streaming kernel of attention_fwd.cuh
+// (Softmax::kTwoPass): pass 1 streams the K tiles for each row's (m, l),
+// pass 2 streams K and V, recomputes S and accumulates the normalised,
+// rounded P times V in registers. At 128 < T <= 256 one pass does not
+// fit: its block of four warpgroups leaves a thread at most 128 registers
+// (65536 / 512), which S [64, 256] alone fills (128 f32 a thread) before
+// P's 64 and O's 32-64, so those T stream too.
+//
+// f32 (parity at full precision, not a training path): one block per
+// (bh, 32-row q-tile), the same two passes with scalar f32 tile products
+// in shared memory; rows past T are zero-filled and masked, so any T from
+// 1 works; the heaviest causal tiles launch first.
 
-#include "tile.cuh"  // tiles, tile products, row reductions
+#include "attention_fwd.cuh"  // the bf16 streaming forward
+#include "tile.cuh"           // f32 tiles, tile products, row reductions
 
 namespace {
 
+// ------------------------------------------------------------------ f32
 template <typename T, int D>
 struct AttnSmem {
   static constexpr int R = Tile<T>::rows;
@@ -73,8 +77,8 @@ __global__ void __launch_bounds__(kThreads)
 
   const int row = threadIdx.x / kTPR;  // this thread's row in the row loops
   const int sub = threadIdx.x % kTPR;
-  const int bh = blockIdx.y;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
   const int q0 = qt * R;
   const size_t base = static_cast<size_t>(bh) * t_len * D;
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
@@ -135,17 +139,148 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------------------- bf16, T <= 128
+template <int D, int NK>
+struct OnePassCfg {
+  static constexpr int DP = D < 64 ? 64 : D;  // padded head dim
+  static constexpr int kThr = 2 * NK;         // NK / 64 warpgroups
+  static constexpr int kQ = 0, kK = NK * DP * 2, kV = 2 * NK * DP * 2;
+  static constexpr size_t bytes = 3 * NK * DP * 2 + 1024;  // + alignment slack
+};
+
+// T <= NK (64 or 128); warpgroup w owns query rows 64 w .. 64 w + 63.
+template <int D, int NK>
+__global__ void __launch_bounds__(2 * NK, 2)
+    attention_fwd_onepass_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                 const bf16* __restrict__ v, bf16* __restrict__ o, int t_len,
+                                 int causal) {
+  using C = OnePassCfg<D, NK>;
+  constexpr int DP = C::DP, kThr = C::kThr;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const size_t mat = static_cast<size_t>(blockIdx.x) * t_len * D;
+  const int tid = threadIdx.x;
+  load_tile<NK, D, DP, kThr>(base + C::kQ, q + mat, 0, t_len, tid);
+  load_tile<NK, D, DP, kThr>(base + C::kK, k + mat, 0, t_len, tid);
+  cp_async_commit();
+  load_tile<NK, D, DP, kThr>(base + C::kV, v + mat, 0, t_len, tid);
+  cp_async_commit();
+  cp_async_wait<1>();  // this thread's Q and K copies have landed
+  fence_proxy_async();
+  __syncthreads();
+
+  const int w = tid / 128;
+  const int lane = tid & 31;
+  const int row = 64 * w + 16 * ((tid % 128) >> 5) + (lane >> 2);  // rows row, row + 8
+  float s_acc[NK / 2];  // S [64 queries, NK keys], then P
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+    wgmma_ss(s_acc, desc_kmajor<NK>(base + C::kQ, 64 * w, ks), desc_kmajor<NK>(base + C::kK, 0, ks),
+             ks);
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(s_acc);
+
+  // P = exp(S scale - m) / l in f32 (log2 domain), keys at or past
+  // key_end[h] masked to 0, rounded to bf16 as the A fragments of P V
+  const float scale_log2 = kLog2e / sqrtf(static_cast<float>(D));
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key_end = causal ? min(row + 8 * h + 1, t_len) : t_len;
+#pragma unroll
+    for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float& x = s_acc[4 * j + 2 * h + c];
+        if (8 * j + 2 * (lane & 3) + c >= key_end) x = -INFINITY;
+        mx[h] = fmaxf(mx[h], x);
+      }
+    mx[h] = quad_max(mx[h]) * scale_log2;
+#pragma unroll
+    for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float& x = s_acc[4 * j + 2 * h + c];
+        x = exp2_approx(fmaf(x, scale_log2, -mx[h]));
+        sum[h] += x;
+      }
+    sum[h] = 1.f / quad_sum(sum[h]);
+  }
+  uint32_t pf[NK / 4];
+#pragma unroll
+  for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      pf[2 * j + h] = pack_bf16(s_acc[4 * j + 2 * h] * sum[h], s_acc[4 * j + 2 * h + 1] * sum[h]);
+
+  cp_async_wait<0>();  // this thread's V copies have landed
+  fence_proxy_async();
+  __syncthreads();
+  float o_acc[DP / 2];  // O [64 queries, DP]
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < NK / 16; ++ks)
+    wgmma_rs(o_acc, pf + 4 * ks, desc_mnmajor<NK>(base + C::kV, ks), ks);
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(pf);
+  reg_fence(o_acc);
+  store_acc<D, DP>(o + mat, o_acc, row, lane, t_len);
+}
+
+// -------------------------------------------------------- bf16, T > 128
+template <int D>
+__global__ void __launch_bounds__(kRingThreads, 1)
+    attention_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                              const bf16* __restrict__ v, bf16* __restrict__ o, int n_bh,
+                              int t_len, int causal) {
+  stream_fwd<D, Softmax::kTwoPass>(q, k, v, o, nullptr, n_bh, t_len, causal);
+}
+
+// ----------------------------------------------------------------- launch
+template <int D, int NK>
+cudaError_t launch_onepass(const void* q, const void* k, const void* v, void* o, int bh,
+                           int t_len, int causal, cudaStream_t stream) {
+  const size_t smem = OnePassCfg<D, NK>::bytes;
+  auto kernel = attention_fwd_onepass_kernel<D, NK>;
+  cudaError_t e = prepare(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<bh, OnePassCfg<D, NK>::kThr, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), t_len, causal);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
                    int t_len, int causal, cudaStream_t stream) {
-  constexpr int R = Tile<T>::rows;
-  const size_t smem = AttnSmem<T, D>::bytes;
-  auto kernel = attention_fwd_kernel<T, D>;
-  cudaError_t e = prepare(kernel, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<dim3((t_len + R - 1) / R, bh), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), t_len, causal);
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (t_len <= 64) return launch_onepass<D, 64>(q, k, v, o, bh, t_len, causal, stream);
+    if (t_len <= 128) return launch_onepass<D, 128>(q, k, v, o, bh, t_len, causal, stream);
+    const size_t smem = FwdCfg<D>::bytes;
+    auto kernel = attention_fwd_sm90_kernel<D>;
+    cudaError_t e = prepare(kernel, smem);
+    if (e != cudaSuccess) return e;
+    const int tiles = bh * ((t_len + FwdCfg<D>::BQ - 1) / FwdCfg<D>::BQ);
+    int blocks = 0;
+    e = stream_blocks(tiles, &blocks);
+    if (e != cudaSuccess) return e;
+    kernel<<<blocks, kRingThreads, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<bf16*>(o), bh, t_len, causal);
+  } else {
+    constexpr int R = Tile<T>::rows;
+    const size_t smem = AttnSmem<T, D>::bytes;
+    auto kernel = attention_fwd_kernel<T, D>;
+    cudaError_t e = prepare(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3(bh, (t_len + R - 1) / R), kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), t_len, causal);
+  }
   return cudaGetLastError();
 }
 

@@ -6,41 +6,35 @@
 // on q, k, v, o [BH, T, D] (row-major, contiguous) with lse f32 [BH, T].
 // Scores are S = Q K^T / sqrt(D), masked to -1e30 above the diagonal when
 // causal; the kernel runs an online softmax with f32 (m, l, acc) and
-// writes O and lse = m + log(l), which the backward recomputes P from.
+// writes O and lse = m + log(l), which the backward recomputes P from. As
+// the reference, P V takes the unnormalised exp(s - m) at the running max
+// of the k-tiles seen so far, rounded to V's dtype, and l sums the
+// unrounded p.
 //
 // Bound: at training shapes (T = 2048, D = 64) the work is about 4 D
 // flops per (query, key) pair against 2 D bytes read per row: far above
 // the ~295 flops per byte where the H100's tensor cores, not memory, are
-// the limit. So the tile products run on the tensor cores (nvcuda::wmma
-// m16n16k16, bf16 in, f32 accumulate) for bf16 inputs; f32 inputs take a
-// scalar f32 path with the same structure, for parity at full precision.
+// the limit, and one exponential a pair (16 a clock per SM) takes about as
+// long as the products.
 //
-// Design:
-//   - the TPU grid's sequential third dimension becomes a loop inside the
-//     block: one block per (bh, q-tile) walks the k-tiles. Each block owns
-//     its output tile, so there are no atomics;
-//   - causal: tiles wholly above the diagonal are skipped (q- and k-tiles
-//     have one size, so q-tile i meets k-tiles 0..i), the diagonal tile is
-//     masked element by element; the heaviest causal tiles launch first;
-//   - tiles are 64 rows for bf16 and 32 for f32 (shared memory), loaded
-//     with 16-byte vectors into rows padded by 16 bytes (no bank
-//     conflicts down a column); rows past T are zero-filled and masked, so
-//     any T works;
-//   - the row loops give each row 4 (bf16) or 8 (f32) threads, which keep
-//     the row's (m, l) in registers and reduce by shuffles; the O
-//     accumulator, which is rescaled row by row, stays in shared memory;
-//   - the reference rounds P to the input dtype for P V, and so does this
-//     kernel.
-// This version does not overlap the next tile's load with the current
-// tile's math (no cp.async/TMA pipeline), syncs the whole block between
-// the steps of a tile, and runs mma.sync through wmma rather than
-// wgmma: those are the known gaps to the bound.
+// bf16: the warp-specialised, persistent streaming kernel of
+// attention_fwd.cuh (Softmax::kOnline): a producer warpgroup streams K/V
+// tiles through a cp.async ring under mbarriers; two consumer warpgroups
+// keep S, P and O in wgmma registers, P repacked in place as the A
+// operand of P V, and take turns on the tensor cores.
+//
+// f32 (parity at full precision, not a training path): one block per
+// (bh, 32-row q-tile) walks the k-tiles with scalar f32 tile products in
+// shared memory; causal tiles wholly above the diagonal are skipped, the
+// diagonal tile is masked element by element, rows past T are zero-filled
+// and masked, and the heaviest causal tiles launch first.
 
-#include "tile.cuh"  // tiles, tile products, row reductions
+#include "attention_fwd.cuh"  // the bf16 streaming forward
+#include "tile.cuh"           // f32 tiles, tile products, row reductions
 
 namespace {
 
-// ---------------------------------------------------------------- forward
+// ---------------------------------------------------------------- f32
 template <typename T, int D>
 struct FwdSmem {
   static constexpr int R = Tile<T>::rows;
@@ -70,8 +64,8 @@ __global__ void __launch_bounds__(kThreads)
 
   const int row = threadIdx.x / kTPR;  // this thread's row in the row loops
   const int sub = threadIdx.x % kTPR;
-  const int bh = blockIdx.y;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
   const int q0 = qt * R;
   const size_t base = static_cast<size_t>(bh) * t_len * D;
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
@@ -122,20 +116,43 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------------------------------ bf16
+template <int D>
+__global__ void __launch_bounds__(kRingThreads, 1)
+    flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, bf16* __restrict__ o,
+                          float* __restrict__ lse, int n_bh, int t_len, int causal) {
+  stream_fwd<D, Softmax::kOnline>(q, k, v, o, lse, n_bh, t_len, causal);
+}
+
 // ----------------------------------------------------------------- launch
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, int bh, int t_len, int causal,
                        cudaStream_t stream) {
-  constexpr int R = Tile<T>::rows;
-  const size_t smem = FwdSmem<T, D>::bytes;
-  auto kernel = flash_fwd_kernel<T, D>;
-  cudaError_t e = prepare(kernel, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<dim3((t_len + R - 1) / R, bh), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      t_len, causal);
+  if constexpr (std::is_same<T, bf16>::value) {
+    const size_t smem = FwdCfg<D>::bytes;
+    auto kernel = flash_fwd_sm90_kernel<D>;
+    cudaError_t e = prepare(kernel, smem);
+    if (e != cudaSuccess) return e;
+    const int tiles = bh * ((t_len + FwdCfg<D>::BQ - 1) / FwdCfg<D>::BQ);
+    int blocks = 0;
+    e = stream_blocks(tiles, &blocks);
+    if (e != cudaSuccess) return e;
+    kernel<<<blocks, kRingThreads, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<bf16*>(o), static_cast<float*>(lse), bh, t_len, causal);
+  } else {
+    constexpr int R = Tile<T>::rows;
+    const size_t smem = FwdSmem<T, D>::bytes;
+    auto kernel = flash_fwd_kernel<T, D>;
+    cudaError_t e = prepare(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3(bh, (t_len + R - 1) / R), kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+        t_len, causal);
+  }
   return cudaGetLastError();
 }
 

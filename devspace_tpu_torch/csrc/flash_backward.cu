@@ -62,34 +62,10 @@
 
 #include <cmath>
 
-#include "hopper.cuh"  // mbarriers, cp.async, wgmma
+#include "hopper.cuh"  // mbarriers, cp.async, wgmma, the ring, accumulator helpers
 #include "tile.cuh"    // element types, scalar tile product, masks, launch helpers
 
 namespace {
-
-constexpr int kConsumers = 2;                     // consumer warpgroups
-constexpr int kBwdThreads = 128 * (kConsumers + 1);
-constexpr int kStages = 4;                        // ring depth
-constexpr int kProducerRegs = 40, kConsumerRegs = 232;
-constexpr float kLog2e = 1.4426950408889634f;
-
-constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
-// Rows row0 .. row0 + R - 1 of a [T, D] bf16 matrix into the [R, DP]
-// swizzled tile at `tile`, by the 128 threads of one warpgroup.
-template <int R, int D, int DP>
-__device__ __forceinline__ void load_tile(uint32_t tile, const bf16* src, int row0, int t_len,
-                                          int tid) {
-  constexpr int kChunks = DP / 8;
-#pragma unroll 4
-  for (int i = tid; i < R * kChunks; i += 128) {
-    const int r = i / kChunks;
-    const int c = i - r * kChunks;
-    const bool ok = row0 + r < t_len && c * 8 < D;
-    cp_async16(tile + sw_offset<R>(r, c),
-               ok ? src + static_cast<size_t>(row0 + r) * D + c * 8 : src, ok);
-  }
-}
 
 template <int R>
 __device__ __forceinline__ void load_rowvec(uint32_t dst, const float* src, int row0, int t_len,
@@ -114,31 +90,6 @@ __device__ __forceinline__ void split_frags(const float (&x)[N], uint32_t (&hi)[
   }
 }
 
-// 2^x on the special-function unit (results below 2^-126 flush to 0).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Rows row0 + {0, 8} (this thread's) of a [64, DP] accumulator into the
-// [T, D] output, columns below D, rows before T.
-template <int D, int DP>
-__device__ __forceinline__ void store_acc(bf16* dst, const float (&acc)[DP / 2], int row0,
-                                          int lane, int t_len) {
-#pragma unroll
-  for (int j = 0; j < DP / 8; ++j) {
-    const int col = 8 * j + 2 * (lane & 3);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = row0 + 8 * h;
-      if (col < D && row < t_len)
-        *reinterpret_cast<__nv_bfloat162*>(dst + static_cast<size_t>(row) * D + col) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-    }
-  }
-}
-
 // ------------------------------------------------------------ bf16 dk/dv
 template <int D>
 struct DkvCfg {
@@ -156,7 +107,7 @@ struct DkvCfg {
 };
 
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kRingThreads, 1)
     flash_bwd_dkv_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               const bf16* __restrict__ v, const bf16* __restrict__ dout,
                               const float* __restrict__ lse, const float* __restrict__ delta,
@@ -354,7 +305,7 @@ struct DqCfg {
 };
 
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kRingThreads, 1)
     flash_bwd_dq_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              const bf16* __restrict__ v, const bf16* __restrict__ dout,
                              const float* __restrict__ lse, const float* __restrict__ delta,
@@ -680,7 +631,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
     cudaError_t e = prepare(kernel, smem);
     if (e != cudaSuccess) return e;
     const int tiles = (t_len + DqCfg<D>::BQ - 1) / DqCfg<D>::BQ;
-    kernel<<<dim3(bh, tiles), kBwdThreads, smem, stream>>>(
+    kernel<<<dim3(bh, tiles), kRingThreads, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<const bf16*>(dout), static_cast<const float*>(lse),
         static_cast<const float*>(delta), static_cast<bf16*>(dq), t_len, causal);
@@ -708,7 +659,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
     cudaError_t e = prepare(kernel, smem);
     if (e != cudaSuccess) return e;
     const int tiles = (t_len + DkvCfg<D>::BK - 1) / DkvCfg<D>::BK;
-    kernel<<<dim3(bh, tiles), kBwdThreads, smem, stream>>>(
+    kernel<<<dim3(bh, tiles), kRingThreads, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<const bf16*>(dout), static_cast<const float*>(lse),
         static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), t_len,

@@ -1,8 +1,12 @@
-// Hopper (sm_90a) building blocks of the warp-specialised kernels
-// (flash_backward.cu): shared-memory addresses, mbarriers, cp.async into
-// 128-byte-swizzled tiles, wgmma descriptors and the wgmma products the
-// kernels issue, register fences and setmaxnreg. Plain PTX, no CUTLASS:
-// a source that includes this header builds in seconds.
+// Hopper (sm_90a) building blocks of the warp-specialised attention
+// kernels (flash_backward.cu; the forwards in attention_fwd.cuh, which
+// flash_attention.cu and attention.cu instantiate): shared-memory
+// addresses, mbarriers, cp.async into 128-byte-swizzled tiles, wgmma
+// descriptors and the wgmma products the kernels issue, register fences
+// and setmaxnreg, the ring's constants, and the per-thread pieces of the
+// accumulator layout (row reductions over a quad of lanes, the store of
+// an accumulator). Plain PTX, no CUTLASS: a source that includes this
+// header builds in seconds.
 //
 // Tile layout: an [R, DP] bf16 tile (DP a multiple of 64) is stored as
 // DP / 64 column blocks of [R, 64]; each 128-byte row holds eight 16-byte
@@ -19,6 +23,17 @@
 #include <stdint.h>
 
 namespace {
+
+// The ring of the warp-specialised kernels: a producer warpgroup and
+// kConsumers consumer warpgroups of 64 rows each, kStages stages; the
+// producer gives up registers to the consumers (setmaxnreg).
+constexpr int kConsumers = 2;
+constexpr int kRingThreads = 128 * (kConsumers + 1);
+constexpr int kStages = 4;
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr float kLog2e = 1.4426950408889634f;
+
+constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -80,6 +95,17 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed cp.async groups are
+// still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Orders shared-memory writes seen through the generic proxy (cp.async,
 // st.shared) before the async proxy's reads (wgmma operands).
 __device__ __forceinline__ void fence_proxy_async() {
@@ -118,6 +144,23 @@ __device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
 template <int R>
 __device__ __forceinline__ uint32_t sw_offset(int r, int chunk) {
   return (chunk >> 3) * (R * 128) + r * 128 + (((chunk & 7) ^ (r & 7)) << 4);
+}
+
+// Rows row0 .. row0 + R - 1 of a [T, D] bf16 matrix into the [R, DP]
+// swizzled tile at `tile`, by kThr threads (tid 0 .. kThr - 1); rows at or
+// past T, and the columns past D of a head dim below 64, are zero-filled.
+template <int R, int D, int DP, int kThr = 128>
+__device__ __forceinline__ void load_tile(uint32_t tile, const __nv_bfloat16* src, int row0,
+                                          int t_len, int tid) {
+  constexpr int kChunks = DP / 8;
+#pragma unroll 4
+  for (int i = tid; i < R * kChunks; i += kThr) {
+    const int r = i / kChunks;
+    const int c = i - r * kChunks;
+    const bool ok = row0 + r < t_len && c * 8 < D;
+    cp_async16(tile + sw_offset<R>(r, c),
+               ok ? src + static_cast<size_t>(row0 + r) * D + c * 8 : src, ok);
+  }
 }
 
 // wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
@@ -162,6 +205,25 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x on the special-function unit (results below 2^-126 flush to 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Max and sum over the quad of lanes (lane % 4) that holds one row of an
+// accumulator.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // D[64, N] (f32 registers) = (scale_d ? D : 0) + A B, one K slice of 16.
@@ -257,6 +319,24 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a, uint
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// Rows row0 + {0, 8} (this thread's) of a [64, DP] accumulator into the
+// [T, D] bf16 output, columns below D, rows before T.
+template <int D, int DP>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* dst, const float (&acc)[DP / 2],
+                                          int row0, int lane, int t_len) {
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (col < D && row < t_len)
+        *reinterpret_cast<__nv_bfloat162*>(dst + static_cast<size_t>(row) * D + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
 }
 
 }  // namespace

@@ -1,15 +1,14 @@
-// Tile helpers shared by the attention kernels (flash_attention.cu,
-// attention.cu, flash_backward.cu's f32 path): the element types,
-// shared-memory row strides, tile loads with a masked ragged edge, the
-// tile product on the tensor cores (bf16) or in scalar f32, and the
-// row-group reductions of the softmax loops.
+// Tile helpers of the attention kernels' f32 paths (flash_attention.cu,
+// attention.cu, flash_backward.cu): the element types, shared-memory row
+// strides, tile loads with a masked ragged edge, the scalar f32 tile
+// product, the row-group reductions of the softmax loops, and the launch
+// helpers every attention source uses.
 // Everything sits in an unnamed namespace: each source gets its own copy.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -19,34 +18,23 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF mask value
 
 template <typename T>
 struct Tile;
 template <>
-struct Tile<bf16> {
-  static constexpr int rows = 64;
-};
-template <>
 struct Tile<float> {
   static constexpr int rows = 32;
 };
-
-__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_float<bf16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to()
-}
 
 // Shared-memory row strides, padded by 16 bytes so that neighbouring rows
 // start in other banks (the tile products and the row loops read down
-// columns); 16 bytes keep every wmma fragment 32-byte aligned.
+// columns).
 template <typename T, int N>
 struct Ld {
   static constexpr int value = N + 16 / static_cast<int>(sizeof(T));
@@ -70,43 +58,9 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, int row0,
 }
 
 // C[M, N] (f32, shared) = (accumulate ? C : 0) + op(A) op(B), op(A) [M, K]
-// and op(B) [K, N]. TA: A is stored [K, M] (lda = M's stride), else
-// [M, K]; TB: B is stored [N, K], else [K, N]. All row-major in shared
-// memory. Every 16x16 output tile belongs to one warp, the same warp in
-// every call with the same M and N.
-template <bool TA, bool TB, int M, int N, int K>
-__device__ __forceinline__ void tile_mma(const bf16* A, int lda, const bf16* B,
-                                         int ldb, float* C, int ldc,
-                                         bool accumulate) {
-  using namespace nvcuda;
-  using LayoutA =
-      typename std::conditional<TA, wmma::col_major, wmma::row_major>::type;
-  using LayoutB =
-      typename std::conditional<TB, wmma::col_major, wmma::row_major>::type;
-  constexpr int kTilesN = N / 16;
-  const int warp = threadIdx.x >> 5;
-  for (int t = warp; t < (M / 16) * kTilesN; t += kWarps) {
-    const int tm = t / kTilesN;
-    const int tn = t - tm * kTilesN;
-    float* cp = C + tm * 16 * ldc + tn * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    if (accumulate)
-      wmma::load_matrix_sync(c, cp, ldc, wmma::mem_row_major);
-    else
-      wmma::fill_fragment(c, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < K; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayoutA> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayoutB> b;
-      wmma::load_matrix_sync(a, TA ? A + kk * lda + tm * 16 : A + tm * 16 * lda + kk, lda);
-      wmma::load_matrix_sync(b, TB ? B + tn * 16 * ldb + kk : B + kk * ldb + tn * 16, ldb);
-      wmma::mma_sync(c, a, b, c);
-    }
-    wmma::store_matrix_sync(cp, c, ldc, wmma::mem_row_major);
-  }
-}
-
-// The same product in scalar f32 (one thread per output element).
+// and op(B) [K, N], in scalar f32 (one thread per output element). TA: A
+// is stored [K, M] (lda = M's stride), else [M, K]; TB: B is stored
+// [N, K], else [K, N]. All row-major in shared memory.
 template <bool TA, bool TB, int M, int N, int K>
 __device__ __forceinline__ void tile_mma(const float* A, int lda,
                                          const float* B, int ldb, float* C,

@@ -21,8 +21,18 @@ from devspace_tpu_torch.ops import _build
      "flash_bwd_dq"),
     ("void (anonymous namespace)::flash_bwd_dkv_f32_kernel<32>(float const*, int, int)",
      "flash_bwd_dkv"),
-    ("void (anonymous namespace)::flash_fwd_kernel<__nv_bfloat16, 64>(__nv_bfloat16 const*, int, int)",
+    ("void (anonymous namespace)::flash_fwd_kernel<float, 64>(float const*, int, int)",
      "flash_fwd"),
+    ("void (anonymous namespace)::flash_fwd_sm90_kernel<64>(__nv_bfloat16 const*, "
+     "__nv_bfloat16*, float*, int, int, int)", "flash_fwd"),
+    # short attention: the one-pass and two-pass bf16 kernels (the latter
+    # with "sm90_" in its name) and the f32 one
+    ("void (anonymous namespace)::attention_fwd_onepass_kernel<128, 128>(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, int, int)", "short_attention"),
+    ("void (anonymous namespace)::attention_fwd_sm90_kernel<64>(__nv_bfloat16 const*, "
+     "__nv_bfloat16*, int, int, int)", "short_attention"),
+    ("void (anonymous namespace)::attention_fwd_kernel<float, 128>(float const*, int, int)",
+     "short_attention"),
     ("void (anonymous namespace)::xent_kernel<float>(float const*, long const*, float*, int)",
      "cross_entropy"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64_warpgroupsize1x1x1",
@@ -58,3 +68,26 @@ def test_builds_every_source_and_names_the_backward_source():
         assert (_build.PACKAGE_DIR.parent / source).exists(), name
     assert cs.TRAIN_KERNELS["flash_bwd_dq"][1].endswith("csrc/flash_backward.cu")
     assert cs.TRAIN_KERNELS["flash_bwd_dkv"][1].endswith("csrc/flash_backward.cu")
+
+
+def test_every_header_reaches_a_built_source():
+    """Each csrc/*.cuh is included by a source that chip_smoke.py builds;
+    the streaming forward's header by both attention sources, and the
+    Hopper helpers by it and by the backward."""
+    sources = {name: (_build.CSRC_DIR / f"{name}.cu").read_text() for name in cs.SOURCES}
+    headers = {p.name for p in _build.CSRC_DIR.glob("*.cuh")}
+    included = {h: {n for n, text in sources.items() if f'#include "{h}"' in text} for h in headers}
+    assert all(included[h] for h in headers), included
+    assert included["attention_fwd.cuh"] == {"flash_attention", "attention"}
+    assert '#include "hopper.cuh"' in (_build.CSRC_DIR / "attention_fwd.cuh").read_text()
+    assert "flash_backward" in included["hopper.cuh"]
+
+
+def test_attention_bound_is_bytes_at_the_main_paths_shapes():
+    """Short attention at the target's training shape and at the draft's
+    500-token prefill moves 8 D bytes a row, which bound it (causal, T <=
+    1024)."""
+    for bh, t, d in (cs.ATTN_TRAIN_SHAPES["target"], cs.ATTN_PREFILL_SHAPE):
+        bound_ms, by = cs.attention_bound(bh, t, d)
+        assert by == "bytes"
+        assert bound_ms == pytest.approx(4 * bh * t * d * 2 / cs.HBM_BYTES_PER_S * 1e3)

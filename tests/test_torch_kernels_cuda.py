@@ -156,11 +156,12 @@ def assert_kernel_close(got, ref, name):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("D", [16, 32, 64, 128])
-@pytest.mark.parametrize("T", [256, 200, 1000, 2048 - 37],
-                         ids=["T256", "T200-ragged", "T1000-ragged", "T2011-ragged"])
+@pytest.mark.parametrize("T", [256, 129, 200, 1000, 2048 - 37],
+                         ids=["T256", "T129-ragged", "T200-ragged", "T1000-ragged", "T2011-ragged"])
 def test_cuda_flash_kernels_match_plain_versions(cuda_device, dtype, causal, D, T):
-    """T = 1000 and 2011 span many of the backward kernels' tiles (128
-    rows a block, 64 or 32 a ring stage) and end ragged in both."""
+    """T = 1000 and 2011 span many of the kernels' tiles (128 rows a
+    block, 128, 64 or 32 a ring stage) and end ragged in all three;
+    T = 129 is one forward block and k-tile plus one row."""
     rng = np.random.default_rng(11)
     q, k, v, do = [torch.from_numpy(rng.normal(size=(6, T, D)).astype(np.float32))
                    .to(cuda_device, dtype) for _ in range(4)]
@@ -202,6 +203,22 @@ def test_cuda_flash_backward_kernels_repeat_bitwise_at_bench_shape(cuda_device, 
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_cuda_flash_forward_repeats_bitwise_at_bench_shape(cuda_device, causal):
+    """O and lse straight from the forward kernel at the bench LM's shape
+    ([B*H = 128, T = 2048, D = 64], bf16): each block owns its output rows
+    (no atomics), so two launches agree bit for bit."""
+    rng = np.random.default_rng(14)
+    q, k, v = [torch.from_numpy(rng.normal(size=(128, 2048, 64)).astype(np.float32))
+               .to(cuda_device, torch.bfloat16) for _ in range(3)]
+    runs = [tfa.flash_fwd(q, k, v, causal) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert tfa.LAST_DISPATCH["impl"] == "cuda"
+    for name, a, b in zip(("o", "lse"), *runs):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
 def test_cuda_flash_autograd_is_deterministic_and_counts(cuda_device):
     """bf16 grads through the autograd Function: every kernel owns its
     outputs (no atomics), so two runs agree bit for bit."""
@@ -224,16 +241,20 @@ def test_cuda_flash_autograd_is_deterministic_and_counts(cuda_device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("D", [16, 32, 64, 128])
-@pytest.mark.parametrize("T", [1, 7, 37, 64, 65, 200, 256, 512, 768, 1024])
+@pytest.mark.parametrize("T", [1, 7, 37, 64, 65, 127, 128, 129, 200, 255, 256, 257, 512, 768,
+                               1024])
 def test_cuda_short_attention_matches_plain_version(cuda_device, dtype, causal, D, T):
     """Every kind of T the route sends to the kernel: below, at and past
-    the tile (64 rows bf16, 32 f32), no multiple of it, and the three
-    long ones."""
+    the one-pass kernels' 64 and 128 keys, both sides of 256, no multiple
+    of any tile (64 or 128 rows bf16, 32 f32), and the three long ones.
+    The route sends T = 257 to the plain version (256 does not divide it),
+    so that case calls the kernel's wrapper itself."""
     rng = np.random.default_rng(21)
     q, k, v = [torch.from_numpy(rng.normal(size=(2, 3, T, D)).astype(np.float32))
                .to(cuda_device, dtype) for _ in range(3)]
     before = tattn.LAUNCHES
-    got = tattn.fused_attention(q, k, v, causal=causal)
+    fn = tattn.attention_fwd if T == 257 else tattn.fused_attention
+    got = fn(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert tattn.LAUNCHES == before + 1 and tattn.LAST_DISPATCH["impl"] == "cuda"
     ref = tattn.attention_reference(q, k, v, causal)
