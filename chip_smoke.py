@@ -152,6 +152,8 @@ ATTN_PREFILL_SHAPE = (4, 512, 64)
 ATTN_KERNEL = ("devspace_tpu_torch/csrc/attention.cu", "devspace_tpu/ops/attention.py:36")
 RMS_KERNEL = ("devspace_tpu_torch/csrc/rms_norm.cu", "devspace_tpu/ops/normalization.py:24")
 RMS_SHAPES = ((4096, 1024), (4096, 256), (8, 4096), (33, 1001))
+# RMSNorm also timed at the Llama-2-7B width
+RMS_WIDE = (4096, 4096)
 # RMSNorm kernel vs plain version: float32 the same arithmetic summed in
 # another order; bf16 outputs within one bf16 ulp
 RMS_F32_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -193,11 +195,12 @@ def device_ms(fn, reps: int, warmup: int = 3, spin_ms: float = 50.0) -> tuple[fl
 
 
 # -- kernel inputs ------------------------------------------------------------
-def paged_inputs(seed, lengths, H, Hkv, D, bs, dtype, int8, dev):
-    """Random q and pools, each row's table a run of distinct blocks."""
+def paged_inputs(seed, lengths, H, Hkv, D, bs, dtype, int8, dev, mb=None):
+    """Random q and pools, each row's table a run of distinct blocks, ``mb``
+    columns wide (default: as many as the longest row needs)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     B = len(lengths)
-    mb = max(1, max(-(-n // bs) for n in lengths))
+    mb = mb or max(1, max(-(-n // bs) for n in lengths))
     n_blocks = 1 + B * mb
     q = torch.randn((B, H, D), generator=g, device=dev).to(dtype)
     pk = torch.randn((n_blocks, Hkv, bs, D), generator=g, device=dev)
@@ -248,12 +251,13 @@ def library_attention(q, pk, pv, tables, lengths, ks, vs):
     return out[:, :, 0, :]
 
 
-def bound(q, pk, tables, lengths, int8) -> tuple[float, str]:
+def bound(q, pk, tables, lengths, int8, kv_lengths=None) -> tuple[float, str]:
     """Least time the card could take: each input read once, the output
-    written once, K/V only for the positions this run's lengths cover."""
+    written once, K/V only for the positions this run's lengths cover
+    (``kv_lengths``: once per slot where rows share a slot's blocks)."""
     B, H, D = q.shape
     _, Hkv, _, _ = pk.shape
-    tokens = int(lengths.sum().item())
+    tokens = int((lengths if kv_lengths is None else kv_lengths).sum().item())
     nbytes = 2 * tokens * Hkv * D * pk.element_size()
     if int8:
         nbytes += 2 * tokens * Hkv * 4  # f32 scales
@@ -263,19 +267,41 @@ def bound(q, pk, tables, lengths, int8) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def paged_plan(q, pk, tables, int8) -> dict:
+    """The split plan the wrapper launches these inputs with."""
+    B, _, D = q.shape
+    _, Hkv, bs, _ = pk.shape
+    plan = pa.plan_splits(B, Hkv, tables.shape[1], bs, D, pk.element_size(), int8,
+                          torch.cuda.get_device_properties(0).multi_processor_count)
+    return plan._asdict()
+
+
+# the split kernel's parity cases beside the main-path ones: (lengths,
+# H, Hkv, table width); D = 128, block 64
+SPLIT_PARITY = {
+    # lengths on and beside tile and split edges, a full table, a dead row;
+    # GQA with 8 query heads a KV head
+    "split_edges": ([1, 63, 64, 65, 1023, 1024, 1025, 4095, 4096, 0], 32, 4, None),
+    # one row at context 4096: its 64 blocks cut over many blocks
+    "b1_ctx4096": ([4096], 32, 32, None),
+}
+
+
 # -- phases -------------------------------------------------------------------
 def phase_parity(dev) -> dict:
     """Kernel vs plain version at main-path shapes: D=128, bs=64; ragged
     lengths (full table >= 2048, partial last block, length 1, dead
     slot); MHA (H=Hkv=32, Llama-2-7B) and GQA (H=32, Hkv=8); float and
-    int8 pools, bf16 and f32. Then the [B*K = 40] verification rows of
-    the speculative path (``verify_inputs``), bf16 and f32."""
-    lengths = [2560, 700, 1, 0, 2100]
+    int8 pools, bf16 and f32; the split cases (``SPLIT_PARITY``). Then the
+    [B*K = 40] verification rows of the speculative path
+    (``verify_inputs``), bf16 and f32."""
+    cases = {"mha": ([2560, 700, 1, 0, 2100], 32, 32, None),
+             "gqa": ([2560, 700, 1, 0, 2100], 32, 8, None), **SPLIT_PARITY}
     errs, head_rel = {}, {}
-    for H, Hkv in ((32, 32), (32, 8)):
+    for case, (lengths, H, Hkv, mb) in cases.items():
         for dtype in (torch.bfloat16, torch.float32):
             for int8 in (False, True):
-                args = paged_inputs(1, lengths, H, Hkv, 128, 64, dtype, int8, dev)
+                args = paged_inputs(1, lengths, H, Hkv, 128, 64, dtype, int8, dev, mb)
                 got = pa.paged_decode_attention(*args)
                 torch.cuda.synchronize()
                 assert pa.LAST_DISPATCH["impl"] == "cuda"
@@ -285,12 +311,14 @@ def phase_parity(dev) -> dict:
                 diff = (got[live].float() - ref[live].float()).abs()
                 err = diff.max().item()
                 rel = (diff.amax(-1) / ref[live].float().abs().amax(-1)).max().item()
-                name = f"{'mha' if H == Hkv else 'gqa'}/{str(dtype)[6:]}/{'int8' if int8 else 'float'}"
+                name = f"{case}/{str(dtype)[6:]}/{'int8' if int8 else 'float'}"
                 if dtype == torch.float32:
                     torch.testing.assert_close(got[live], ref[live], rtol=F32_RTOL, atol=F32_ATOL)
                 else:
                     assert err <= BF16_MAX_ABS, f"{name}: bf16 max abs error {err}"
                     assert rel <= BF16_HEAD_REL, f"{name}: bf16 per-head relative error {rel}"
+                # the splits merge in a fixed order: a second launch repeats bit for bit
+                assert torch.equal(pa.paged_decode_attention(*args), got), f"{name}: not repeatable"
                 errs[name], head_rel[name] = err, rel
     # the speculative path's verification rows
     for dtype in (torch.bfloat16, torch.float32):
@@ -313,36 +341,47 @@ def phase_parity(dev) -> dict:
     return errs, head_rel
 
 
+# the kernel's timing cases: (lengths, table width); H = Hkv = 32, D =
+# 128, block 64 (Llama-2-7B)
+PAGED_TIMING = {
+    # a decode step's attention, per layer, at context 1024: the pool kinds
+    "bf16": ([1024] * 8, None), "int8": ([1024] * 8, None),
+    # the same rows in the engine's table width (max_len 2048 / 64)
+    "b8_mb32_ctx1024": ([1024] * 8, 32),
+    # one row at context 4096
+    "b1_ctx4096": ([4096], None),
+}
+
+
 def phase_timing(dev) -> dict:
-    """B=8, every length 1024, H=Hkv=32, D=128, bs=64 (a Llama-2-7B decode
-    step's attention, per layer); q bf16, pool bf16 or int8. The K/V read
-    (134 MB bf16, 67 MB int8) exceeds the 50 MB L2, so it comes from HBM."""
+    """Each ``PAGED_TIMING`` case (q bf16; pool int8 for "int8", else
+    bf16) and the speculative path's verification rows (``verify_b40``,
+    bf16): the kernel (split and combine) beside its plain version, gather
+    + SDPA and its bound. The K/V read of the B = 8 cases (134 MB bf16, 67
+    MB int8) exceeds the 50 MB L2, so it comes from HBM; the B = 1 row
+    (67 MB) too. The kernel reads a slot's blocks once for each of its
+    verification rows; their bound reads them once a slot."""
     out = {}
-    for int8 in (False, True):
-        args = paged_inputs(2, [1024] * 8, 32, 32, 128, 64, torch.bfloat16, int8, dev)
-        q, pk, pv, tables, lengths, ks, vs = args
-        kernel = pa._kernel()
-        out_buf = torch.empty_like(q)
-        stream = torch.cuda.current_stream().cuda_stream
-        raw = (1, int(int8), q.data_ptr(), pk.data_ptr(), pv.data_ptr(),
-               ks.data_ptr() if int8 else None, vs.data_ptr() if int8 else None,
-               tables.data_ptr(), lengths.data_ptr(), out_buf.data_ptr(),
-               8, 32, 32, 128, 64, tables.shape[1], pk.shape[0], stream)
-
-        def launch():
-            err = kernel(*raw)
-            if err:
-                raise RuntimeError(f"paged_decode launch failed: cudaError {err}")
-
-        ms, _ = device_ms(launch, 200)
-        torch.testing.assert_close(out_buf, pa.paged_decode_attention(*args), rtol=0, atol=0)
+    cases = {name: paged_inputs(2, lengths, 32, 32, 128, 64, torch.bfloat16, name == "int8", dev,
+                                mb)
+             for name, (lengths, mb) in PAGED_TIMING.items()}
+    cases["verify_b40"] = verify_inputs(3, torch.bfloat16, dev)
+    for name, args in cases.items():
+        int8 = name == "int8"
+        q, pk, pv, tables, lens, ks, vs = args
+        ms, _ = device_ms(lambda: pa.paged_decode_attention(*args), 200)
+        got = pa.paged_decode_attention(*args)
+        assert torch.equal(got, pa.paged_decode_attention(*args))
         plain, _ = device_ms(lambda: pa.paged_decode_reference(*args), 20)
         lib, _ = device_ms(lambda: library_attention(*args), 50)
-        lib_err = (library_attention(*args).float() - out_buf.float()).abs().max().item()
-        bound_ms, bound_by = bound(q, pk, tables, lengths, int8)
-        out["int8" if int8 else "bf16"] = {
+        lib_err = (library_attention(*args).float() - got.float()).abs().max().item()
+        # the verification rows of a slot share its blocks: read once
+        kv_lens = lens.view(-1, SPEC_K + 1).amax(1) if name == "verify_b40" else None
+        bound_ms, bound_by = bound(q, pk, tables, lens, int8, kv_lens)
+        out[name] = {
             "kernel_ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_max_abs_err": lib_err,
+            "bound_by": bound_by, "bound_share": bound_ms / ms, "library_max_abs_err": lib_err,
+            "plan": paged_plan(q, pk, tables, int8), "table_width": tables.shape[1],
         }
     return out
 
@@ -980,17 +1019,17 @@ def phase_spec_kernel_timing(dev) -> dict:
                                     "gbytes_per_s": 4 * bh * t * d * 2 / ms / 1e6,
                                     "max_abs_err": err[0], "max_head_rel_err": err[1],
                                     "library_max_abs_err": lib_err}
-    rows, d = RMS_SHAPES[0]
-    x, w, _ = rms_inputs(11, (rows, d), torch.bfloat16, dev)
-    wb = w.to(torch.bfloat16)  # the library call takes the weight in x's dtype
-    ms, _ = device_ms(lambda: rn.rms_norm_fwd(x, w), 100)
-    plain_ms, _ = device_ms(lambda: rn.rms_norm_reference(x, w), 50)
-    lib_ms, _ = device_ms(lambda: F.rms_norm(x, (d,), wb, 1e-5), 100)
-    # x read and y written once, the weight read once; ~4 f32 operations
-    # per element
-    bound_ms, bound_by = bound_of(2 * rows * d * 2 + d * 4, 4 * rows * d, F32_FLOPS_PER_S)
-    out["rms_norm"] = {"kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                       "bound_ms": bound_ms, "bound_by": bound_by}
+    for key, (rows, d) in (("rms_norm", RMS_SHAPES[0]), ("rms_norm_4096", RMS_WIDE)):
+        x, w, _ = rms_inputs(11, (rows, d), torch.bfloat16, dev)
+        wb = w.to(torch.bfloat16)  # the library call takes the weight in x's dtype
+        ms, _ = device_ms(lambda: rn.rms_norm_fwd(x, w), 100)
+        plain_ms, _ = device_ms(lambda: rn.rms_norm_reference(x, w), 50)
+        lib_ms, _ = device_ms(lambda: F.rms_norm(x, (d,), wb, 1e-5), 100)
+        # x read and y written once, the weight read once; ~4 f32 operations
+        # per element
+        bound_ms, bound_by = bound_of(2 * rows * d * 2 + d * 4, 4 * rows * d, F32_FLOPS_PER_S)
+        out[key] = {"kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms}
     return out
 
 
@@ -1324,8 +1363,10 @@ def main() -> int:
           "max_head_rel_err": head_rel, "f32_tol": [F32_RTOL, F32_ATOL],
           "bf16_max_abs": BF16_MAX_ABS, "bf16_head_rel": BF16_HEAD_REL})
     timing = phase_timing(dev)
-    emit({"phase": "kernel_timing", "card": card, "shape": "B=8 len=1024 H=Hkv=32 D=128 bs=64",
-          **timing})
+    emit({"phase": "kernel_timing", "card": card,
+          "shape": "H=Hkv=32 D=128 bs=64; bf16/int8: B=8 len=1024",
+          "cases": {k: {"lengths": v[0][:1] + [len(v[0])], "mb": v[1]}
+                    for k, v in PAGED_TIMING.items()}, **timing})
     emit({"phase": "small_reference", "card": card, "max_abs_logit_err": phase_small_reference(dev)})
 
     emit({"phase": "train_kernel_parity", "card": card, "f32_tol": [F32_RTOL, F32_ATOL],
@@ -1350,7 +1391,8 @@ def main() -> int:
     spec_timing = phase_spec_kernel_timing(dev)
     emit({"phase": "spec_kernel_timing", "card": card,
           "shape": f"attention bf16 causal [B*H, T, D] {ATTN_TRAIN_SHAPES}, "
-                   f"prefill512 {ATTN_PREFILL_SHAPE}; rms_norm bf16 {list(RMS_SHAPES[0])}",
+                   f"prefill512 {ATTN_PREFILL_SHAPE}; rms_norm bf16 {list(RMS_SHAPES[0])}, "
+                   f"rms_norm_4096 bf16 {list(RMS_WIDE)}",
           **spec_timing})
     pair_line, t_params, d_params = phase_train_pair(dev, card)
     emit(pair_line)
@@ -1403,8 +1445,16 @@ def main() -> int:
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
+            "bound_share": t["bound_share"],
             "library_ms": t["library_ms"],
+            "plan": t["plan"],
         })
+        if variant == "bf16":
+            # the engine's table width and one long row beside the decode step
+            kernels[-1]["other_shapes"] = {
+                shape: {f: timing[shape][f] for f in ("kernel_ms", "plain_ms", "library_ms",
+                                                      "bound_ms", "bound_share", "plan")}
+                for shape in ("b8_mb32_ctx1024", "b1_ctx4096", "verify_b40")}
     for name, (key, source, replaces) in TRAIN_KERNELS.items():
         t = train_timing["xent" if key is None else key]
         if key is None:
@@ -1449,14 +1499,17 @@ def main() -> int:
             "ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         }
+        entry["bound_share"] = t["bound_share"]
+        fields = ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_share")
         if name == "short_attention":
             # the draft's training shape and its long prefill beside the
             # target's shape above
-            entry["bound_share"] = t["bound_share"]
-            entry["other_shapes"] = {
-                shape: {f: spec_timing[f"attention_{shape}"][f]
-                        for f in ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_share")}
-                for shape in ("draft", "prefill512")}
+            entry["other_shapes"] = {shape: {f: spec_timing[f"attention_{shape}"][f]
+                                             for f in fields}
+                                     for shape in ("draft", "prefill512")}
+        else:
+            entry["other_shapes"] = {"x".join(map(str, RMS_WIDE)):
+                                     {f: spec_timing["rms_norm_4096"][f] for f in fields}}
         kernels.append(entry)
     emit({"phase": "done", "seconds": time.monotonic() - t_start, "card": card})
     print(json.dumps({"kernels": kernels}), flush=True)

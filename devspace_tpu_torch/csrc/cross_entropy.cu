@@ -7,8 +7,10 @@
 // The backward, (softmax - onehot) * g, is plain tensor math in the
 // wrapper, as in the reference.
 //
-// Labels are int64 (as tokens arrive), read directly; a label outside
-// [0, V) gives a NaN loss.
+// Labels are int64 (as tokens arrive), read directly. A label in [-V, 0)
+// picks column label + V and any other label outside [0, V) gives a NaN
+// loss: the reference function (cross_entropy_reference, whose gather
+// wraps a negative index and fills an out-of-range one with NaN).
 //
 // Bound: memory. Each logit is read once and costs a handful of flops,
 // far below the ~295 flops per byte where the tensor cores would bound
@@ -104,7 +106,8 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) {
     for (int w = 1; w < kThreads / 32; ++w) merge(m, s, warp_m[w], warp_s[w]);
     const float lse = m + logf(s);
-    const int64_t label = labels[b];
+    int64_t label = labels[b];
+    if (label < 0) label += V;  // -V <= label < 0 wraps
     const float picked =
         (label >= 0 && label < V) ? to_float<T>(x[label]) : NAN;
     loss[b] = lse - picked;

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the warp-specialised attention
 // kernels (flash_backward.cu; the forwards in attention_fwd.cuh, which
-// flash_attention.cu and attention.cu instantiate): shared-memory
-// addresses, mbarriers, cp.async into 128-byte-swizzled tiles, wgmma
+// flash_attention.cu and attention.cu instantiate; paged_decode.cu's
+// bulk-copy ring): shared-memory addresses, mbarriers, 1-D bulk copies,
+// cp.async into 128-byte-swizzled tiles, wgmma
 // descriptors and the wgmma products the kernels issue, register fences
 // and setmaxnreg, the ring's constants, and the per-thread pieces of the
 // accumulator layout (row reductions over a quad of lanes, the store of
@@ -69,6 +70,27 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "memory");
     if (!done && clock64() - t0 > (1ll << 34)) __trap();
   } while (!done);
+}
+
+// The barrier's current phase also waits for `bytes` more bytes of
+// asynchronous copies (a bulk copy's complete_tx) besides this arrival.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// ------------------------------------------------------------- bulk copy
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
+// to shared memory by the TMA unit, with no tensor map: one thread issues
+// it and the copy counts its bytes on `bar` (armed by
+// mbar_arrive_expect_tx) as they land.
+__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, uint32_t bytes,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // ------------------------------------------------------------- cp.async

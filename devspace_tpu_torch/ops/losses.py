@@ -47,12 +47,23 @@ def cross_entropy_reference(logits: torch.Tensor, labels: torch.Tensor) -> torch
     return _xent_fwd_reference(logits, labels)[0]
 
 
+def _label_columns(labels, v):
+    """(column, valid) per row: a label in ``[-V, V)`` picks column
+    ``label mod V``, as JAX's ``take_along_axis`` wraps a negative index;
+    any other label is not valid (column 0 stands in for it)."""
+    labels = labels.long()
+    valid = (labels >= -v) & (labels < v)
+    return torch.where(valid, labels % v, 0), valid
+
+
 def _xent_fwd_reference(logits, labels):
-    """(loss, lse), each f32 [B]: the plain version of the kernel."""
+    """(loss, lse), each f32 [B]: the plain version of the kernel. A label
+    outside ``[-V, V)`` gives a NaN loss, as the reference's gather does."""
     f32 = logits.float()
     lse = torch.logsumexp(f32, dim=-1)
-    picked = f32.gather(-1, labels.long()[:, None])[:, 0]
-    return lse - picked, lse
+    col, valid = _label_columns(labels, f32.shape[-1])
+    picked = f32.gather(-1, col[:, None])[:, 0]
+    return lse - torch.where(valid, picked, float("nan")), lse
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -62,8 +73,8 @@ def _check(cond: bool, msg: str) -> None:
 
 def _launch_kernel(logits, labels):
     """Validate, allocate (loss, lse), launch on the current stream.
-    Labels are taken as int64, as tokens arrive; a label outside [0, V)
-    gives a NaN loss."""
+    Labels are taken as int64, as tokens arrive; a label in [-V, 0)
+    wraps to label + V, any other outside [0, V) gives a NaN loss."""
     global LAUNCHES
     _check(logits.dim() == 2, f"logits must be [B, V], got {tuple(logits.shape)}")
     _check(logits.dtype in (torch.float32, torch.bfloat16), f"logits dtype {logits.dtype}")
@@ -99,9 +110,11 @@ def xent_fwd(logits: torch.Tensor, labels: torch.Tensor):
 
 def xent_bwd(logits, labels, lse, g):
     """d loss / d logits = (softmax - onehot) * g, in the logits' dtype;
-    the one-hot is a subtraction at each row's label."""
+    the one-hot is a subtraction at each row's label column, and a label
+    outside ``[-V, V)`` has none (the gradient of the reference's gather)."""
     grad = torch.exp(logits.float() - lse[:, None])
-    grad[torch.arange(grad.shape[0], device=grad.device), labels.long()] -= 1.0
+    col, valid = _label_columns(labels, grad.shape[-1])
+    grad[torch.arange(grad.shape[0], device=grad.device), col] -= valid.float()
     return grad.mul_(g[:, None]).to(logits.dtype)
 
 

@@ -132,6 +132,139 @@ def test_cuda_kernel_matches_plain_version_on_verify_rows(cuda_device, dtype, in
         assert (diff.amax(-1) <= BF16_HEAD_REL * ref.float().abs().amax(-1)).all()
 
 
+# the split kernel's cases: (B, H, Hkv, MB, lengths) at D = 128, block 64
+SPLIT_CASES = {
+    # one row at context 4096: the planner cuts its 64 blocks over many blocks
+    "b1-ctx4096": (1, 32, 32, 64, [4096]),
+    # the engine's table width (max_len 2048 / 64) at context 1024
+    "b8-mb32-ctx1024": (8, 32, 32, 32, [1024] * 8),
+    # lengths on and beside tile and split edges, a full table, a dead row;
+    # GQA with 8 query heads a KV head
+    "edges-gqa": (10, 32, 4, 64, [1, 63, 64, 65, 1023, 1024, 1025, 4095, 4096, 0]),
+}
+
+
+def split_inputs(case, dtype, int8, dev, seed=31):
+    """q, pools and distinct tables of one SPLIT_CASES entry on the card."""
+    B, H, Hkv, MB, lengths = SPLIT_CASES[case]
+    D, bs = 128, 64
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.normal(size=(B, H, D)).astype(np.float32)).to(dev, dtype)
+    pk, pv = [torch.from_numpy(rng.normal(size=(1 + B * MB, Hkv, bs, D)).astype(np.float32))
+              for _ in range(2)]
+    if int8:
+        (pk, ks), (pv, vs) = tpa.quantize_kv(pk), tpa.quantize_kv(pv)
+        scales = [ks.to(dev), vs.to(dev)]
+    else:
+        pk, pv = pk.to(dtype), pv.to(dtype)
+        scales = [None, None]
+    tables = torch.from_numpy((1 + rng.permutation(B * MB)).reshape(B, MB).astype(np.int32))
+    lengths = torch.tensor(lengths, dtype=torch.int32)
+    return [q, pk.to(dev), pv.to(dev), tables.to(dev), lengths.to(dev), *scales]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_cuda_split_kernel_matches_plain_version(cuda_device, dtype, int8, case):
+    """Rows cut over several blocks (split-K) and merged by the combine
+    pass, against the plain version: live rows within the tolerances
+    above, dead rows exactly zero."""
+    args = split_inputs(case, dtype, int8, cuda_device)
+    q, pk, tables = args[0], args[1], args[3]
+    plan = tpa.plan_splits(q.shape[0], pk.shape[1], tables.shape[1], 64, 128, pk.element_size(),
+                           int8, torch.cuda.get_device_properties(0).multi_processor_count)
+    # few rows split; eight rows of 32 heads already fill the card
+    assert plan.n_split == 1 if case.startswith("b8") else plan.n_split > 1
+    before = tpa.LAUNCHES
+    got = tpa.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert tpa.LAUNCHES == before + 1 and tpa.LAST_DISPATCH["impl"] == "cuda"
+    ref = tpa.paged_decode_reference(*args)
+    live = args[4] > 0
+    if dtype == torch.float32:
+        torch.testing.assert_close(got[live], ref[live], rtol=RTOL, atol=ATOL)
+    else:
+        diff = (got[live].float() - ref[live].float()).abs()
+        assert diff.max().item() <= BF16_MAX_ABS
+        assert (diff.amax(-1) <= BF16_HEAD_REL * ref[live].float().abs().amax(-1)).all()
+    assert (got[~live] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("n_split", [1, 2, 3, 5, 16, 64])
+def test_cuda_any_split_count_matches_plain_version(cuda_device, int8, n_split):
+    """The kernel's C entry point at split counts the planner would not
+    pick for these rows (lengths on and beside tile and split edges, a
+    dead row, GQA): as many splits as the longest row has blocks, an
+    uneven 3 and 5, more splits than most rows have blocks."""
+    q, pk, pv, tables, lengths, ks, vs = split_inputs("edges-gqa", torch.bfloat16, int8,
+                                                      cuda_device)
+    B, H, D = q.shape
+    _, Hkv, bs, _ = pk.shape
+    plan = tpa.plan_splits(B, Hkv, tables.shape[1], bs, D, pk.element_size(), int8)
+    plan = plan._replace(n_split=n_split)
+    scratch = torch.empty(max(1, tpa.scratch_floats(plan, B, H, D)), device=cuda_device)
+    out = torch.empty_like(q)
+    err = tpa._kernel()(
+        1, int(int8), q.data_ptr(), pk.data_ptr(), pv.data_ptr(),
+        ks.data_ptr() if int8 else None, vs.data_ptr() if int8 else None,
+        tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, H, Hkv, D, bs,
+        tables.shape[1], pk.shape[0], plan.n_split, plan.stages, scratch.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    ref = tpa.paged_decode_reference(q, pk, pv, tables, lengths, ks, vs)
+    live = lengths > 0
+    diff = (out[live].float() - ref[live].float()).abs()
+    assert diff.max().item() <= BF16_MAX_ABS
+    assert (diff.amax(-1) <= BF16_HEAD_REL * ref[live].float().abs().amax(-1)).all()
+    assert (out[~live] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_cuda_paged_decode_repeats_bitwise(cuda_device, int8, case):
+    """The splits merge in a fixed order (no atomics): two launches agree
+    bit for bit."""
+    args = split_inputs(case, torch.bfloat16, int8, cuda_device)
+    a = tpa.paged_decode_attention(*args)
+    b = tpa.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["b1-ctx4096", "edges-gqa"])
+def test_cuda_paged_decode_graph_replay_is_the_eager_launch(cuda_device, case):
+    """Captured in a CUDA graph (the split count comes from shapes, the
+    lengths are read on the card) and replayed: bit for bit the eager
+    launch, also after the lengths change in place."""
+    args = split_inputs(case, torch.bfloat16, False, cuda_device)
+    eager = tpa.paged_decode_attention(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tpa.paged_decode_attention(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = tpa.paged_decode_attention(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    lengths = args[4]
+    lengths.copy_(torch.clamp(lengths - 100, min=0))
+    graph.replay()
+    again = tpa.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(captured, again)
+    assert not torch.equal(captured, eager)
+
+
 @pytest.mark.cuda
 def test_cuda_empty_batch_launches_nothing(cuda_device):
     q, pk, pv, tables = make_inputs(3, B=2, H=4, Hkv=4, D=16, bs=8, n_blocks=4, MB=2)
@@ -301,6 +434,22 @@ def test_cuda_rms_norm_matches_plain_version(cuda_device, dtype, shape):
     summed in another order; bf16 within one bf16 ulp, ``rtol=2**-7``) and
     the analytic backward through the Function against autograd through
     the plain version."""
+    rms_norm_case(cuda_device, dtype, shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(4096, 4096), (16, 1024), (16, 2048), (16, 2056), (16, 4096),
+                                   (16, 1001)], ids=lambda s: "x".join(map(str, s)))
+def test_cuda_rms_norm_register_widths_match_plain_version(cuda_device, dtype, shape):
+    """Widths on each side of the register kernel's instances: one warp a
+    row up to 256 16-byte vectors (1024 = 128 bf16 / 256 f32 vectors,
+    2048 = 256 / 512), four warps beyond (2056, 4096: the 7B width,
+    at 4096 rows), the first design's loop for 1001; as above."""
+    rms_norm_case(cuda_device, dtype, shape)
+
+
+def rms_norm_case(cuda_device, dtype, shape):
     rng = np.random.default_rng(23)
     x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda_device, dtype)
     w = torch.from_numpy(rng.normal(size=shape[-1]).astype(np.float32)).to(cuda_device)
@@ -342,5 +491,30 @@ def test_cuda_cross_entropy_matches_plain_version(cuda_device, dtype, shape):
     ref = tlosses.cross_entropy_reference(ref_x, labels)
     ref.backward(g)
     torch.testing.assert_close(loss.detach(), ref.detach(), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(x.grad.float(), ref_x.grad.float(), rtol=1e-4,
+                               atol=1e-6 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("labels", [[0, 3, 16, -1], [0, 3, -17, -20]], ids=["16,-1", "-17,-20"])
+def test_cuda_cross_entropy_out_of_range_labels_match_plain_version(cuda_device, dtype, labels):
+    """A label in [-V, 0) wraps to label + V, any other outside [0, V)
+    gives NaN, on the kernel as on the plain version (NaN where NaN), and
+    the gradients agree."""
+    logits = torch.from_numpy(np.random.RandomState(0).randn(4, 16).astype(np.float32))
+    logits = logits.to(cuda_device, dtype)
+    labels = torch.tensor(labels, device=cuda_device)
+    g = torch.arange(1, 5, dtype=torch.float32, device=cuda_device)
+    before = tlosses.LAUNCHES
+    x = logits.clone().requires_grad_()
+    loss = tlosses.fused_cross_entropy(x, labels)
+    loss.backward(g)
+    torch.cuda.synchronize()
+    assert tlosses.LAUNCHES == before + 1 and tlosses.LAST_DISPATCH["impl"] == "cuda"
+    ref_x = logits.clone().requires_grad_()
+    ref = tlosses.cross_entropy_reference(ref_x, labels)
+    ref.backward(g)
+    torch.testing.assert_close(loss.detach(), ref.detach(), rtol=1e-5, atol=1e-5, equal_nan=True)
     torch.testing.assert_close(x.grad.float(), ref_x.grad.float(), rtol=1e-4,
                                atol=1e-6 if dtype == torch.float32 else 1e-2)

@@ -87,3 +87,49 @@ def test_kernel_wrapper_checks_reach_the_cpu(monkeypatch):
     with pytest.raises(ValueError, match="contiguous"):
         tlosses.xent_fwd(torch.zeros(10, 4).t(), torch.zeros(4, dtype=torch.int64))
     assert tlosses.LAUNCHES == 0
+
+
+# labels outside [0, V): the reference function (cross_entropy_reference,
+# the path the JAX package takes off a TPU) wraps a label in [-V, 0) to
+# label + V and gives NaN for any other; its gradient has no one-hot term
+# for such a row. Logits RandomState(0).randn(4, 16).
+OUT_OF_RANGE_LABELS = [[0, 3, 16, -1], [0, 3, -17, -20]]
+
+
+@pytest.mark.parametrize("labels", OUT_OF_RANGE_LABELS, ids=["16,-1", "-17,-20"])
+def test_out_of_range_labels_follow_the_reference(labels):
+    logits = np.random.RandomState(0).randn(4, 16).astype(np.float32)
+    labels = np.asarray(labels)
+    g = np.random.default_rng(5).normal(size=4).astype(np.float32)
+    jl = jlosses.cross_entropy_reference(jnp.asarray(logits), jnp.asarray(labels))
+    (jg,) = jax.grad(lambda a: jnp.sum(jlosses.cross_entropy_reference(a, jnp.asarray(labels))
+                                       * jnp.asarray(g)), argnums=(0,))(jnp.asarray(logits))
+    tl = torch.from_numpy(logits).requires_grad_()
+    loss = tlosses.fused_cross_entropy(tl, torch.from_numpy(labels))
+    loss.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(loss.detach().numpy(), np.asarray(jl), **LOSS_TOL)
+    np.testing.assert_allclose(tl.grad.numpy(), np.asarray(jg), **GRAD_TOL)
+    # the autograd of the plain version agrees with the Function's backward
+    tr = torch.from_numpy(logits).requires_grad_()
+    tlosses.cross_entropy_reference(tr, torch.from_numpy(labels)).backward(torch.from_numpy(g))
+    np.testing.assert_allclose(tr.grad.numpy(), tl.grad.numpy(), rtol=1e-6, atol=1e-7)
+
+
+def test_out_of_range_label_values():
+    """The reference's values on the CPU: label 16 is NaN, -1 picks column
+    15; the -1 row's gradient carries the one-hot at column 15, the NaN
+    rows' gradients are softmax * g alone."""
+    logits = np.random.RandomState(0).randn(4, 16).astype(np.float32)
+    tl = torch.from_numpy(logits).requires_grad_()
+    loss = tlosses.fused_cross_entropy(tl, torch.tensor([0, 3, 16, -1]))
+    np.testing.assert_allclose(loss.detach().numpy(), [2.0146, 4.4181, np.nan, 4.1927],
+                               rtol=0, atol=1e-4)
+    loss.backward(torch.ones(4))
+    softmax = torch.softmax(torch.from_numpy(logits), -1)
+    torch.testing.assert_close(tl.grad[2], softmax[2])
+    torch.testing.assert_close(tl.grad[3], softmax[3] - torch.eye(16)[15])
+    t2 = torch.from_numpy(logits).requires_grad_()
+    loss2 = tlosses.fused_cross_entropy(t2, torch.tensor([0, 3, -17, -20]))
+    assert torch.isnan(loss2[2:]).all() and torch.isfinite(loss2[:2]).all()
+    loss2.backward(torch.ones(4))
+    torch.testing.assert_close(t2.grad[2:], softmax[2:])

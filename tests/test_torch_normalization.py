@@ -108,3 +108,21 @@ def test_reference_matches_the_models_rms_norm():
     a = tnorm.rms_norm_reference(torch.from_numpy(x), torch.from_numpy(w), 1e-5)
     b = rms_norm(torch.from_numpy(x), torch.from_numpy(w), 1e-5)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [1024, 2048, 2056, 4096, 1001])
+def test_plain_version_matches_jax_reference_at_kernel_widths(dtype, d):
+    """The plain version the card holds the kernel to, against JAX's
+    ``rms_norm_reference``, at widths on each side of the register
+    kernel's instances (one warp a row up to 2048 bf16 / 1024 f32, four
+    warps up to 8192 / 4096) and an unaligned one: float32 ``F32``, bf16
+    within one bf16 ulp (``rtol=2**-7``)."""
+    x, w, _ = inputs(4, (4, d))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    got = tnorm.rms_norm_reference(tx, torch.from_numpy(w))
+    jx = jnp.asarray(tx.float().numpy()).astype(getattr(jnp, dtype))
+    ref = jnorm.rms_norm_reference(jx, jnp.asarray(w))
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    tol = F32 if dtype == "float32" else dict(rtol=2**-7, atol=1e-6)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref.astype(jnp.float32)), **tol)
