@@ -13,9 +13,15 @@ three paths:
   1024, 8 layers, 16 heads, ffn 4096, bf16; random weights from seed 0)
   takes AdamW steps at batch 8 x 2048 through the flash-attention and
   cross-entropy kernels;
-- serving: at the full width and depth of Llama-2-7B, the engine answers
+- serving: at the full width and depth of Llama-2-7B, the engine at its
+  defaults (the depth-2 dispatch window, the prefix cache, every decode
+  chunk a CUDA graph captured by ``prewarm`` and replayed) answers
   concurrent requests with a bf16 KV pool and an int8 one through the
-  paged-decode kernel, and one request goes through the HTTP server;
+  paged-decode kernel, each greedy stream held to the argmax of an eager
+  forward; then a steady decode burst (8 x 256 tokens) and a burst
+  sharing a 512-token prefix, with the cache on and off; the same burst
+  at depth 1 gives the same streams; one request goes through the HTTP
+  server;
 - speculative serving: the target and draft LMs of
   scripts/train_draft_pair.py (target: vocab 32000, dim 1024, 8 layers,
   8 heads, ffn 2816; draft: dim 256, 2 layers, 4 heads, ffn 704; bf16)
@@ -23,8 +29,13 @@ three paths:
   short-sequence attention and cross-entropy kernels, then an engine
   with the draft answers greedy and sampled requests (draft prefill
   through the short-sequence kernel, verification blocks through the
-  paged-decode kernel) beside an engine without it, and one request goes
-  through HTTP ``/generate_speculative``.
+  paged-decode kernel, each spec round a replayed graph) beside an engine
+  without it, and one request goes through HTTP ``/generate_speculative``.
+
+The engine's paged-decode launches are counted per graph replay
+(``stats()["paged_decode_launches"]``): the wrapper's own count moves
+only while ``prewarm`` captures the graphs, and the script checks that
+it stays at 0 while the engine serves.
 
 The RMSNorm kernel lies on no model's path (as in the JAX package); it is
 built, held against its plain version and timed.
@@ -39,6 +50,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -141,8 +153,15 @@ VERIFY_POSITIONS = (8, 64, 250, 563, None, 1, 1019, None)
 # recomputed top logit, in absolute logits
 NEAR_TIE_GAPS = 2
 # the paths themselves may differ by bf16 rounding only: logits leave the
-# lm_head product in bf16, one ulp of which is 2^-8 of the value
+# lm_head product in bf16, one ulp of which is 2^-8 of the value. For the
+# trained 8-layer pair the paths stay within LOGIT_PATH_REL of the largest
+# logit. Through the 32 layers of Llama-2-7B with random weights the
+# rounding adds up further: the decode path and the full-sequence forward
+# (whose attention rounds P to bf16 before P.V) part by up to 6% of the
+# largest logit (0.357 of 6.06 on an H100), still well under the whole
+# logits a row that read another row's blocks or length would be off by
 LOGIT_PATH_REL = 2.0 ** -6
+LOGIT_PATH_REL_7B = 2.0 ** -3
 # the short-sequence attention kernel at the pair's training shapes
 # ([B*H, T, D]: target, draft), at the draft's prefill of a 500-token
 # prompt (the 512 bucket, batch 1: the two-pass kernel), and the RMSNorm
@@ -466,18 +485,43 @@ def decode_step_times(engine) -> dict:
             "graph_ms": graph_ms}
 
 
-def drive_engine(engine, requests) -> dict:
-    """Submit every request at once, wait for all; kernel launches and
-    decode steps counted over exactly this run."""
+def prewarm_engine(engine) -> dict:
+    """``engine.prewarm()``: every decode chunk and spec round captured as
+    a CUDA graph before traffic. The paged-decode wrapper counts its
+    launches only here: once in each program's warm-up run and once in
+    its capture, so twice the launches its replays will account."""
     pa.LAUNCHES = 0
-    steps0 = engine.decode_steps
+    t0 = time.monotonic()
+    timings = engine.prewarm()
+    seconds = time.monotonic() - t0
+    st = engine.stats()
+    keys = engine._programs.keys()
+    per_replay = sum(engine.cfg.n_layers * (key[1] if key[0] == "decode" else engine.spec_depth)
+                     for key in keys)
+    assert st["graph_captures"] == len(keys), (st["graph_captures"], len(keys))
+    assert pa.LAUNCHES == 2 * per_replay, (pa.LAUNCHES, per_replay)
+    return {"seconds": seconds, "captures": st["graph_captures"],
+            "graphs_s": sum(v for k, v in timings.items() if k.startswith(("decode_", "spec_"))),
+            "launches_at_capture": pa.LAUNCHES}
+
+
+def drive_engine(engine, requests) -> dict:
+    """Submit every request at once, wait for all; decode steps and the
+    paged-decode launches of the engine's graph replays counted over
+    exactly this run. ``prewarm`` captured every program, so no graph is
+    captured in the run and the wrapper's own count stays at 0: every
+    launch is a replay's."""
+    reset_counts()
+    before = engine.stats()
     t0 = time.monotonic()
     handles = [engine.submit(p, n, **kw) for p, n, kw in requests]
     results = [h.result(timeout=600) for h in handles]
     wall = time.monotonic() - t0
-    launches = pa.LAUNCHES
-    steps = engine.decode_steps - steps0
-    assert pa.LAST_DISPATCH["impl"] == "cuda"
+    st = engine.stats()
+    steps = st["decode_steps"] - before["decode_steps"]
+    launches = st["paged_decode_launches"] - before["paged_decode_launches"]
+    assert st["graph_captures"] == before["graph_captures"], "a graph was captured in the run"
+    assert pa.LAUNCHES == 0, f"{pa.LAUNCHES} launches outside the graphs"
     assert steps > 0 and launches == engine.cfg.n_layers * steps, (launches, steps)
     vocab = engine.cfg.vocab_size
     for toks in results:
@@ -488,25 +532,15 @@ def drive_engine(engine, requests) -> dict:
         "tokens": sum(len(h.tokens) for h in handles),
         "tok_per_s": sum(len(h.tokens) for h in handles) / wall,
         "ttft_s": ttft,
+        "decode_dispatches": st["decode_dispatches"] - before["decode_dispatches"],
+        "dispatch_depth_occupancy": st["dispatch_depth_occupancy"],
     }
 
 
-def phase_engine(params, dev, card) -> tuple[dict, InferenceEngine]:
-    cfg = tfm.LLAMA2_7B
-    engine = InferenceEngine(params, cfg, device=dev, max_slots=8, max_len=2048)
-    # finite logits of the right shape from one full-width prefill chunk
-    # (all-zero table: writes land in scratch block 0)
-    logits, _ = tfm.prefill_chunk_paged(
-        params, engine.pool, torch.zeros(engine.max_blocks, dtype=torch.int32, device=dev),
-        torch.arange(1, 17, device=dev), 0, cfg,
-    )
-    assert tuple(logits.shape) == (16, cfg.vocab_size) and torch.isfinite(logits).all()
-    step = decode_step_times(engine)
-    engine.start()
-    engine.submit(list(range(1, 9)), 4).result(timeout=600)  # warm-up, not counted
+def serving_requests(cfg) -> list:
     rng = np.random.default_rng(0)
     S, E = 1234, 4321  # forced token, EOS id
-    requests = [
+    return [
         (rng.integers(1, cfg.vocab_size, 7).tolist(), 32, {}),
         (rng.integers(1, cfg.vocab_size, 120).tolist(), 32, {}),
         (rng.integers(1, cfg.vocab_size, 333).tolist(), 32,
@@ -518,20 +552,158 @@ def phase_engine(params, dev, card) -> tuple[dict, InferenceEngine]:
         (rng.integers(1, cfg.vocab_size, 64).tolist(), 32,
          {"eos_id": E, "stop": [[S, S]], "min_new_tokens": 4, "logit_bias": {S: 1e4}}),
     ]
+
+
+GREEDY = (0, 1, 3, 4)  # the plain greedy requests of serving_requests
+
+
+def argmax_ties(params, cfg, prompt, out, bound) -> list:
+    """The tokens of the greedy stream ``out`` that are not the argmax of
+    ONE eager full-sequence forward over prompt + out, each of which must
+    lie within ``bound`` (absolute logits, from ``logit_path_gaps``) of
+    the top logit: the near-ties."""
+    toks = torch.tensor([prompt + out[:-1]], device=params["embed"].device)
+    with torch.no_grad():
+        logits = tfm.forward(params, toks, cfg)[0, len(prompt) - 1:]
+    top = logits.max(dim=-1)
+    picked = logits.gather(1, torch.tensor(out, device=logits.device)[:, None])[:, 0]
+    gaps = (top.values - picked).tolist()
+    ties = [{"position": j, "tokens": [t, int(top.indices[j])], "gap": g}
+            for j, (t, g) in enumerate(zip(out, gaps)) if g > 0]
+    assert all(t["gap"] <= bound for t in ties), (ties, bound)
+    return ties
+
+
+STEADY = {"requests": 8, "prompt": 64, "new_tokens": 256}
+PREFIX = {"requests": 8, "shared": 512, "tail": 64, "new_tokens": 16}
+
+
+def steady_burst(engine) -> dict:
+    """8 requests with 64-token prompts and 256 new tokens, at once: the
+    decode rate from the moment every request has its first token (all 8
+    slots decoding) to the last token, on the host clock: ms per decode
+    step the engine dispatched and tokens/s."""
+    rng = np.random.default_rng(2)
+    vocab = engine.cfg.vocab_size
+    t_submit = time.monotonic()
+    handles = [engine.submit(rng.integers(1, vocab, STEADY["prompt"]).tolist(),
+                             STEADY["new_tokens"]) for _ in range(STEADY["requests"])]
+    while not all(h.first_token_at for h in handles):
+        time.sleep(0.0005)
+    t0, s0 = time.monotonic(), engine.stats()
+    results = [h.result(timeout=600) for h in handles]
+    t1, s1 = time.monotonic(), engine.stats()
+    assert [len(r) for r in results] == [STEADY["new_tokens"]] * STEADY["requests"]
+    steps = s1["decode_steps"] - s0["decode_steps"]
+    tokens = s1["tokens_generated"] - s0["tokens_generated"]
+    return {**STEADY, "decode_steps": steps, "seconds": t1 - t0,
+            "ms_per_step": (t1 - t0) * 1e3 / steps, "tok_per_s": tokens / (t1 - t0),
+            "burst_tok_per_s": sum(map(len, results)) / (t1 - t_submit),
+            "readback_wait_s": s1["readback_wait_s"] - s0["readback_wait_s"],
+            "host_sched_s": s1["host_sched_s"] - s0["host_sched_s"],
+            "dispatch_depth_occupancy": s1["dispatch_depth_occupancy"]}
+
+
+def prefix_burst(engine) -> dict:
+    """One request publishes a 512-token prefix (with the cache on), then
+    8 requests sharing it, each with its own 64-token tail, arrive at
+    once: their time to first token, and the prefix tokens they found
+    cached."""
+    rng = np.random.default_rng(3)
+    vocab = engine.cfg.vocab_size
+    shared = rng.integers(1, vocab, PREFIX["shared"]).tolist()
+    engine.submit(shared + [1], 1).result(timeout=600)
+    before = engine.stats()
+    prompts = [shared + rng.integers(1, vocab, PREFIX["tail"]).tolist()
+               for _ in range(PREFIX["requests"])]
+    handles = [engine.submit(p, PREFIX["new_tokens"]) for p in prompts]
+    results = [h.result(timeout=600) for h in handles]
+    ttft = [h.first_token_at - h.submitted_at for h in handles]
+    hits = engine.stats()["prefix_hit_tokens"] - before["prefix_hit_tokens"]
+    return {"results": results, "prefix_hit_tokens": hits,
+            "ttft_s_median": statistics.median(ttft), "ttft_s_max": max(ttft)}
+
+
+def phase_engine(params, dev, card) -> tuple[dict, InferenceEngine, list, list]:
+    """Llama-2-7B at the engine's defaults (depth-2 window, prefix cache,
+    every decode chunk a replayed graph) after ``prewarm``: the burst,
+    each greedy stream held to the eager forward's argmax, the steady
+    decode rate and the shared-prefix burst."""
+    cfg = tfm.LLAMA2_7B
+    engine = InferenceEngine(params, cfg, device=dev, max_slots=8, max_len=2048)
+    # finite logits of the right shape from one full-width prefill chunk
+    # (all-zero table: writes land in scratch block 0)
+    logits, _ = tfm.prefill_chunk_paged(
+        params, engine.pool, torch.zeros(engine.max_blocks, dtype=torch.int32, device=dev),
+        torch.arange(1, 17, device=dev), 0, cfg,
+    )
+    assert tuple(logits.shape) == (16, cfg.vocab_size) and torch.isfinite(logits).all()
+    step = decode_step_times(engine)
+    warm = prewarm_engine(engine)
+    engine.start()
+    engine.submit(list(range(1, 9)), 4).result(timeout=600)  # warm-up, not counted
+    requests = serving_requests(cfg)
     run = drive_engine(engine, requests)
     results = run.pop("results")
     assert [len(r) for r in results[:5]] == [32] * 5, [len(r) for r in results]
-    assert results[5] == [S] * 4, results[5]
+    assert results[5] == [1234] * 4, results[5]
+    # every position a generated token was chosen at, the prompt's last
+    gaps = logit_path_gaps(params, cfg, [requests[i][0] + results[i] for i in GREEDY], dev,
+                           LOGIT_PATH_REL_7B, positions=len(results[0]) + 1)
+    tie_bound = NEAR_TIE_GAPS * (gaps["verify_vs_decode"] + gaps["forward_vs_decode"])
+    ties = [t for i in GREEDY for t in argmax_ties(params, cfg, requests[i][0], results[i],
+                                                    tie_bound)]
+    steady = steady_burst(engine)
+    prefix = prefix_burst(engine)
     st = engine.stats()
-    assert st["requests_failed"] == 0 and st["free_blocks"] == st["total_blocks"]
+    assert st["requests_failed"] == 0
+    assert st["free_blocks"] + st["prefix_cached_blocks"] == st["total_blocks"]
+    assert st["graph_captures"] == warm["captures"]
     return {
         "phase": "engine", "model": "llama2-7b", "kv_pool": "bf16", "card": card,
+        "dispatch_depth": st["dispatch_depth"], "prefix_cache": engine.prefix_cache_enabled,
         "prompt_lens": [len(p) for p, _, _ in requests], "max_new_tokens": 32,
-        "decode_step_b8_ctx1024": step,
+        "decode_step_b8_ctx1024": step, "prewarm": warm,
         "ttft_s_median": statistics.median(run["ttft_s"]), "ttft_s_max": max(run["ttft_s"]),
         **{k: v for k, v in run.items() if k != "ttft_s"},
+        "argmax_near_ties": ties, "near_tie_bound": tie_bound, "logit_path_gaps": gaps,
+        "logit_path_rel": LOGIT_PATH_REL_7B,
+        "steady": steady, "steady_ms_per_step_over_graph_ms": steady["ms_per_step"] / step["graph_ms"],
+        "prefix_burst": {k: v for k, v in prefix.items() if k != "results"},
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-    }, engine
+    }, engine, results, prefix["results"]
+
+
+def phase_engine_variants(params, dev, card, results, prefix_results) -> dict:
+    """The same burst at dispatch depth 1 (the serial loop, replaying the
+    same graphs) gives the same streams as depth 2, and the shared-prefix
+    burst with the prefix cache off gives the same streams as with it on,
+    at its own time to first token."""
+    cfg = tfm.LLAMA2_7B
+    out = {"phase": "engine_variants", "model": "llama2-7b", "card": card}
+    for name, kw in (("depth1", {"dispatch_depth": 1}), ("no_prefix_cache", {"prefix_cache": False})):
+        engine = InferenceEngine(params, cfg, device=dev, max_slots=8, max_len=2048, **kw)
+        warm = prewarm_engine(engine)
+        engine.start()
+        try:
+            engine.submit(list(range(1, 9)), 4).result(timeout=600)  # warm-up, not counted
+            if name == "depth1":
+                run = drive_engine(engine, serving_requests(cfg))
+                assert run.pop("results") == results, "depth 1 and depth 2 streams differ"
+                out[name] = {k: v for k, v in run.items() if k != "ttft_s"}
+            else:
+                prefix = prefix_burst(engine)
+                assert prefix.pop("results") == prefix_results, "the prefix cache changed a stream"
+                assert prefix["prefix_hit_tokens"] == 0
+                out[name] = {"prefix_burst": prefix}
+            out[name]["prewarm"] = warm
+            assert engine.stats()["requests_failed"] == 0
+        finally:
+            engine.stop()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 @contextlib.contextmanager
@@ -568,6 +740,7 @@ def phase_http(engine, card) -> dict:
 def phase_engine_int8(params, dev, card) -> dict:
     cfg = tfm.LLAMA2_7B
     engine = InferenceEngine(params, cfg, device=dev, max_slots=8, max_len=2048, kv_dtype="int8")
+    warm = prewarm_engine(engine)
     engine.start()
     try:
         rng = np.random.default_rng(1)
@@ -578,7 +751,7 @@ def phase_engine_int8(params, dev, card) -> dict:
     finally:
         engine.stop()
     return {
-        "phase": "engine", "model": "llama2-7b", "kv_pool": "int8", "card": card,
+        "phase": "engine", "model": "llama2-7b", "kv_pool": "int8", "card": card, "prewarm": warm,
         "ttft_s_median": statistics.median(run["ttft_s"]),
         **{k: v for k, v in run.items() if k != "ttft_s"},
     }
@@ -1152,18 +1325,20 @@ def phase_spec_small_reference(dev) -> dict:
     return {"generate_speculative_acceptance": rates, "engine_streams_equal": True}
 
 
-def logit_path_gaps(t_params, seqs, dev) -> dict:
-    """The trained target's logits at the last spec_k + 1 positions of
-    each sequence, computed three ways from one prefilled pool laid out
-    as the engine's (8 slots, parked ones with a zeroed table and
-    positions from 0): spec_k + 1 ``decode_tokens_paged`` steps of 8
-    rows, one ``decode_block_paged`` of 40 rows, and the full-sequence
-    ``forward``. -> the largest absolute differences, which must be bf16
-    rounding (LOGIT_PATH_REL of the largest logit): a verification row
-    that read another row's table or length would differ by whole
-    logits."""
-    cfg, bs, k1, B = PAIR_TARGET, 64, SPEC_K + 1, 8
-    mb = cfg.max_seq_len // bs
+def logit_path_gaps(t_params, cfg, seqs, dev, rel: float = LOGIT_PATH_REL,
+                    positions: int = SPEC_K + 1) -> dict:
+    """The model's logits at the last ``positions`` positions of each
+    sequence (default spec_k + 1), computed three ways from one prefilled
+    pool laid out as the engine's (8 slots, parked ones with a zeroed
+    table and positions from 0; as many blocks a slot as the longest
+    sequence needs): that many ``decode_tokens_paged`` steps of 8 rows,
+    one ``decode_block_paged`` of 8 x that many rows, and the
+    full-sequence ``forward``. -> the largest
+    absolute differences, which must be bf16 rounding (``rel`` of the
+    largest logit): a verification row that read another row's table
+    or length would differ by whole logits."""
+    bs, k1, B = 64, positions, 8
+    mb = -(-max(map(len, seqs)) // bs)
     n = len(seqs)
     pool = tfm.init_paged_pool(cfg, 1 + B * mb, bs, None, dev)
     tables = torch.zeros((B, mb), dtype=torch.int32, device=dev)
@@ -1185,7 +1360,7 @@ def logit_path_gaps(t_params, seqs, dev) -> dict:
     gaps = {"verify_vs_decode": (block - steps).abs().max().item(),
             "forward_vs_decode": (torch.stack(full) - steps).abs().max().item(),
             "max_abs_logit": steps.abs().max().item()}
-    ceiling = LOGIT_PATH_REL * gaps["max_abs_logit"]
+    ceiling = rel * gaps["max_abs_logit"]
     assert max(gaps["verify_vs_decode"], gaps["forward_vs_decode"]) <= ceiling, (gaps, ceiling)
     return gaps
 
@@ -1223,7 +1398,10 @@ def spec_http(engine, body: dict) -> tuple[int, dict]:
 def drive_spec_engine(engine, requests) -> dict:
     """Submit every request at once and wait for all, with the kernels'
     launches, decode steps, spec dispatches and draft prefills counted
-    over exactly this run."""
+    over exactly this run: the paged-decode launches of the graph
+    replays (the wrapper's own count stays at 0: ``prewarm`` captured
+    every program), the short-attention launches of the eager draft
+    prefills."""
     reset_counts()
     before = engine.stats()
     t0 = time.monotonic()
@@ -1234,19 +1412,21 @@ def drive_spec_engine(engine, requests) -> dict:
     delta = {k: st[k] - before[k] for k in ("decode_steps", "spec_dispatches", "draft_prefills",
                                             "spec_rounds", "spec_proposed", "spec_accepted",
                                             "spec_committed", "tokens_generated",
-                                            "spec_draft_s", "spec_verify_s", "spec_readback_s")}
-    assert st["requests_failed"] == 0
+                                            "spec_launch_s", "spec_readback_s",
+                                            "paged_decode_launches", "graph_captures")}
+    assert st["requests_failed"] == 0 and delta.pop("graph_captures") == 0
     # every decode step and every verification block is one paged-decode
     # launch per target layer; every draft prefill one short-attention
     # launch per draft layer (the target's prefill runs no kernel)
     verify = delta["spec_dispatches"] * engine.spec_depth
-    assert pa.LAUNCHES == engine.cfg.n_layers * (delta["decode_steps"] + verify), (pa.LAUNCHES, delta)
+    assert pa.LAUNCHES == 0, f"{pa.LAUNCHES} launches outside the graphs"
+    assert delta["paged_decode_launches"] == engine.cfg.n_layers * (delta["decode_steps"] + verify), delta
     if engine.draft_cfg is not None:
         assert sa.LAUNCHES == engine.draft_cfg.n_layers * delta["draft_prefills"], (sa.LAUNCHES, delta)
     else:
         assert sa.LAUNCHES == 0
     return {"results": results, "wall_s": wall, "tok_per_s": delta["tokens_generated"] / wall,
-            "paged_decode_launches": pa.LAUNCHES, "attention_launches": sa.LAUNCHES, **delta}
+            "attention_launches": sa.LAUNCHES, **delta}
 
 
 def phase_spec_engine(t_params, d_params, dev, card) -> dict:
@@ -1262,16 +1442,17 @@ def phase_spec_engine(t_params, d_params, dev, card) -> dict:
                                 spec_k=SPEC_K, spec_depth=1, **kw),
         "plain": InferenceEngine(t_params, PAIR_TARGET, **kw),
     }
-    runs = {}
+    runs, warm = {}, {}
     try:
         for name, engine in engines.items():
+            warm[name] = prewarm_engine(engine)
             engine.start()
             engine.submit(prompts[0], 4).result(timeout=600)  # warm-up, not counted
             runs[name] = drive_spec_engine(engine, requests)
             assert [len(r) for r in runs[name]["results"]] == [SPEC_NEW_TOKENS] * len(requests)
         assert runs["spec"]["spec_rounds"] > 0 and runs["plain"]["spec_rounds"] == 0
         gaps = logit_path_gaps(
-            t_params, [p + r for p, r in zip(prompts, runs["plain"]["results"])], dev)
+            t_params, PAIR_TARGET, [p + r for p, r in zip(prompts, runs["plain"]["results"])], dev)
         tie_bound = NEAR_TIE_GAPS * (gaps["verify_vs_decode"] + gaps["forward_vs_decode"])
         ties = [near_tie(t_params, p, a, b, tie_bound) for p, a, b in
                 zip(prompts, runs["plain"]["results"], runs["spec"]["results"])]
@@ -1316,12 +1497,15 @@ def phase_spec_engine(t_params, d_params, dev, card) -> dict:
             "logit_path_gaps": gaps, "logit_path_rel": LOGIT_PATH_REL,
             "acceptance_rate": runs["spec"]["spec_accepted"] / runs["spec"]["spec_proposed"],
             "tokens_per_round": runs["spec"]["spec_committed"] / runs["spec"]["spec_rounds"],
-            # host clock inside the engine's own rounds, per dispatch: the
-            # draft scan and the verify block are enqueue times, the
-            # readback waits for the device to finish both
+            # speculation pays only above 1
+            "spec_over_plain_tok_per_s": runs["spec"]["tok_per_s"] / runs["plain"]["tok_per_s"],
+            # host clock inside the engine's own rounds, per dispatch:
+            # syncing the carry and queueing the graph, then the readback,
+            # which waits for the card to finish the round
             "dispatch_host_ms": {
                 part: runs["spec"][f"spec_{part}_s"] * 1e3 / runs["spec"]["spec_dispatches"]
-                for part in ("draft", "verify", "readback")},
+                for part in ("launch", "readback")},
+            "prewarm": warm,
             "generate_speculative": {"prompt_lens": list(SPEC_PROMPT_LENS[:4]),
                                      "acceptance_rate": standalone.acceptance_rate,
                                      "attention_launches": standalone_launches},
@@ -1400,6 +1584,7 @@ def main() -> int:
     spec_line = phase_spec_engine(t_params, d_params, dev, card)
     emit(spec_line)
     del t_params, d_params
+    gc.collect()
     torch.cuda.empty_cache()
 
     t0 = time.monotonic()
@@ -1410,14 +1595,16 @@ def main() -> int:
           "param_gb": sum(t.numel() * t.element_size() for t in
                           [params["embed"], params["lm_head"], params["final_norm"]]
                           + [v for layer in params["layers"] for v in layer.values()]) / 1e9})
-    engine_line, engine = phase_engine(params, dev, card)
+    engine_line, engine, results, prefix_results = phase_engine(params, dev, card)
     emit(engine_line)
     try:
         emit(phase_http(engine, card))
     finally:
         engine.stop()
     del engine
+    gc.collect()
     torch.cuda.empty_cache()
+    emit(phase_engine_variants(params, dev, card, results, prefix_results))
     int8_line = phase_engine_int8(params, dev, card)
     emit(int8_line)
 

@@ -1,8 +1,13 @@
 """Continuous-batching inference engine (iteration-level scheduling).
 
-Counterpart of ``devspace_tpu/inference/engine.py`` as that engine runs
-with ``prefix_cache=False``, ``kv_tier=None``, ``dispatch_depth=1`` and
-``metrics=False``:
+Counterpart of ``devspace_tpu/inference/engine.py`` at that engine's
+serving defaults: the radix prefix cache on, the overlapped dispatch
+window at depth 2, every decode chunk and speculative round one program
+built ahead of traffic by ``prewarm()``. Two of its options wait for
+later slices: the host KV tier (``kv_tier``, off by default there; with
+it go KV migration and the publishing of a preempted slot's chain) and
+the telemetry views (``metrics``: the registry, request traces, the
+timeline), as do its tensor-parallel ``mesh``.
 
 - **Paged KV cache** (vLLM-style): K/V live in a block pool
   ``[layers, n_blocks, kv_heads, block_size, head_dim]`` with per-slot
@@ -12,16 +17,30 @@ with ``prefix_cache=False``, ``kv_tier=None``, ``dispatch_depth=1`` and
   requeued with its generated prefix) so older requests always finish.
   Block 0 is scratch: unallocated table entries and parked writes land
   there.
+- **Prefix cache** (``prefix_cache``, on by default): full prompt blocks,
+  once written, are published in a radix tree (``inference/
+  prefix_cache.py``); an admission sharing the prefix points its table at
+  the same blocks (refcounted) and its prefill starts at the first
+  uncached position. Freed published blocks stay as an LRU cache until
+  the allocator needs them. A hit changes table entries only.
 - **Chunked prefill, interleaved**: prompts prefill in bounded chunks
   (``prefill_chunk`` tokens, power-of-two final chunks), one chunk per
   scheduler iteration between decode chunks, so co-resident decodes keep
-  streaming while a long prompt is admitted.
-- **Device-side sampling + chunked decode**: up to ``chunk_max`` decode
-  steps run per dispatch, with logit bias, EOS suppression below
-  ``min_new_tokens`` and sampling on the device, and ONE readback per
-  chunk. A slot that finishes mid-chunk wastes at most chunk_max-1
-  tokens (truncated host-side; every position is rewritten in the same
-  step that first attends to it).
+  streaming while a long prompt is admitted. Prefill runs eagerly: its
+  offset is a Python int that a graph would bake in.
+- **Decode chunks and speculative rounds as programs**
+  (``inference/graphs.py``): up to ``chunk_max`` decode steps, with
+  logit bias, EOS suppression below ``min_new_tokens`` and sampling on
+  the device, are one program per ``(k_steps, mode)``, and a speculative
+  dispatch one per ``mode``; on the card each is a CUDA graph captured
+  once and replayed. They read the device-resident carry of
+  ``inference/dispatch.py`` and write the advanced tokens and positions
+  back into it.
+- **Overlapped dispatch** (``dispatch_depth``, default 2): chunk N+1 is
+  dispatched before chunk N's tokens are read, so the host's emit and
+  scheduling work overlaps the card. A slot that finishes mid-chunk
+  wastes at most the rest of the window (truncated host-side; every
+  position is rewritten in the same step that first attends to it).
 - **Speculative decoding** (with ``draft_params``): slots that have a
   seeded draft cache ride one speculative dispatch per iteration — the
   draft proposes ``spec_k`` tokens per slot from a dense per-slot cache,
@@ -44,6 +63,7 @@ import queue
 import threading
 import time
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Optional, Union
 
 import numpy as np
@@ -51,10 +71,21 @@ import torch
 
 from ..device import resolve_device
 from ..models import transformer as tfm
+from .dispatch import DecodeDispatcher, resolve_dispatch_depth, upload
+from .graphs import ProgramTable
+from .prefix_cache import RadixPrefixCache
 from .sampling import sample_tokens
 from .speculative import _draft_propose, _draft_propose_sampled, spec_accept_commit
 
 log = logging.getLogger(__name__)
+
+# a program's sampling mode: every active row greedy; some row sampled
+# with temperature only; some row also with top-k/top-p
+MODES = ("greedy", "sampled", "filters")
+
+
+def sampling_mode(sampling: bool, filters: bool) -> str:
+    return "greedy" if not sampling else "filters" if filters else "sampled"
 
 
 @dataclass
@@ -127,12 +158,15 @@ class Request:
 
 class _Slot:
     __slots__ = ("req", "length", "remaining", "last_token", "ready",
-                 "prefill_pos", "prompt", "admitted_at", "draft_ready")
+                 "prefill_pos", "prompt", "admitted_at", "draft_ready", "gen")
 
     def __init__(self):
         self.req: Optional[Request] = None
         self.ready = False
         self.draft_ready = False
+        # admission generation: in-flight chunks record it at dispatch so
+        # a drained chunk never emits into the slot's next occupant
+        self.gen = 0
 
 
 class InferenceEngine:
@@ -150,6 +184,14 @@ class InferenceEngine:
     (per-token per-head scales): half the bytes, at ~0.5% quantization
     noise in attention reads, so greedy near-ties can flip.
 
+    ``prefix_cache`` (default on) shares full prompt blocks between
+    requests with a common prefix (lossless up to the rounding of a
+    prefill chunked at another offset; a shared block is never written
+    again). ``dispatch_depth`` (default 2, or ``DEVSPACE_ENGINE_OVERLAP``)
+    sizes the in-flight decode window; depth 1 is the serial loop, and
+    streams are the same at every depth. ``prewarm=True`` runs
+    :meth:`prewarm` in ``start()``.
+
     ``draft_params``/``draft_cfg`` turn on speculative decoding: slots
     whose draft cache is seeded, that use no ``logit_bias``, are past
     their ``min_new_tokens`` and are far enough from max_len ride a
@@ -164,7 +206,8 @@ class InferenceEngine:
     sampling, distributed as plain sampling from the target.
 
     ``device`` is where the engine runs: ``None`` means cuda and raises
-    without it; ``"cpu"`` runs the plain PyTorch path. ``params`` (and
+    without it; ``"cpu"`` runs the plain PyTorch path, calling each
+    program eagerly where the card replays its graph. ``params`` (and
     ``draft_params``) must already live there (see
     ``models.transformer.init_params`` and
     ``models.convert.params_from_numpy``)."""
@@ -185,6 +228,9 @@ class InferenceEngine:
         draft_cfg: Optional[tfm.TransformerConfig] = None,
         spec_k: int = 4,
         spec_depth: int = 1,
+        prefix_cache: bool = True,
+        prewarm: bool = False,
+        dispatch_depth: Optional[int] = None,
     ):
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
@@ -209,7 +255,9 @@ class InferenceEngine:
         self.prefill_chunk = max(1, int(prefill_chunk))
         self.chunk_max = max(1, int(chunk_max))
         self.kv_dtype = kv_dtype
-        self.pool = self._fresh_pool()
+        # the pool and every buffer a program reads are allocated here,
+        # once: a captured graph holds their addresses
+        self.pool = tfm.init_paged_pool(cfg, self.n_blocks, self.block_size, kv_dtype, self.device)
         # speculative decoding state (unused when there is no draft model)
         if draft_params is not None and draft_cfg is None:
             raise ValueError("draft_params requires draft_cfg")
@@ -233,18 +281,29 @@ class InferenceEngine:
         self.spec_accepted = 0
         self.spec_committed = 0
         self.spec_dispatches = 0
-        # host clock over the parts of every spec dispatch: enqueueing the
-        # draft scans, enqueueing the verify blocks with their accept
-        # rule, and the readback (which waits for the device)
-        self.spec_draft_s = 0.0
-        self.spec_verify_s = 0.0
+        # host clock over a spec dispatch: syncing the carry and queueing
+        # the program, then the readback (which waits for the card)
+        self.spec_launch_s = 0.0
         self.spec_readback_s = 0.0
         self.draft_prefills = 0
-        self._draft_cache = self._fresh_draft_cache()
+        # the draft's dense cache, one row per slot, with a scratch TAIL of
+        # spec_k + 1 positions past max_len: a parked slot's propose loop
+        # still writes k+1 K/V entries into its own row, and parking it at
+        # position max_len lands those writes in the tail, which no live
+        # position ever reads (eligibility caps live writes at max_len - 1)
+        self._draft_cache = None
+        if draft_params is not None:
+            self._draft_cache = tfm.init_kv_cache(
+                draft_cfg, self.max_slots, self.max_len + self.spec_k + 1, self.device)
         # host-side allocator state
         self._free_blocks: list[int] = list(range(1, self.n_blocks))
         self._tables = np.zeros((self.max_slots, self.max_blocks), np.int32)
         self._nalloc = [0] * self.max_slots
+        self.prefix_cache_enabled = bool(prefix_cache)
+        self._prefix_cache = RadixPrefixCache()
+        self._block_refs: dict[int, int] = {}  # blk -> table references
+        self.prefix_hit_blocks = 0
+        self.prefix_hit_tokens = 0
         self.slots = [_Slot() for _ in range(self.max_slots)]
         self.pending: queue.Queue[Request] = queue.Queue()
         self._resume: list[Request] = []  # preempted, re-admit first
@@ -265,34 +324,28 @@ class InferenceEngine:
         self.requests_failed = 0
         self.requests_preempted = 0
         self.tokens_generated = 0
-        self.decode_dispatches = 0
         self.decode_steps = 0
-        self.readback_wait_s = 0.0
         self._stop = threading.Event()
         # serializes submit's check+put against stop's set+drain
         self._submit_lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None
         self._prefill_cursor = -1  # rotating prefill pick (see _loop)
-
-    def _fresh_pool(self) -> dict:
-        return tfm.init_paged_pool(
-            self.cfg, self.n_blocks, self.block_size, self.kv_dtype, self.device
-        )
-
-    def _fresh_draft_cache(self) -> Optional[dict]:
-        """The draft's dense cache, one row per slot, with a scratch TAIL
-        of ``spec_k + 1`` positions past max_len: a parked slot's propose
-        loop still writes k+1 K/V entries into its own row, and pointing
-        parked rows at position max_len lands those writes in the tail,
-        which no live position ever reads (eligibility caps live writes
-        at max_len - 1). Without the tail a spec round in the iteration
-        that completed a peer's draft prefill would overwrite that row's
-        freshly seeded prompt K/V."""
-        if self.draft_params is None:
-            return None
-        return tfm.init_kv_cache(
-            self.draft_cfg, self.max_slots, self.max_len + self.spec_k + 1, self.device
-        )
+        self._prewarm_on_start = bool(prewarm)
+        # the overlapped loop's carry and window, then the programs over it
+        self._dispatcher = DecodeDispatcher(self, resolve_dispatch_depth(dispatch_depth))
+        self.dispatch_depth = self._dispatcher.depth
+        self._programs = ProgramTable(self.device, self._dispatcher.active)
+        for k in self._chunk_sizes():
+            for mode in MODES:
+                self._programs.define(("decode", k, mode), partial(self._decode_program, k, mode))
+        if draft_params is not None:
+            # [rounds, B, k+2]: each round's k+1 commit tokens, then its count
+            self._spec_out = torch.zeros((self.spec_depth, B, self.spec_k + 2),
+                                         dtype=torch.int64, device=self.device)
+            self._spec_host = torch.zeros(self._spec_out.shape, dtype=torch.int64,
+                                          pin_memory=self.device.type == "cuda")
+            for mode in MODES:
+                self._programs.define(("spec", mode), partial(self._spec_program, mode))
 
     # -- public API --------------------------------------------------------
     def submit(
@@ -355,10 +408,52 @@ class InferenceEngine:
         return req
 
     def start(self) -> "InferenceEngine":
+        if self._prewarm_on_start:
+            self.prewarm()
         self._started_at = time.monotonic()
         self._thread = threading.Thread(target=self._run, daemon=True, name="engine")
         self._thread.start()
         return self
+
+    def prewarm(self) -> dict:
+        """Build every program serving can reach before traffic does:
+        capture every decode chunk and spec round (on the CPU: run each
+        once) with all rows parked, so their writes land in scratch block
+        0 and the draft cache's scratch tail, and run each prefill bucket
+        and each draft-prefill bucket once eagerly over scratch (block 0,
+        draft row 0). Afterwards ``stats()["graph_captures"]`` stays flat
+        whatever the traffic. Returns ``{program_name: seconds}``; raises
+        on a running engine (the scheduler thread owns the buffers)."""
+        if self._thread is not None and self._thread.is_alive():
+            raise RuntimeError("prewarm() must run before start()")
+        timings: dict[str, float] = {}
+        dev = self.device
+
+        def timed(name, fn):
+            t0 = time.monotonic()
+            fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            timings[name] = round(time.monotonic() - t0, 4)
+
+        zero_table = torch.zeros(self.max_blocks, dtype=torch.int64, device=dev)
+        t_alloc = self.max_blocks * self.block_size
+        with torch.no_grad():
+            # the chunk shapes _prefill_one_chunk can emit: power-of-two
+            # buckets and the full prefill_chunk, inside the table's span
+            for c in self._pow2_buckets(self.prefill_chunk):
+                if c <= t_alloc:
+                    zeros = torch.zeros(c, dtype=torch.int64, device=dev)
+                    timed(f"prefill_{c}", partial(
+                        tfm.prefill_chunk_paged, self.params, self.pool, zero_table, zeros, 0,
+                        self.cfg))
+            if self.draft_params is not None:
+                for c in self._pow2_buckets(self.max_len):
+                    timed(f"draft_prefill_{c}", partial(self._draft_forward, 0, [0] * c))
+            self._dispatcher.active.zero_()
+            for key in self._programs.keys():
+                timed("_".join(map(str, key)), partial(self._programs.build, key))
+        return timings
 
     def stop(self) -> None:
         """Stop the scheduler and fail out any unfinished requests so no
@@ -370,12 +465,14 @@ class InferenceEngine:
         self._fail_outstanding("engine stopped")
 
     def stats(self) -> dict:
-        """Serving counters: requests, tokens, slots, pool, queue depth,
-        uptime, mean tokens/sec, decode dispatch/step counts, and the
-        speculative rounds, proposals, acceptances, commits, dispatches,
-        the host seconds of a dispatch's parts (draft, verify, readback)
-        and draft prefills."""
+        """Serving counters: requests, tokens, slots, pool, prefix cache,
+        queue depth, uptime, mean tokens/sec, the dispatch window's
+        (``inference/dispatch.py``), decode steps, programs built and
+        paged-decode launches made by replays, and the speculative rounds,
+        proposals, acceptances, commits, dispatches, the host seconds of
+        a dispatch's launch and readback, and draft prefills."""
         uptime = time.monotonic() - self._started_at if self._started_at else 0.0
+        d = self._dispatcher
         return {
             "requests_completed": self.requests_completed,
             "requests_failed": self.requests_failed,
@@ -386,13 +483,16 @@ class InferenceEngine:
             "max_slots": self.max_slots,
             "free_blocks": len(self._free_blocks),
             "total_blocks": self.n_blocks - 1,
+            "prefix_cached_blocks": len(self._prefix_cache),
+            "prefix_hit_blocks": self.prefix_hit_blocks,
+            "prefix_hit_tokens": self.prefix_hit_tokens,
             "queued": self.pending.qsize() + len(self._resume),
             "uptime_s": round(uptime, 1),
             "tokens_per_sec": round(self.tokens_generated / uptime, 2) if uptime > 0 else 0.0,
-            "dispatch_depth": 1,
-            "decode_dispatches": self.decode_dispatches,
+            **d.stats(),
             "decode_steps": self.decode_steps,
-            "readback_wait_s": round(self.readback_wait_s, 4),
+            "graph_captures": self._programs.captures,
+            "paged_decode_launches": self._programs.paged_decode_launches,
             "spec_rounds": self.spec_rounds,
             "spec_proposed": self.spec_proposed,
             "spec_accepted": self.spec_accepted,
@@ -401,8 +501,7 @@ class InferenceEngine:
                 round(self.spec_accepted / self.spec_proposed, 4) if self.spec_proposed else 0.0
             ),
             "spec_dispatches": self.spec_dispatches,
-            "spec_draft_s": round(self.spec_draft_s, 4),
-            "spec_verify_s": round(self.spec_verify_s, 4),
+            "spec_launch_s": round(self.spec_launch_s, 4),
             "spec_readback_s": round(self.spec_readback_s, 4),
             "draft_prefills": self.draft_prefills,
         }
@@ -412,30 +511,94 @@ class InferenceEngine:
         """Blocks to add so slot covers logical positions [0, upto)."""
         return max(0, math.ceil(upto / self.block_size) - self._nalloc[slot_idx])
 
+    def _pop_block(self) -> int:
+        """Take a block for private use: the free list first, then evict
+        the least-recently-matched unreferenced cache entry (the cache
+        unpublishes the victim's subtree: unreferenced descendants return
+        to the free list now, referenced ones are freed on release).
+        Callers check availability (free + evictable) first."""
+        if self._free_blocks:
+            return self._free_blocks.pop()
+        blk, freed = self._prefix_cache.pop_victim()
+        # an evicted chain's blocks carry no table reference: the cache
+        # mirrors _block_refs and frees only ref-0 nodes
+        for b in (*freed, blk):
+            stale = self._block_refs.pop(b, 0)
+            assert stale == 0, f"evicted block {b} still has {stale} table reference(s)"
+        self._free_blocks.extend(freed)
+        return blk
+
     def _alloc(self, slot_idx: int, upto: int) -> bool:
         """Grow slot's table to cover [0, upto). False if the pool is
-        exhausted."""
+        exhausted (after reclaiming unreferenced prefix-cache blocks)."""
         need = self._blocks_needed(slot_idx, upto)
-        if need > len(self._free_blocks):
+        if need > len(self._free_blocks) + self._prefix_cache.evictable():
             return False
         for _ in range(need):
-            self._tables[slot_idx, self._nalloc[slot_idx]] = self._free_blocks.pop()
+            blk = self._pop_block()
+            self._block_refs[blk] = 1
+            self._tables[slot_idx, self._nalloc[slot_idx]] = blk
             self._nalloc[slot_idx] += 1
+        if need:
+            self._dispatcher.invalidate_table(slot_idx)
         return True
 
     def _free_slot_blocks(self, slot_idx: int) -> None:
-        n = self._nalloc[slot_idx]
-        self._free_blocks.extend(int(b) for b in self._tables[slot_idx, :n])
+        """Drop the slot's table references: a published block stays
+        cached (the cache mirrors its refcount), any other returns to the
+        free list once nothing references it."""
+        for b in (int(b) for b in self._tables[slot_idx, : self._nalloc[slot_idx]]):
+            refs = self._block_refs.get(b, 1) - 1
+            self._block_refs[b] = refs
+            if self._prefix_cache.is_published(b):
+                self._prefix_cache.release(b)
+            elif refs <= 0:
+                self._free_blocks.append(b)
         self._tables[slot_idx, :] = 0
         self._nalloc[slot_idx] = 0
+        self._dispatcher.invalidate_table(slot_idx)
+
+    def _match_prefix(self, prompt: list[int]) -> list[int]:
+        """The longest run of cached full prompt blocks, capped so that at
+        least one prompt token is left to prefill (its logits sample the
+        first generated token)."""
+        if not self.prefix_cache_enabled:
+            return []
+        matched = []
+        bs = self.block_size
+        cur = self._prefix_cache.cursor()
+        for i in range((len(prompt) - 1) // bs):
+            blk = cur.step(tuple(prompt[i * bs: (i + 1) * bs]))
+            if blk is None:
+                break
+            matched.append(blk)
+        return matched
+
+    def _publish_prefix_blocks(self, slot_idx: int) -> None:
+        """Make the slot's fully written full prompt blocks matchable
+        (after each prefill chunk: a block's K/V is final once prefill has
+        passed its end). First writer wins: a duplicate stays private."""
+        if not self.prefix_cache_enabled:
+            return
+        slot = self.slots[slot_idx]
+        bs = self.block_size
+        cur = self._prefix_cache.cursor()
+        for i in range(min(slot.prefill_pos, len(slot.prompt)) // bs):
+            blk = int(self._tables[slot_idx, i])
+            cur.publish(tuple(slot.prompt[i * bs: (i + 1) * bs]), blk, self._block_refs.get(blk, 0))
 
     def _reset_pool(self) -> None:
-        """Fresh pool + allocator state after a failed decode dispatch."""
-        self.pool = self._fresh_pool()
+        """Zeroed pool and fresh allocator state after a failed dispatch.
+        In place: the graphs hold the pool's addresses. The prefix cache
+        indexed the lost contents, so it resets with them."""
+        for t in self.pool.values():
+            t.zero_()
         self._reset_draft_cache()
         self._free_blocks = list(range(1, self.n_blocks))
         self._tables[:] = 0
         self._nalloc = [0] * self.max_slots
+        self._prefix_cache.reset()
+        self._block_refs.clear()
 
     # -- scheduler ---------------------------------------------------------
     @staticmethod
@@ -450,10 +613,12 @@ class InferenceEngine:
         self._finish(req)
 
     def _fail_outstanding(self, reason: str, drain_queue: bool = True) -> None:
-        """Fail slot-resident requests (their K/V lives in the pool).
-        ``drain_queue=False`` spares queued requests that were never
-        admitted — a rebuilt pool can still serve them; only stop()
-        drains the queue."""
+        """Fail slot-resident requests (their K/V lives in the pool),
+        after abandoning the in-flight window (nothing may emit out of it
+        after this). ``drain_queue=False`` spares queued requests that
+        were never admitted — a rebuilt pool can still serve them; only
+        stop() drains the queue."""
+        self._dispatcher.abandon()
         for i, slot in enumerate(self.slots):
             req = slot.req
             if req is None:
@@ -494,21 +659,40 @@ class InferenceEngine:
             b *= 2
         return min(b, self.prefill_chunk)
 
+    def _chunk_sizes(self) -> list[int]:
+        """The decode programs' chunk sizes: powers of two up to chunk_max."""
+        return self._pow2_buckets(self.chunk_max, include_limit=False)
+
     def _pick_chunk(self, n: int) -> int:
-        """Largest power-of-two chunk size <= min(n, chunk_max)."""
+        """Largest chunk size <= min(n, chunk_max)."""
         return self._pow2_buckets(min(n, self.chunk_max), include_limit=False)[-1]
 
     def _admit(self, slot_idx: int, req: Request) -> bool:
-        """Assign a slot and allocate blocks for the prompt (prefill runs
-        chunk by chunk in the scheduler loop). False, leaving the request
-        queued, when the pool cannot hold the prompt right now."""
+        """Assign a slot, reference the cached prefix and allocate blocks
+        for the rest of the prompt (prefill runs chunk by chunk in the
+        scheduler loop, from the first uncached position). False, leaving
+        the request queued, when the pool cannot hold the prompt now."""
         prompt = req.prompt_ids + req.tokens  # tokens: preempted resume
-        if not self._alloc(slot_idx, len(prompt)):
+        matched = self._match_prefix(prompt)
+        need = math.ceil(len(prompt) / self.block_size) - len(matched)
+        # the matched blocks themselves are not evictable for the pops below
+        if need > len(self._free_blocks) + self._prefix_cache.evictable_excluding(matched):
             return False
+        # reference the matched blocks FIRST so the pops cannot evict them
+        for i, blk in enumerate(matched):
+            self._block_refs[blk] = self._block_refs.get(blk, 0) + 1
+            self._prefix_cache.ref(blk)
+            self._tables[slot_idx, i] = blk
+        self._nalloc[slot_idx] = len(matched)
+        ok = self._alloc(slot_idx, len(prompt))  # >= 1 block: invalidates the table row
+        assert ok, "availability was checked above"
+        self.prefix_hit_blocks += len(matched)
+        self.prefix_hit_tokens += len(matched) * self.block_size
         slot = self.slots[slot_idx]
+        slot.gen += 1  # a new occupant: stale in-flight chunks must not emit
         slot.req = req
         slot.prompt = prompt
-        slot.prefill_pos = 0
+        slot.prefill_pos = len(matched) * self.block_size
         slot.ready = False
         slot.draft_ready = False
         slot.length = len(prompt)
@@ -533,7 +717,7 @@ class InferenceEngine:
         self._min_until[slot_idx] = (
             len(req.prompt_ids) + req.min_new_tokens - 1 if uses_min else 0
         )
-        self._logit_bias[slot_idx] = torch.from_numpy(self._bias_row(req)).to(self.device)
+        self._logit_bias[slot_idx].copy_(upload(self._bias_row(req), self.device))
         self._extras_dirty[slot_idx] = uses
 
     def _bias_row(self, req: Request) -> np.ndarray:
@@ -562,17 +746,17 @@ class InferenceEngine:
         if c > t_alloc - offset:
             c = self._pow2_buckets(t_alloc - offset, include_limit=False)[-1]
         real = min(remaining, c)
-        chunk = slot.prompt[offset: offset + real] + [0] * (c - real)
-        dev = self.device
+        # one upload: the slot's table, then the chunk padded with token 0
+        packed = np.zeros(self.max_blocks + c, np.int64)
+        packed[: self.max_blocks] = self._tables[slot_idx]
+        packed[self.max_blocks: self.max_blocks + real] = slot.prompt[offset: offset + real]
+        packed = upload(packed, self.device)
         logits, _ = tfm.prefill_chunk_paged(
-            self.params,
-            self.pool,
-            torch.from_numpy(self._tables[slot_idx].copy()).to(dev),
-            torch.tensor(chunk, dtype=torch.int64, device=dev),
-            offset,
+            self.params, self.pool, packed[: self.max_blocks], packed[self.max_blocks:], offset,
             self.cfg,
         )
         slot.prefill_pos = offset + real
+        self._publish_prefix_blocks(slot_idx)
         if slot.prefill_pos < t:
             return
         # prefill complete: the first token samples from the last REAL
@@ -580,19 +764,17 @@ class InferenceEngine:
         # (prompt = prompt_ids + generated) the same key the uninterrupted
         # run used for that token
         self._seeds[slot_idx] = req.seed
+        dev = self.device
         lg = logits[real - 1: real]
         if req.logit_bias:
-            lg = lg + torch.from_numpy(self._bias_row(req)).to(dev)
+            lg = lg + upload(self._bias_row(req), dev)
         if req.eos_id is not None and len(req.tokens) < req.min_new_tokens:
             lg = lg.clone()
             lg[0, req.eos_id] = float("-inf")
+        ints = upload(np.array([[req.top_k, req.seed, t - 1]], np.int64), dev)
+        floats = upload(np.array([[req.temperature, req.top_p]], np.float32), dev)
         first = sample_tokens(
-            lg,
-            torch.tensor([req.temperature], device=dev),
-            torch.tensor([req.top_k], device=dev),
-            torch.tensor([req.top_p], device=dev),
-            torch.tensor([req.seed], device=dev),
-            torch.tensor([t - 1], device=dev),
+            lg, floats[:, 0], ints[:, 0], floats[:, 1], ints[:, 1], ints[:, 2],
             sampling=req.temperature > 0,
             filters=req.top_k > 0 or req.top_p < 1.0,
         )
@@ -600,36 +782,39 @@ class InferenceEngine:
             # logit_bias slots never ride a spec round, so their draft
             # prefill would be dead work; min_new_tokens slots become
             # eligible later, so theirs pays off
-            self._draft_prefill(slot_idx)
+            self._draft_forward(slot_idx, slot.prompt)
+            self.draft_prefills += 1
+            slot.draft_ready = True
         slot.ready = True
         self._emit(slot_idx, int(first[0]))
+        # the host is authoritative for this slot's carry row until its
+        # first dispatch uploads it
+        self._dispatcher.invalidate_state(slot_idx)
 
-    def _draft_prefill(self, slot_idx: int) -> None:
-        """Seed the slot's dense draft-cache row with ONE full-sequence
-        draft forward over the prompt padded with token 0 to a power of
-        two (clamped at max_len), which bounds the set of shapes. Causal
+    def _draft_forward(self, slot_idx: int, tokens: list[int]) -> None:
+        """Seed draft-cache row ``slot_idx`` with ONE full-sequence draft
+        forward over ``tokens`` padded with token 0 to a power of two
+        (clamped at max_len), which bounds the set of shapes. Causal
         masking keeps the real rows clean, and the pad tail's K/V is
         rewritten by the propose loop before anything attends it."""
-        slot = self.slots[slot_idx]
-        t = len(slot.prompt)
+        t = len(tokens)
         c = 1
         while c < t:
             c *= 2
         c = min(c, self.max_len)
-        toks = torch.tensor(slot.prompt + [0] * (c - t), dtype=torch.int64, device=self.device)
+        toks = upload(np.array(tokens + [0] * (c - t), np.int64), self.device)
         _, (dk, dv) = tfm.forward(self.draft_params, toks[None], self.draft_cfg, return_kv=True)
         self._draft_cache["k"][:, slot_idx, :c] = dk[:, 0]
         self._draft_cache["v"][:, slot_idx, :c] = dv[:, 0]
-        self.draft_prefills += 1
-        slot.draft_ready = True
 
     def _reset_draft_cache(self) -> None:
-        """After a failed dispatch that may have left partial writes:
-        rebuild the draft cache empty and stop speccing resident slots
-        (they go on with plain decode; no stream depends on draft state)."""
+        """After a failed dispatch that may have left partial writes: zero
+        the draft cache in place and stop speccing resident slots (they go
+        on with plain decode; no stream depends on draft state)."""
         if self.draft_params is None:
             return
-        self._draft_cache = self._fresh_draft_cache()
+        self._draft_cache["k"].zero_()
+        self._draft_cache["v"].zero_()
         for s in self.slots:
             s.draft_ready = False
 
@@ -655,76 +840,120 @@ class InferenceEngine:
             and len(self.slots[i].req.tokens) >= self.slots[i].req.min_new_tokens
         ]
 
-    def _run_spec_round(self, spec_idx: list[int]) -> None:
-        """One speculative dispatch for the ``spec_idx`` slots:
-        ``spec_depth`` chained rounds, each the draft's ``spec_k``
-        proposals per slot (sampled for temperature > 0 rows), ONE paged
-        verification block on the target and the accept/correct rule on
-        the device, which also advances each active slot's current token
-        and positions between rounds; then ONE readback and the host-side
-        emits. Every other row is parked: zeroed table and verify
-        positions from 0 (writes land in scratch block 0), draft
-        positions from max_len (the cache's scratch tail); its outputs
-        are discarded and its positions never move. A rejected position's
-        K/V is overwritten by the next round's writes before anything
-        attends it."""
-        B, dev, k = self.max_slots, self.device, self.spec_k
-        active = np.zeros((B,), bool)
-        active[spec_idx] = True
-        # token, draft position, verify position, top_k, seed
-        ints = np.zeros((B, 5), np.int64)
-        ints[:, 1] = self.max_len
-        floats = np.zeros((B, 2), np.float32)  # temperature, top_p
-        floats[:, 1] = 1.0
-        for i in spec_idx:
-            s = self.slots[i]
-            ints[i] = (s.last_token, s.length - 1, s.length - 1, s.req.top_k, self._seeds[i])
-            floats[i] = (s.req.temperature, s.req.top_p)
-        tables = torch.from_numpy(np.where(active[:, None], self._tables, 0)).to(dev)
-        cur, pos_d, pos_v, top_ks, seeds = torch.from_numpy(ints).to(dev).unbind(1)
-        temps, top_ps = torch.from_numpy(floats).to(dev).unbind(1)
-        live = torch.from_numpy(active).to(dev)
-        reqs = [self.slots[i].req for i in spec_idx]
-        sampling = any(r.temperature > 0 for r in reqs)
-        filters = any(r.temperature > 0 and (r.top_k > 0 or r.top_p < 1.0) for r in reqs)
-        steps = torch.arange(k + 1, device=dev)
-        rounds = []
-        for _ in range(self.spec_depth):
-            t0 = time.monotonic()
+    # -- programs (inference/graphs.py) --------------------------------------
+    @torch.no_grad()
+    def _decode_program(self, k_steps: int, mode: str) -> None:
+        """``k_steps`` decode steps for the active rows of the carry, with
+        the sampling extras and sampling on the device; the tokens go to
+        ``toks_out`` [k_steps, B] and the advanced tokens and positions
+        back into the carry. Parked rows read an all-zero table from
+        position 0, so their writes land in scratch block 0; their
+        outputs are discarded and their carry rows left as they were."""
+        d = self._dispatcher
+        c, act = d.carry, d.active
+        sampling, filters = mode != "greedy", mode == "filters"
+        tables = torch.where(act[:, None], c["tables"], 0)
+        tok = c["tokens"]
+        pos = torch.where(act, c["positions"], 0)
+        for j in range(k_steps):
+            logits, _ = tfm.decode_tokens_paged(self.params, self.pool, tables, tok, pos, self.cfg)
+            # extras: additive bias, then EOS suppression for slots below
+            # min_new_tokens (pos is the position being written)
+            logits = logits + self._logit_bias
+            suppress = (pos < self._min_until)[:, None] & (
+                self._vocab_ids[None, :] == self._eos_ids[:, None]
+            )
+            logits = logits.masked_fill(suppress, float("-inf"))
+            tok = sample_tokens(logits, c["temps"], c["top_ks"], c["top_ps"], c["seeds"], pos,
+                                sampling, filters)
+            d.toks_out[j].copy_(tok)
+            # the clamp keeps a position from indexing past its table
+            pos = torch.clamp(pos + 1, max=self.max_len - 1)
+        c["tokens"].copy_(torch.where(act, tok, c["tokens"]))
+        c["positions"].copy_(torch.where(act, pos, c["positions"]))
+
+    @torch.no_grad()
+    def _spec_program(self, mode: str) -> None:
+        """One speculative dispatch for the active rows: ``spec_depth``
+        chained rounds, each the draft's ``spec_k`` proposals per row
+        (sampled for temperature > 0 rows), ONE paged verification block
+        on the target and the accept/correct rule, which also advances
+        each active row's token and positions between rounds. Round r's
+        commit tokens and count go to ``_spec_out[r]``; the advanced
+        tokens and positions go back into the carry. Parked rows read a
+        zeroed table with verify positions from 0 (scratch block 0) and
+        draft positions from max_len (the cache's scratch tail); their
+        positions never move. A rejected position's K/V is overwritten by
+        the next round's writes before anything attends it."""
+        d = self._dispatcher
+        c, act = d.carry, d.active
+        sampling, filters = mode != "greedy", mode == "filters"
+        k = self.spec_k
+        tables = torch.where(act[:, None], c["tables"], 0)
+        cur = c["tokens"]
+        pos_d = torch.where(act, c["positions"], self.max_len)
+        pos_v = torch.where(act, c["positions"], 0)
+        steps = torch.arange(k + 1, device=self.device)
+        for r in range(self.spec_depth):
             if sampling:
                 props, d_probs, _ = _draft_propose_sampled(
                     self.draft_params, self._draft_cache, cur, pos_d, self.draft_cfg, k,
-                    seeds, temps)
+                    c["seeds"], c["temps"])
             else:
                 d_probs = None
                 props, _ = _draft_propose(
                     self.draft_params, self._draft_cache, cur, pos_d, self.draft_cfg, k)
-            t1 = time.monotonic()
-            self.spec_draft_s += t1 - t0
             block = torch.cat([cur[:, None], props], dim=1)
             logits, _ = tfm.decode_block_paged(
                 self.params, self.pool, tables, block, pos_v[:, None] + steps[None], self.cfg)
             commit, n_commit = spec_accept_commit(
-                props, d_probs, logits, temps, seeds, pos_v, top_ks, top_ps, use_filters=filters)
-            rounds.append(torch.cat([commit, n_commit[:, None]], dim=1))
+                props, d_probs, logits, c["temps"], c["seeds"], pos_v, c["top_ks"], c["top_ps"],
+                use_filters=filters)
+            self._spec_out[r, :, : k + 1].copy_(commit)
+            self._spec_out[r, :, k + 1].copy_(n_commit)
             # the corrected/bonus token (the last committed) seeds the
             # next round
             new_cur = commit.gather(1, (n_commit - 1)[:, None])[:, 0]
-            cur = torch.where(live, new_cur, cur)
-            pos_d = torch.where(live, pos_d + n_commit, pos_d)
-            pos_v = torch.where(live, pos_v + n_commit, pos_v)
-            self.spec_verify_s += time.monotonic() - t1
-        t0 = time.monotonic()
-        out = torch.stack(rounds).cpu().numpy()  # [R, B, k+2]: the one readback
-        waited = time.monotonic() - t0
-        self.readback_wait_s += waited
+            cur = torch.where(act, new_cur, cur)
+            pos_d = torch.where(act, pos_d + n_commit, pos_d)
+            pos_v = torch.where(act, pos_v + n_commit, pos_v)
+        c["tokens"].copy_(cur)
+        c["positions"].copy_(torch.where(act, pos_v, c["positions"]))
+
+    def _run_spec_round(self, spec_idx: list[int]) -> None:
+        """One speculative dispatch for the ``spec_idx`` slots (the window
+        is drained): sync their carry rows, run the program, ONE readback,
+        then the host-side emits. A failure fails the residents and
+        zeroes the pool and the draft cache."""
+        reqs = [self.slots[i].req for i in spec_idx]
+        sampling = any(r.temperature > 0 for r in reqs)
+        filters = any(r.temperature > 0 and (r.top_k > 0 or r.top_p < 1.0) for r in reqs)
+        d = self._dispatcher
+        try:
+            t0 = time.monotonic()
+            d.sync_carry(spec_idx)
+            self._programs.run(("spec", sampling_mode(sampling, filters)))
+            self._spec_host.copy_(self._spec_out, non_blocking=True)
+            t1 = time.monotonic()
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            out = self._spec_host.tolist()  # [R, B, k+2]: the one readback
+        except Exception as e:  # noqa: BLE001 — device errors (OOM, …)
+            log.exception("speculative round failed")
+            self._fail_outstanding(f"speculative round failed: {e}", drain_queue=False)
+            self._reset_pool()
+            return
+        waited = time.monotonic() - t1
+        self.spec_launch_s += t1 - t0
         self.spec_readback_s += waited
+        d.readback_wait_s += waited
         self.spec_dispatches += 1
+        k = self.spec_k
         for i in spec_idx:
             for r in range(self.spec_depth):
                 if self.slots[i].req is None:
                     break  # finished mid-dispatch; later rounds are discarded
-                n = int(out[r, i, k + 1])
+                n = out[r][i][k + 1]
                 # accepted/proposed measure the draft-match rate: raw
                 # n - 1, not capped by how many tokens the request had
                 # room to commit; spec_committed counts actual emits
@@ -734,54 +963,8 @@ class InferenceEngine:
                 for j in range(n):
                     if self.slots[i].req is None:
                         break  # hit EOS / max_new mid-commit
-                    self._emit(i, int(out[r, i, j]))
+                    self._emit(i, out[r][i][j])
                     self.spec_committed += 1
-
-    def _decode_chunk(self, plain: list[int], k_steps: int) -> None:
-        """``k_steps`` decode steps for the ``plain`` slots (every other
-        row is parked: all-zero table, so its writes land in scratch
-        block 0), sampling on the device, then ONE readback and the
-        host-side emits."""
-        B, dev = self.max_slots, self.device
-        active = np.zeros((B,), bool)
-        active[plain] = True
-        ints = np.zeros((B, 4), np.int64)  # token, position, top_k, seed
-        floats = np.zeros((B, 2), np.float32)  # temperature, top_p
-        floats[:, 1] = 1.0
-        for i in plain:
-            s = self.slots[i]
-            ints[i] = (s.last_token, s.length - 1, s.req.top_k, self._seeds[i])
-            floats[i] = (s.req.temperature, s.req.top_p)
-        tables = torch.from_numpy(np.where(active[:, None], self._tables, 0)).to(dev)
-        tok, pos, top_ks, seeds = torch.from_numpy(ints).to(dev).unbind(1)
-        temps, top_ps = torch.from_numpy(floats).to(dev).unbind(1)
-        reqs = [self.slots[i].req for i in plain]
-        sampling = any(r.temperature > 0 for r in reqs)
-        filters = any(r.top_k > 0 or r.top_p < 1.0 for r in reqs)
-        steps = []
-        for _ in range(k_steps):
-            logits, _ = tfm.decode_tokens_paged(self.params, self.pool, tables, tok, pos, self.cfg)
-            # extras: additive bias, then EOS suppression for slots below
-            # min_new_tokens (pos is the position being written)
-            logits = logits + self._logit_bias
-            suppress = (pos < self._min_until)[:, None] & (
-                self._vocab_ids[None, :] == self._eos_ids[:, None]
-            )
-            logits = logits.masked_fill(suppress, float("-inf"))
-            tok = sample_tokens(logits, temps, top_ks, top_ps, seeds, pos, sampling, filters)
-            steps.append(tok)
-            # the clamp keeps a parked row from indexing past its table
-            pos = torch.clamp(pos + 1, max=self.max_len - 1)
-        t0 = time.monotonic()
-        toks = torch.stack(steps).cpu().numpy()  # [k_steps, B]: the one readback
-        self.readback_wait_s += time.monotonic() - t0
-        self.decode_dispatches += 1
-        self.decode_steps += k_steps
-        for i in plain:
-            for j in range(k_steps):
-                if self.slots[i].req is None:
-                    break  # finished mid-chunk; the rest is overshoot
-                self._emit(i, int(toks[j, i]))
 
     def _preempt_youngest(self, keep: int) -> bool:
         """Free the most recently admitted slot other than ``keep``
@@ -839,9 +1022,19 @@ class InferenceEngine:
         if finish:
             slot.req = None
             slot.ready = False
-            self._free_slot_blocks(slot_idx)
+            self._retire_slot(slot_idx)
             self.requests_completed += 1
             self._finish(req)  # done LAST: waiters see settled counters
+
+    def _retire_slot(self, slot_idx: int) -> None:
+        """Release a finished slot's blocks: now when no decode chunk
+        references it, else when the last in-flight chunk drains (its
+        overshoot writes target these blocks; the slot stays
+        un-admittable meanwhile, see ``slot_busy``)."""
+        if self._dispatcher.slot_busy(slot_idx):
+            self._dispatcher.pending_free.add(slot_idx)
+        else:
+            self._free_slot_blocks(slot_idx)
 
     def _next_pending(self) -> Optional[Request]:
         if self._resume:
@@ -852,9 +1045,11 @@ class InferenceEngine:
             return None
 
     def _admit_pending(self) -> None:
-        """Admit as many pending requests as there are free slots."""
+        """Admit as many pending requests as there are free slots; a
+        zombie slot (finished, still referenced by in-flight chunks) is
+        skipped until the window releases it."""
         for i, slot in enumerate(self.slots):
-            if slot.req is not None:
+            if slot.req is not None or self._dispatcher.slot_busy(i):
                 continue
             req = self._next_pending()
             if req is None:
@@ -869,7 +1064,7 @@ class InferenceEngine:
                 self.slots[i].req = None
                 self._fail(req, str(e))
 
-    def _still_ready(self, group: list[int]) -> list[int]:
+    def _live(self, group: list[int]) -> list[int]:
         return [i for i in group if self.slots[i].req is not None and self.slots[i].ready]
 
     def _next_prefill_slot(self, prefilling: list[int]) -> int:
@@ -881,6 +1076,14 @@ class InferenceEngine:
         self._prefill_cursor = i
         return i
 
+    def _dispatch_failed(self, e: Exception) -> None:
+        """A decode dispatch or its readback died: fail the WHOLE window
+        (every chunk chains off the pool) and every resident request, zero
+        the pool and keep serving queued requests."""
+        log.error("decode dispatch failed: %s", e, exc_info=e)
+        self._fail_outstanding(f"decode failed: {e}", drain_queue=False)
+        self._reset_pool()
+
     def _run(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
@@ -888,14 +1091,27 @@ class InferenceEngine:
             self._loop()
 
     def _loop(self) -> None:
-        """Scheduler iterations: admission, ONE bounded prefill chunk, then
-        chunk sizing + block coverage (with the preemption ladder) and a
-        decode chunk whose tokens are emitted before the next iteration."""
+        """Scheduler iterations: admission, ONE bounded prefill chunk,
+        spec-round interleaving, chunk sizing + block coverage (with the
+        preemption ladder), then a decode dispatch into the window, whose
+        oldest entry is drained (emitting its tokens) while the newest is
+        on the card."""
+        d = self._dispatcher
         while not self._stop.is_set():
+            t_iter = time.monotonic()
             self._admit_pending()
             prefilling = [i for i, s in enumerate(self.slots) if s.req is not None and not s.ready]
             ready = [i for i, s in enumerate(self.slots) if s.req is not None and s.ready]
             if not prefilling and not ready:
+                if d.in_flight:
+                    # nothing schedulable, but chunks are in flight: their
+                    # readback is the only source of new work
+                    try:
+                        d.drain(block=True)
+                    except Exception as e:  # noqa: BLE001
+                        self._dispatch_failed(e)
+                    d.loop_busy_s += time.monotonic() - t_iter
+                    continue
                 try:
                     req = self.pending.get(timeout=0.05)
                 except queue.Empty:
@@ -915,25 +1131,56 @@ class InferenceEngine:
                     if req is not None and not req.done.is_set():
                         self._fail(req, str(e))
                     self._reset_draft_cache()  # the draft prefill may have died
-            if not ready:
-                continue
+                if not ready:
+                    # nothing to decode yet, but finished in-flight chunks
+                    # can retire while the next prompt prefills
+                    try:
+                        d.drain(block=False)
+                    except Exception as e:  # noqa: BLE001
+                        self._dispatch_failed(e)
+                    d.loop_busy_s += time.monotonic() - t_iter
+                    continue
             # split the ready slots into the SPECULATIVE group and the
             # PLAIN decode group; both dispatch in this iteration, so
             # neither starves, and a slot that outgrows spec eligibility
             # (near max_len) finishes on the plain path
             spec_idx = self._spec_eligible(ready)
-            plain = [i for i in ready if i not in spec_idx]
+            if spec_idx and d.in_flight:
+                # a spec round reads and rewrites slot K/V and commits on
+                # the host: it needs settled state, so the window drains
+                # first, and eligibility is recomputed (the drain advanced
+                # lengths and may have finished slots)
+                try:
+                    d.drain_all()
+                except Exception as e:  # noqa: BLE001
+                    self._dispatch_failed(e)
+                    d.loop_busy_s += time.monotonic() - t_iter
+                    continue
+                ready = self._live(ready)
+                spec_idx = self._spec_eligible(ready)
+            # the plain group: every ready non-spec slot with tokens to
+            # produce BEYOND what in-flight chunks already cover
+            plain = [
+                i for i in ready
+                if i not in spec_idx and self.slots[i].remaining - d.inflight_steps[i] >= 1
+            ]
             # plain chunk size: the LONGEST remaining want, rounded down to
             # a power of two (clamping to the shortest would put the batch
             # back into one round trip per token whenever a short request
-            # is co-resident); slots finishing mid-chunk truncate host-side
+            # is co-resident); slots finishing mid-chunk truncate
+            # host-side. In-flight steps count as already produced.
             k_steps = 1
             if plain:
-                want = max(self.slots[i].remaining for i in plain)
-                room = min(self.max_len - self.slots[i].length for i in plain)
+                want = max(self.slots[i].remaining - d.inflight_steps[i] for i in plain)
+                room = min(
+                    self.max_len - (self.slots[i].length + d.inflight_steps[i]) for i in plain
+                )
                 k_steps = self._pick_chunk(max(1, min(want, room + 1)))
-            # grow every slot's table to cover this iteration's writes;
-            # preempt youngest-first when the pool runs dry
+            # grow every participating slot's table to cover this
+            # iteration's writes; preempt youngest-first when the pool
+            # runs dry, once the window has settled
+            plain_set = set(plain)
+            restart = False
             for i in list(ready):
                 s = self.slots[i]
                 if s.req is None or not s.ready:
@@ -944,28 +1191,53 @@ class InferenceEngine:
                     # length-2 + depth*(k+1), which eligibility keeps
                     # inside max_len
                     need_upto = s.length - 1 + self.spec_depth * (self.spec_k + 1)
+                elif i in plain_set:
+                    # in-flight chunks write up to length+inflight first;
+                    # writes never pass max_len-1 (the decode clamps)
+                    need_upto = min(s.length + d.inflight_steps[i] + k_steps, self.max_len)
                 else:
-                    need_upto = min(s.length + k_steps, self.max_len)
+                    continue  # remainder fully covered by the window
                 while not self._alloc(i, need_upto):
+                    if d.in_flight:
+                        # in-flight chunks pin their slots' blocks and may
+                        # finish slots: settle the window before preempting
+                        # anyone, then rebuild the schedule from settled state
+                        try:
+                            d.drain_all()
+                        except Exception as e:  # noqa: BLE001
+                            self._dispatch_failed(e)
+                        restart = True
+                        break
                     if not self._preempt_youngest(keep=i):
                         self._preempt(i)
                         break
+                if restart:
+                    break
                 if s.req is None:
                     ready.remove(i)
+            if restart:
+                d.loop_busy_s += time.monotonic() - t_iter
+                continue
             # liveness re-filter for BOTH groups: a preemption victim is
             # picked by admission time, not index order, so one whose own
             # turn already passed is still listed
-            spec_idx = self._still_ready(spec_idx)
-            plain = self._still_ready(plain)
+            spec_idx = self._live(spec_idx)
+            plain = self._live(plain)
+            if spec_idx:
+                self._run_spec_round(spec_idx)
+                # spec commits may complete slots and free blocks
+                plain = self._live(plain)
             try:
-                if spec_idx:
-                    self._run_spec_round(spec_idx)
                 if plain:
-                    self._decode_chunk(plain, k_steps)
+                    reqs = [self.slots[i].req for i in plain]
+                    mode = sampling_mode(any(r.temperature > 0 for r in reqs),
+                                         any(r.top_k > 0 or r.top_p < 1.0 for r in reqs))
+                    d.dispatch(plain, k_steps, mode)
+                    self.decode_steps += k_steps
+                # window full (or nothing new dispatched): block on the
+                # OLDEST entry while the card runs the newest; otherwise
+                # consume only entries already read back
+                d.drain(block=d.full or not plain)
             except Exception as e:  # noqa: BLE001 — device errors (OOM, …)
-                log.exception("decode dispatch failed")
-                # the pool and the draft cache may hold partial writes:
-                # fail the residents and rebuild both; queued requests are
-                # served from the new pool
-                self._fail_outstanding(f"decode failed: {e}", drain_queue=False)
-                self._reset_pool()
+                self._dispatch_failed(e)
+            d.loop_busy_s += time.monotonic() - t_iter

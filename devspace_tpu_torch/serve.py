@@ -30,8 +30,10 @@ tiny), ``KV_DTYPE`` (int8 for a quantized pool), ``MAX_SLOTS``,
 model off), ``SPEC_K``, ``SPEC_DEPTH`` and ``DRAFT_MODEL`` (a config
 name; default: tiny drafts for itself, any other model has no draft).
 ``DRAFT_CHECKPOINT`` is refused: restoring weights waits for the port of
-the checkpoint modules. ``--device`` defaults to cuda, and no CUDA is an
-error.
+the checkpoint modules. ``ENGINE_OVERLAP=off`` runs the serial decode
+loop (dispatch depth 1; default: the depth-2 window), and ``PREWARM=1``
+builds every program (``InferenceEngine.prewarm``) before the port
+opens. ``--device`` defaults to cuda, and no CUDA is an error.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import http.server
 import json
 import logging
 import os
+import time
 from typing import Optional
 
 import torch
@@ -245,6 +248,7 @@ def build_engine(
     draft_model: Optional[str] = None,
     spec_k: int = 4,
     spec_depth: int = 1,
+    dispatch_depth: Optional[int] = None,
 ) -> InferenceEngine:
     """An engine for ``model`` with random weights (seed 0) on ``device``;
     with ``draft_model`` (a config name sharing the vocabulary), also a
@@ -271,6 +275,7 @@ def build_engine(
         params, cfg, max_slots=max_slots, chunk_max=chunk_max,
         kv_dtype=kv_dtype, device=dev,
         draft_params=draft_params, draft_cfg=draft_cfg, spec_k=spec_k, spec_depth=spec_depth,
+        dispatch_depth=dispatch_depth,
     )
 
 
@@ -306,7 +311,13 @@ def main(argv=None) -> None:
         draft_model=draft_model_from_env(model),
         spec_k=int(os.environ.get("SPEC_K", 4)),
         spec_depth=int(os.environ.get("SPEC_DEPTH", 1)),
-    ).start()
+        dispatch_depth=1 if os.environ.get("ENGINE_OVERLAP") == "off" else None,
+    )
+    if os.environ.get("PREWARM", "0") == "1":
+        t0 = time.monotonic()
+        timings = engine.prewarm()
+        print(f"prewarmed {len(timings)} programs in {time.monotonic() - t0:.1f}s", flush=True)
+    engine.start()
     httpd = make_http_server(Server(engine, model), args.host, args.port)
     print(f"serving {model} on {engine.device} at :{httpd.server_address[1]}", flush=True)
     try:

@@ -87,8 +87,8 @@ def test_engine_with_draft_equals_engine_without(params, other):
     assert st0["spec_rounds"] == 0 and st0["draft_prefills"] == 0 and st0["spec_acceptance"] == 0.0
     assert st1["spec_rounds"] > 0 and st1["decode_steps"] == 0  # every slot rode spec
     # the host clock over a dispatch's parts runs only in spec rounds
-    assert st0["spec_draft_s"] == st0["spec_verify_s"] == st0["spec_readback_s"] == 0.0
-    assert st1["spec_draft_s"] > 0 and st1["spec_verify_s"] > 0
+    assert st0["spec_launch_s"] == st0["spec_readback_s"] == 0.0
+    assert st1["spec_launch_s"] > 0
     assert 0 <= st1["spec_readback_s"] <= st1["readback_wait_s"]
 
 
@@ -116,7 +116,7 @@ def test_engine_speculative_with_preemption(params, reference):
                       draft_params=params, draft_cfg=CFG, spec_k=3)
     assert results == [reference(p1, 30), reference(p2, 30)]
     assert st["requests_preempted"] >= 1 and st["draft_prefills"] >= 3
-    assert st["free_blocks"] == st["total_blocks"], "leaked blocks"
+    assert st["free_blocks"] + st["prefix_cached_blocks"] == st["total_blocks"], "leaked blocks"
 
 
 def test_engine_speculative_mixed_sampling_and_boundary(params, reference):
