@@ -21,7 +21,14 @@ three paths:
   forward; then a steady decode burst (8 x 256 tokens) and a burst
   sharing a 512-token prefix, with the cache on and off; the same burst
   at depth 1 gives the same streams; one request goes through the HTTP
-  server;
+  server; then the host KV tier (``kv_tier`` phase): four waves on
+  fresh 2-slot engines with a 33-block pool, bf16 and int8, the tier on
+  and off (waves 2-3 evict and spill a 512-token chain, wave 4 restores
+  its 8 blocks and decodes them through the kernel; int8 streams equal
+  the tier-off ones, bf16 tokens are the eager argmax or a near tie),
+  and a KVM1 migration of that chain between two servers (``POST
+  /prefill`` on one, ``/generate`` with ``kv_source`` on the other;
+  the migrated blocks equal the source's byte for byte);
 - speculative serving: the target and draft LMs of
   scripts/train_draft_pair.py (target: vocab 32000, dim 1024, 8 layers,
   8 heads, ffn 2816; draft: dim 256, 2 layers, 4 heads, ffn 704; bf16)
@@ -69,6 +76,8 @@ import torch.nn.functional as F
 
 from devspace_tpu_torch import serve
 from devspace_tpu_torch.inference import InferenceEngine
+from devspace_tpu_torch.inference import engine as einf
+from devspace_tpu_torch.inference import kv_tier as kvt
 from devspace_tpu_torch.inference import speculative as spec
 from devspace_tpu_torch.models import transformer as tfm
 from devspace_tpu_torch.ops import _build
@@ -721,6 +730,16 @@ def http_server(engine, model: str):
         thread.join(timeout=30)
 
 
+def http_json(url: str, path: str, body: dict) -> tuple[int, dict]:
+    """(status, reply) of one JSON POST."""
+    req = urllib.request.Request(url + path, data=json.dumps(body).encode())
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
 def phase_http(engine, card) -> dict:
     with http_server(engine, "llama2-7b") as url:
         body = json.dumps({"prompt_ids": list(range(100, 140)), "max_new_tokens": 8}).encode()
@@ -755,6 +774,287 @@ def phase_engine_int8(params, dev, card) -> dict:
         "ttft_s_median": statistics.median(run["ttft_s"]),
         **{k: v for k, v in run.items() if k != "ttft_s"},
     }
+
+
+# -- the host KV tier and KV migration ------------------------------------------
+# the kv_tier phase's engine and traffic at Llama-2-7B: the pool is the
+# engine's floor (one max_len sequence plus scratch), the tier's budget
+# holds ~60 of the ~17.3 MB int8 payloads, more than the waves spill
+KV_TIER = {"max_slots": 2, "max_len": 2048, "block_size": 64, "n_blocks": 33,
+           "tier_bytes": 1 << 30, "shared": 512, "distinct": 1024, "tail": 64, "new_tokens": 16}
+
+
+def kv_tier_waves(cfg, sizes) -> list:
+    """The four waves: a shared prompt, two distinct long prompts (which
+    evict and, with the tier, spill its chain) and the shared prompt with
+    a tail of its own (which restores it)."""
+    rng = np.random.default_rng(4)
+    V = cfg.vocab_size
+    shared = rng.integers(1, V, sizes["shared"]).tolist()
+    waves = [shared] + [rng.integers(1, V, sizes["distinct"]).tolist() for _ in range(2)]
+    return waves + [shared + rng.integers(1, V, sizes["tail"]).tolist()]
+
+
+def kv_tier_engine(params, cfg, dev, sizes, kv_dtype, tier) -> InferenceEngine:
+    return InferenceEngine(params, cfg, device=dev, max_slots=sizes["max_slots"],
+                           max_len=sizes["max_len"], block_size=sizes["block_size"],
+                           n_blocks=sizes["n_blocks"], kv_dtype=kv_dtype, kv_tier=tier,
+                           kv_tier_bytes=sizes["tier_bytes"])
+
+
+def run_waves(engine, waves, n_new) -> list:
+    """Each wave alone, finishing before the next: its stream, time to
+    first token, and the decode steps and paged-decode launches of its
+    graph replays."""
+    out = []
+    for prompt in waves:
+        before = engine.stats()
+        h = engine.submit(prompt, n_new)
+        tokens = h.result(timeout=600)
+        st = engine.stats()
+        steps = st["decode_steps"] - before["decode_steps"]
+        launches = st["paged_decode_launches"] - before["paged_decode_launches"]
+        assert launches == engine.cfg.n_layers * steps > 0, (launches, steps)
+        out.append({"tokens": tokens, "ttft_s": h.first_token_at - h.submitted_at,
+                    "decode_steps": steps, "launches": launches,
+                    "restore_hits": st["kv_restore_hits"] - before["kv_restore_hits"]})
+    return out
+
+
+def synced_device_ms(fn, reps: int = 5, spin_ms: float = 200.0) -> float:
+    """Median device time of ``fn``, in ms, for a function that waits on
+    the card inside: each call runs alone behind its own spin kernel, which
+    hides the host's enqueueing (and a restore's staging) as long as it
+    outlasts them; the end event, queued once ``fn`` returns, adds the
+    host's wake-up after the wait (microseconds)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_ms * 2e6))
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def tier_group_device_ms(engine) -> dict:
+    """Device time of one full ``_RESTORE_BATCH`` group on the engine's
+    pool (blocks 1..16; run after the engine has stopped, since the
+    restore rewrites them): a spill's ``_gather_blocks`` (the gather, a
+    float pool's quantization, the block-major copy into the pinned
+    staging) and a restore's ``_restore_group`` (the upload from the
+    staging, the layout, a float pool's dequantization, the scatter)."""
+    R = einf._RESTORE_BATCH
+    blks = list(range(1, R + 1))
+    parts = [np.array(a) for a in engine._gather_blocks(blks)]
+    group = list(zip(*parts))
+    spill_ms = synced_device_ms(lambda: engine._gather_blocks(blks))
+    restore_ms = synced_device_ms(lambda: engine._restore_group(blks, group))
+    return {"group_blocks": R, "group_bytes": sum(a.nbytes for a in parts),
+            "spill_ms_per_block": spill_ms / R, "restore_ms_per_block": restore_ms / R}
+
+
+def tier_host_profile(engine, n: int) -> dict:
+    """Host ms per block of each part of one ``n``-block spill and restore
+    on the stopped engine's pool (blocks 1..n), in the engine's order.
+    Spill: ``gather`` (the device gather and copy into the pinned staging,
+    waited on), ``pack`` (the KVT1 payload: ``tobytes`` copies and the
+    join), ``put`` (into a host tier: its blake2b checksum and the LRU
+    insert). Restore: ``get`` (the checksum verified), ``unpack`` (views),
+    ``stage_scatter`` (``_restore_group``: the copies into the staging,
+    the upload and scatter, waited on). Apart: ``checksum`` (blake2b over
+    each payload alone, as put and get each run it once) and on the card
+    ``pinned_alloc`` (one fresh allocation of an ``n``-block staging set,
+    which the engine no longer makes per call; ``cudaHostAlloc`` calls in
+    ``pinned_allocs`` where torch counts them)."""
+    cuda = engine.device.type == "cuda"
+    blks = list(range(1, n + 1))
+    tier = kvt.HostKVTier(max_bytes=1 << 40)
+    digests = [f"{b:032x}" for b in blks]
+    ms: dict = {}
+
+    def clock(name, fn):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3 / n
+        return out
+
+    kq, ks, vq, vs = clock("gather", lambda: engine._gather_blocks(blks))
+    payloads = clock("pack", lambda: [kvt.pack_kv_payload(kq[b], ks[b], vq[b], vs[b])
+                                      for b in range(n)])
+    clock("put", lambda: [tier.put(d, p) for d, p in zip(digests, payloads)])
+    got = clock("get", lambda: [tier.get(d) for d in digests])
+    group = clock("unpack", lambda: [kvt.unpack_kv_payload(p) for p in got])
+    clock("stage_scatter", lambda: engine._restore_group(blks, group))
+    clock("checksum", lambda: [kvt._checksum(p) for p in payloads])
+    out = {"blocks": n, "payload_bytes": len(payloads[0]),
+           "spill_ms_per_block": {k: ms[k] for k in ("gather", "pack", "put")},
+           "restore_ms_per_block": {k: ms[k] for k in ("get", "unpack", "stage_scatter")},
+           "checksum_ms_per_block": ms["checksum"]}
+    if cuda:
+        count = getattr(torch.cuda, "host_memory_stats", dict)
+        before = count().get("num_host_alloc", 0)
+        clock("pinned_alloc", lambda: [torch.empty((n,) + tuple(h.shape[1:]), dtype=h.dtype,
+                                                   pin_memory=True) for h in engine._stage])
+        out["pinned_alloc_ms_per_block"] = ms["pinned_alloc"]
+        out["pinned_allocs"] = count().get("num_host_alloc", 0) - before
+    return out
+
+
+def pinned_copy_gbps(nbytes: int, dev) -> dict:
+    """The yardstick for the tier's copies: one plain copy of ``nbytes``
+    between pinned host memory and the card, each way."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    card = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    h2d, _ = device_ms(lambda: card.copy_(host, non_blocking=True), 5)
+    d2h, _ = device_ms(lambda: host.copy_(card, non_blocking=True), 5)
+    return {"bytes": nbytes, "h2d_gb_s": nbytes / h2d / 1e6, "d2h_gb_s": nbytes / d2h / 1e6}
+
+
+def chain_blocks(engine, prompt, n) -> list:
+    """The pool blocks the engine's radix tree holds for the first ``n``
+    full blocks of ``prompt`` (the engine is stopped)."""
+    bs = engine.block_size
+    cur = engine._prefix_cache.cursor()
+    blks = [cur.step(tuple(prompt[i * bs: (i + 1) * bs])) for i in range(n)]
+    assert None not in blks, blks
+    return blks
+
+
+def kv_pool_run(params, cfg, dev, sizes, waves, kv_dtype, tie_bound) -> tuple[dict, list]:
+    """The waves on fresh engines with the tier off, then on; the checks
+    of the tier-on run. Returns the pool's line and the tier-off wave 4
+    stream."""
+    pool = "int8" if kv_dtype else "bf16"
+    n_blocks = sizes["shared"] // sizes["block_size"]
+    runs, launches = {}, 0
+    for tier in ("off", "host"):
+        engine = kv_tier_engine(params, cfg, dev, sizes, kv_dtype, tier)
+        warm = prewarm_engine(engine)
+        engine.start()
+        try:
+            reset_counts()
+            runs[tier] = run_waves(engine, waves, sizes["new_tokens"])
+            assert pa.LAUNCHES == 0, f"{pa.LAUNCHES} launches outside the graphs"
+            st = engine.stats()
+        finally:
+            engine.stop()
+        assert st["graph_captures"] == warm["captures"], "a graph was captured in the run"
+        assert st["requests_failed"] == 0
+        launches += sum(w["launches"] for w in runs[tier])
+        if tier == "host":
+            tier_st, device = st, tier_group_device_ms(engine) if dev.type == "cuda" else {}
+            host_parts = tier_host_profile(engine, n_blocks)
+        del engine
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    on, off = runs["host"][3], runs["off"][3]
+    assert tier_st["kv_spill_blocks"] > 0, tier_st
+    assert on["restore_hits"] == n_blocks, (on["restore_hits"], n_blocks)
+    assert tier_st["kv_restore_fallbacks"] == 0, tier_st
+    assert tier_st["recompute_tokens_saved"] == sizes["shared"], tier_st
+    equal = sum(a == b for a, b in zip(on["tokens"], off["tokens"]))
+    ties = None
+    if kv_dtype == "int8":
+        # q and the scales are restored verbatim: the streams are equal
+        assert on["tokens"] == off["tokens"], (on["tokens"], off["tokens"])
+    else:
+        # int8 noise on the restored blocks: every token is the argmax of
+        # an eager forward over the stream, or a near tie
+        ties = argmax_ties(params, cfg, waves[3], on["tokens"], tie_bound)
+    return {
+        "kv_pool": pool, "launches": launches,
+        "wave4_ttft_s": {"tier_on_restore": on["ttft_s"], "tier_off_recompute": off["ttft_s"]},
+        # with the tier on, wave 3 spills 8 blocks at admission, 16 as it decodes
+        "ttft_s_by_wave": {t: [w["ttft_s"] for w in runs[t]] for t in ("host", "off")},
+        "wave4_equal_tokens": equal, "wave4_tokens": len(on["tokens"]),
+        "wave4_paged_decode_launches": on["launches"], "argmax_near_ties": ties,
+        "restore_hits": on["restore_hits"],
+        "host_ms_per_block": {
+            "restore": tier_st["kv_restore_s"] * 1e3 / tier_st["kv_restore_hits"],
+            "spill": tier_st["kv_spill_s"] * 1e3 / tier_st["kv_spill_blocks"]},
+        "device": device, "host_parts": host_parts,
+        **{k: tier_st[k] for k in ("kv_spill_blocks", "kv_spill_bytes", "kv_restore_fallbacks",
+                                   "recompute_tokens_saved", "kv_restores",
+                                   "kv_restores_overlapped", "kv_tier_entries",
+                                   "kv_tier_resident_bytes")},
+    }, off["tokens"]
+
+
+def kv_migration_run(params, cfg, dev, sizes, waves, cold, model) -> dict:
+    """Two int8-pool engines behind two in-process servers: A prefills the
+    shared prompt (``POST /prefill``), B serves wave 4's prompt with
+    ``kv_source`` set to A's URL, so the chain's KVM1 envelope crosses
+    HTTP. B's stream equals the cold run's; the migrated blocks in B's
+    pool equal A's byte for byte."""
+    n_blocks = sizes["shared"] // sizes["block_size"]
+    a = kv_tier_engine(params, cfg, dev, sizes, "int8", "host")
+    b = kv_tier_engine(params, cfg, dev, sizes, "int8", "host")
+    warm = [prewarm_engine(e)["captures"] for e in (a, b)]
+    try:
+        with http_server(a.start(), model) as url_a, http_server(b.start(), model) as url_b:
+            reset_counts()
+            code, reply = http_json(url_a, "/prefill", {"prompt_ids": waves[0]})
+            assert code == 200 and reply == {"prefilled_tokens": len(waves[0])}, (code, reply)
+            t0 = time.monotonic()
+            code, reply = http_json(url_b, "/generate", {
+                "prompt_ids": waves[3], "kv_source": url_a, "max_new_tokens": sizes["new_tokens"]})
+            seconds = time.monotonic() - t0
+            assert code == 200, (code, reply)
+            assert pa.LAUNCHES == 0, f"{pa.LAUNCHES} launches outside the graphs"
+    finally:
+        a.stop()
+        b.stop()
+    st_a, st_b = a.stats(), b.stats()
+    assert reply["tokens"] == cold, (reply["tokens"], cold)
+    assert (st_b["kv_migrate_chains"], st_b["kv_migrate_blocks"], st_b["kv_migrate_failures"]) \
+        == (1, n_blocks, 0), st_b
+    assert st_a["kv_export_chains"] == 1, st_a
+    assert [st_a["graph_captures"], st_b["graph_captures"]] == warm
+    assert st_a["requests_failed"] == st_b["requests_failed"] == 0
+    for ba, bb in zip(chain_blocks(a, waves[0], n_blocks), chain_blocks(b, waves[3], n_blocks)):
+        for key in ("k", "v", "k_scale", "v_scale"):
+            assert torch.equal(a.pool[key][:, ba], b.pool[key][:, bb]), (key, ba, bb)
+    return {"envelope_bytes": st_b["kv_migrate_bytes"], "migrate_s": st_b["kv_migrate_s"],
+            "generate_round_trip_s": seconds, "blocks": st_b["kv_migrate_blocks"],
+            "restore_hits": st_b["kv_restore_hits"],
+            "launches": st_a["paged_decode_launches"] + st_b["paged_decode_launches"]}
+
+
+def phase_kv_tier(params, dev, card, tie_bound, cfg=tfm.LLAMA2_7B, sizes=KV_TIER,
+                  model: str = "llama2-7b") -> dict:
+    """The host KV tier at full width: the four waves on a bf16 pool and
+    an int8 pool, each with the tier on and off on fresh engines
+    (prewarmed; the restored chain decodes through the paged-decode
+    kernel's graph replays), then the migration leg between two servers."""
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    waves = kv_tier_waves(cfg, sizes)
+    out = {"phase": "kv_tier", "model": model, "card": card,
+           "engine": {k: v for k, v in sizes.items() if k not in ("shared", "distinct", "tail")},
+           "waves": [len(w) for w in waves], "new_tokens": sizes["new_tokens"],
+           "near_tie_bound": tie_bound}
+    for kv_dtype in (None, "int8"):
+        line, cold = kv_pool_run(params, cfg, dev, sizes, waves, kv_dtype, tie_bound)
+        out[line["kv_pool"]] = line
+    # the int8 pool's tier-off wave 4 is the cold run the migration matches
+    out["migration"] = kv_migration_run(params, cfg, dev, sizes, waves, cold, model)
+    if dev.type == "cuda":
+        group = out["bf16"]["device"]["group_bytes"]
+        out["pinned_copy"] = pinned_copy_gbps(group, dev)
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["seconds"] = time.monotonic() - t0
+    return out
 
 
 # -- training path ------------------------------------------------------------
@@ -1607,6 +1907,8 @@ def main() -> int:
     emit(phase_engine_variants(params, dev, card, results, prefix_results))
     int8_line = phase_engine_int8(params, dev, card)
     emit(int8_line)
+    kv_line = phase_kv_tier(params, dev, card, engine_line["near_tie_bound"])
+    emit(kv_line)
 
     kernels = []
     for variant, line in (("bf16", engine_line), ("int8", int8_line)):
@@ -1614,7 +1916,9 @@ def main() -> int:
         pool = "float" if variant == "bf16" else "int8"
         # the speculative path's pool is bf16: its decode steps and its
         # [B*K] verification blocks
-        by_path = {"serving": line["launches"]}
+        by_path = {"serving": line["launches"], "kv_tier": kv_line[variant]["launches"]}
+        if variant == "int8":
+            by_path["kv_migration"] = kv_line["migration"]["launches"]
         err_by_path = {"serving": max(errs[f"mha/bfloat16/{pool}"], errs[f"gqa/bfloat16/{pool}"])}
         if variant == "bf16":
             by_path["speculative"] = spec_line["spec"]["paged_decode_launches"]

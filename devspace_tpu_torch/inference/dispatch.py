@@ -41,6 +41,12 @@ loop is built around it:
   until every in-flight chunk referencing it has drained, so in-flight
   writes land in its own blocks, never a peer's.
 
+- **Host-tier restores**: the engine's restores (``_restore_spilled``)
+  queue their uploads and scatters on the same stream as the window's
+  replays, behind the in-flight chunks, and run while the host drains
+  tokens; ``note_restores`` counts the blocks restored and those that
+  found chunks in flight (``kv_restores``, ``kv_restores_overlapped``).
+
 - **Failure**: ``abandon()`` drops the whole window without reading it
   (the engine fails every slot-resident request and zeroes the pool) and
   marks every carry row dirty; the carry tensors themselves stay, since
@@ -162,6 +168,8 @@ class DecodeDispatcher:
         self.occupancy_sum = 0  # window depth summed at each dispatch
         self.readback_wait_s = 0.0  # host time blocked on token readback
         self.loop_busy_s = 0.0  # scheduler-iteration time (the engine adds)
+        self.kv_restores = 0  # blocks restored from the host tier
+        self.kv_restores_overlapped = 0  # of those, restored behind in-flight chunks
 
     # -- carry -------------------------------------------------------------
     def invalidate_state(self, i: int) -> None:
@@ -216,6 +224,14 @@ class DecodeDispatcher:
     @property
     def full(self) -> bool:
         return len(self.window) >= self.depth
+
+    def note_restores(self, n: int, overlapped: bool) -> None:
+        """The engine restored ``n`` spilled KV blocks; ``overlapped`` when
+        the window held in-flight chunks then, so the restore's device
+        work queued behind them while the host went on draining."""
+        self.kv_restores += n
+        if overlapped:
+            self.kv_restores_overlapped += n
 
     def slot_busy(self, i: int) -> bool:
         """True while in-flight chunks still reference slot i: a finished
@@ -314,6 +330,8 @@ class DecodeDispatcher:
             "readback_wait_s": round(self.readback_wait_s, 4),
             "host_sched_s": round(max(0.0, self.loop_busy_s - self.readback_wait_s), 4),
             "carry_updates": self.carry_updates,
+            "kv_restores": self.kv_restores,
+            "kv_restores_overlapped": self.kv_restores_overlapped,
         }
 
 

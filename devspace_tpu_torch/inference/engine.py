@@ -3,11 +3,10 @@
 Counterpart of ``devspace_tpu/inference/engine.py`` at that engine's
 serving defaults: the radix prefix cache on, the overlapped dispatch
 window at depth 2, every decode chunk and speculative round one program
-built ahead of traffic by ``prewarm()``. Two of its options wait for
-later slices: the host KV tier (``kv_tier``, off by default there; with
-it go KV migration and the publishing of a preempted slot's chain) and
-the telemetry views (``metrics``: the registry, request traces, the
-timeline), as do its tensor-parallel ``mesh``.
+built ahead of traffic by ``prewarm()``; and with its host KV tier
+(``kv_tier``, off by default), KV chain migration between replicas. The
+telemetry views (``metrics``: the registry, request traces, the
+timeline) wait for a later slice, as does the tensor-parallel ``mesh``.
 
 - **Paged KV cache** (vLLM-style): K/V live in a block pool
   ``[layers, n_blocks, kv_heads, block_size, head_dim]`` with per-slot
@@ -23,6 +22,23 @@ timeline), as do its tensor-parallel ``mesh``.
   the same blocks (refcounted) and its prefill starts at the first
   uncached position. Freed published blocks stay as an LRU cache until
   the allocator needs them. A hit changes table entries only.
+- **Host KV tier** (``kv_tier="host"`` or ``"host+disk"``, or
+  ``DEVSPACE_KV_TIER``; ``inference/kv_tier.py``): an evicted chain
+  spills device->host as int8 payloads (quantized on the device for a
+  float pool) instead of vanishing, and a radix match on a spilled chain
+  restores it host->device (dequantized on the device for a float pool,
+  verbatim into an int8 pool) instead of recomputing its prefill. A miss
+  or a corrupt payload falls back to recompute. Gathers and scatters run
+  in groups of ``_RESTORE_BATCH`` blocks over a padded index tensor, in
+  place in the pool and on the stream the graphs replay on, so they
+  queue behind the in-flight window; uploads go through pinned memory
+  and spill readbacks land in pinned buffers waited on by event.
+- **KV migration** (with a tier): ``submit(kv_source=url)`` marks the
+  prompt's uncovered blocks remote, and the restore path pulls their
+  KVM1 envelope from that replica's ``GET /kv/chain/<digest>``
+  (``export_kv_chain``) before restoring them; any failure falls back to
+  recompute. A preempted slot's written blocks are published, so its
+  resume can restore them.
 - **Chunked prefill, interleaved**: prompts prefill in bounded chunks
   (``prefill_chunk`` tokens, power-of-two final chunks), one chunk per
   scheduler iteration between decode chunks, so co-resident decodes keep
@@ -59,7 +75,9 @@ from __future__ import annotations
 
 import logging
 import math
+import os
 import queue
+import tempfile
 import threading
 import time
 from dataclasses import dataclass, field
@@ -71,8 +89,18 @@ import torch
 
 from ..device import resolve_device
 from ..models import transformer as tfm
+from ..ops.paged_attention import dequantize_kv, quantize_kv
 from .dispatch import DecodeDispatcher, resolve_dispatch_depth, upload
 from .graphs import ProgramTable
+from .kv_tier import (
+    HostKVTier,
+    KVMigrationClient,
+    import_chain,
+    pack_chain_envelope,
+    pack_kv_payload,
+    resolve_kv_tier,
+    unpack_kv_payload,
+)
 from .prefix_cache import RadixPrefixCache
 from .sampling import sample_tokens
 from .speculative import _draft_propose, _draft_propose_sampled, spec_accept_commit
@@ -82,6 +110,11 @@ log = logging.getLogger(__name__)
 # a program's sampling mode: every active row greedy; some row sampled
 # with temperature only; some row also with top-k/top-p
 MODES = ("greedy", "sampled", "filters")
+
+
+# blocks per host-tier gather/scatter: a fixed group over an index tensor
+# padded with scratch block 0
+_RESTORE_BATCH = 16
 
 
 def sampling_mode(sampling: bool, filters: bool) -> str:
@@ -111,6 +144,11 @@ class Request:
     # slices to this length; ``tokens`` itself is never shrunk because a
     # stream() consumer in another thread may be mid-iteration over it
     result_len: Optional[int] = None
+    # base URL of a replica that holds this prompt's prefilled KV chain:
+    # at admission the uncovered prompt blocks are marked remote and the
+    # restore path pulls their envelope from there (any failure falls back
+    # to recompute-prefill). Ignored without a host KV tier.
+    kv_source: Optional[str] = None
     # filled by the engine
     tokens: list[int] = field(default_factory=list)
     done: threading.Event = field(default_factory=threading.Event)
@@ -192,6 +230,13 @@ class InferenceEngine:
     streams are the same at every depth. ``prewarm=True`` runs
     :meth:`prewarm` in ``start()``.
 
+    ``kv_tier`` (``"off"``, ``"host"`` or ``"host+disk"``; ``None`` reads
+    ``DEVSPACE_KV_TIER``, default off) keeps evicted prefix chains in a
+    host tier of ``kv_tier_bytes`` (overflowing to files under
+    ``kv_tier_dir`` with the disk level) and restores them on a match; it
+    needs the prefix cache and is off without it. Restores are exact on
+    an int8 pool and carry int8 noise on a float pool.
+
     ``draft_params``/``draft_cfg`` turn on speculative decoding: slots
     whose draft cache is seeded, that use no ``logit_bias``, are past
     their ``min_new_tokens`` and are far enough from max_len ride a
@@ -231,6 +276,9 @@ class InferenceEngine:
         prefix_cache: bool = True,
         prewarm: bool = False,
         dispatch_depth: Optional[int] = None,
+        kv_tier: Optional[str] = None,
+        kv_tier_bytes: int = 256 << 20,
+        kv_tier_dir: Optional[str] = None,
     ):
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
@@ -300,10 +348,48 @@ class InferenceEngine:
         self._tables = np.zeros((self.max_slots, self.max_blocks), np.int32)
         self._nalloc = [0] * self.max_slots
         self.prefix_cache_enabled = bool(prefix_cache)
-        self._prefix_cache = RadixPrefixCache()
+        # the host KV tier (inference/kv_tier.py): None when off, and every
+        # tier path below is gated on it
+        self.kv_tier_mode = resolve_kv_tier(kv_tier)
+        self._kv_tier: Optional[HostKVTier] = None
+        # the tier's pinned staging (``_staging``) and the event of the last
+        # restore's upload from it
+        self._stage: Optional[list[torch.Tensor]] = None
+        self._stage_uploaded: Optional[torch.cuda.Event] = None
+        if self.kv_tier_mode != "off" and self.prefix_cache_enabled:
+            disk_dir = None
+            if self.kv_tier_mode == "host+disk":
+                disk_dir = kv_tier_dir or os.path.join(
+                    tempfile.gettempdir(), f"devspace-kv-tier-{os.getpid()}")
+            self._kv_tier = HostKVTier(max_bytes=kv_tier_bytes, disk_dir=disk_dir)
+            self._kv_tier.on_evict = self._on_tier_evict
+        else:
+            # a tier without the prefix cache has nothing to spill
+            self.kv_tier_mode = "off"
+        self._prefix_cache = RadixPrefixCache(track_digests=self._kv_tier is not None)
         self._block_refs: dict[int, int] = {}  # blk -> table references
         self.prefix_hit_blocks = 0
         self.prefix_hit_tokens = 0
+        self.recompute_tokens_saved = 0
+        self.kv_spill_blocks = 0
+        self.kv_spill_bytes = 0
+        self.kv_restore_hits = 0
+        self.kv_restore_fallbacks = 0
+        # host clock inside spills, restores and migration pulls (a
+        # restore's includes its pull)
+        self.kv_spill_s = 0.0
+        self.kv_restore_s = 0.0
+        self.kv_migrate_s = 0.0
+        self.kv_migrate_chains = 0
+        self.kv_migrate_blocks = 0
+        self.kv_migrate_bytes = 0
+        self.kv_migrate_failures = 0
+        self.kv_export_chains = 0
+        self._kv_client: Optional[KVMigrationClient] = None  # lazy; tests inject one
+        # /kv/chain handler threads post (digest, box) here; the scheduler
+        # thread, the only one that may read the pool, cache and tier,
+        # serves them between iterations
+        self._kv_export_requests: queue.Queue = queue.Queue()
         self.slots = [_Slot() for _ in range(self.max_slots)]
         self.pending: queue.Queue[Request] = queue.Queue()
         self._resume: list[Request] = []  # preempted, re-admit first
@@ -360,6 +446,7 @@ class InferenceEngine:
         stop: Optional[list[list[int]]] = None,
         min_new_tokens: int = 0,
         logit_bias: Optional[dict[int, float]] = None,
+        kv_source: Optional[str] = None,
     ) -> Request:
         if not prompt_ids:
             raise ValueError("empty prompt")
@@ -399,6 +486,7 @@ class InferenceEngine:
             stop=stop,
             min_new_tokens=int(min_new_tokens),
             logit_bias=logit_bias,
+            kv_source=kv_source,
             submitted_at=time.monotonic(),
         )
         with self._submit_lock:
@@ -421,9 +509,12 @@ class InferenceEngine:
         once) with all rows parked, so their writes land in scratch block
         0 and the draft cache's scratch tail, and run each prefill bucket
         and each draft-prefill bucket once eagerly over scratch (block 0,
-        draft row 0). Afterwards ``stats()["graph_captures"]`` stays flat
-        whatever the traffic. Returns ``{program_name: seconds}``; raises
-        on a running engine (the scheduler thread owns the buffers)."""
+        draft row 0); with a host KV tier, one restore group of zeros into
+        scratch block 0 and one spill gather of it, which also allocate
+        the tier's pinned staging set. Afterwards ``stats()["graph_captures"]``
+        stays flat whatever the traffic. Returns ``{program_name:
+        seconds}``; raises on a running engine (the scheduler thread owns
+        the buffers)."""
         if self._thread is not None and self._thread.is_alive():
             raise RuntimeError("prewarm() must run before start()")
         timings: dict[str, float] = {}
@@ -453,6 +544,14 @@ class InferenceEngine:
             self._dispatcher.active.zero_()
             for key in self._programs.keys():
                 timed("_".join(map(str, key)), partial(self._programs.build, key))
+            if self._kv_tier is not None:
+                R = _RESTORE_BATCH
+                L, Hkv, D = self.cfg.n_layers, self.cfg.n_kv_heads, self.cfg.head_dim
+                zq = np.zeros((L, Hkv, self.block_size, D), np.int8)
+                zs = np.zeros((L, Hkv, self.block_size), np.float32)
+                timed("kv_restore_scatter", partial(
+                    self._restore_group, [0] * R, [(zq, zs, zq, zs)] * R))
+                timed("kv_spill_gather", partial(self._gather_blocks, [0] * R))
         return timings
 
     def stop(self) -> None:
@@ -466,6 +565,7 @@ class InferenceEngine:
 
     def stats(self) -> dict:
         """Serving counters: requests, tokens, slots, pool, prefix cache,
+        the host KV tier and KV migration (all zero with the tier off),
         queue depth, uptime, mean tokens/sec, the dispatch window's
         (``inference/dispatch.py``), decode steps, programs built and
         paged-decode launches made by replays, and the speculative rounds,
@@ -486,6 +586,28 @@ class InferenceEngine:
             "prefix_cached_blocks": len(self._prefix_cache),
             "prefix_hit_blocks": self.prefix_hit_blocks,
             "prefix_hit_tokens": self.prefix_hit_tokens,
+            "recompute_tokens_saved": self.recompute_tokens_saved,
+            "kv_tier": self.kv_tier_mode,
+            "kv_spill_blocks": self.kv_spill_blocks,
+            "kv_spill_bytes": self.kv_spill_bytes,
+            "kv_spill_s": round(self.kv_spill_s, 4),
+            "kv_restore_hits": self.kv_restore_hits,
+            "kv_restore_fallbacks": self.kv_restore_fallbacks,
+            "kv_restore_hit_rate": (
+                round(self.kv_restore_hits / (self.kv_restore_hits + self.kv_restore_fallbacks), 4)
+                if self.kv_restore_hits + self.kv_restore_fallbacks else 0.0
+            ),
+            "kv_restore_s": round(self.kv_restore_s, 4),
+            "kv_tier_resident_bytes": self._kv_tier.resident_bytes if self._kv_tier else 0,
+            "kv_tier_entries": len(self._kv_tier) if self._kv_tier else 0,
+            "kv_tier_spilled_nodes": self._prefix_cache.spilled_count(),
+            "kv_tier_remote_nodes": self._prefix_cache.remote_count(),
+            "kv_migrate_chains": self.kv_migrate_chains,
+            "kv_migrate_blocks": self.kv_migrate_blocks,
+            "kv_migrate_bytes": self.kv_migrate_bytes,
+            "kv_migrate_failures": self.kv_migrate_failures,
+            "kv_migrate_s": round(self.kv_migrate_s, 4),
+            "kv_export_chains": self.kv_export_chains,
             "queued": self.pending.qsize() + len(self._resume),
             "uptime_s": round(uptime, 1),
             "tokens_per_sec": round(self.tokens_generated / uptime, 2) if uptime > 0 else 0.0,
@@ -516,10 +638,22 @@ class InferenceEngine:
         the least-recently-matched unreferenced cache entry (the cache
         unpublishes the victim's subtree: unreferenced descendants return
         to the free list now, referenced ones are freed on release).
-        Callers check availability (free + evictable) first."""
+        Callers check availability (free + evictable) first. With a host
+        KV tier the evicted chain is spilled first (``_spill_blocks``)."""
         if self._free_blocks:
             return self._free_blocks.pop()
-        blk, freed = self._prefix_cache.pop_victim()
+        if self._kv_tier is not None:
+            # tiered eviction: the victim chain spills to the host tier and
+            # its nodes stay matchable; spilled nodes orphaned by a broken
+            # ancestor chain drop their payloads
+            spill: list = []
+            dropped: list = []
+            blk, freed = self._prefix_cache.pop_victim(collect_spill=spill, dropped=dropped)
+            self._spill_blocks(spill)
+            for d in dropped:
+                self._kv_tier.discard(d)
+        else:
+            blk, freed = self._prefix_cache.pop_victim()
         # an evicted chain's blocks carry no table reference: the cache
         # mirrors _block_refs and frees only ref-0 nodes
         for b in (*freed, blk):
@@ -558,22 +692,6 @@ class InferenceEngine:
         self._nalloc[slot_idx] = 0
         self._dispatcher.invalidate_table(slot_idx)
 
-    def _match_prefix(self, prompt: list[int]) -> list[int]:
-        """The longest run of cached full prompt blocks, capped so that at
-        least one prompt token is left to prefill (its logits sample the
-        first generated token)."""
-        if not self.prefix_cache_enabled:
-            return []
-        matched = []
-        bs = self.block_size
-        cur = self._prefix_cache.cursor()
-        for i in range((len(prompt) - 1) // bs):
-            blk = cur.step(tuple(prompt[i * bs: (i + 1) * bs]))
-            if blk is None:
-                break
-            matched.append(blk)
-        return matched
-
     def _publish_prefix_blocks(self, slot_idx: int) -> None:
         """Make the slot's fully written full prompt blocks matchable
         (after each prefill chunk: a block's K/V is final once prefill has
@@ -587,6 +705,338 @@ class InferenceEngine:
             blk = int(self._tables[slot_idx, i])
             cur.publish(tuple(slot.prompt[i * bs: (i + 1) * bs]), blk, self._block_refs.get(blk, 0))
 
+    # -- host KV tier (inference/kv_tier.py) ------------------------------
+    @torch.no_grad()
+    def _gather_chain(self, idx: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """The spill's device program: the blocks named by ``idx`` [R]
+        (an index tensor, padded with scratch block 0) gathered from the
+        pool as int8 K/V ``[L, R, Hkv, bs, D]`` and f32 scales ``[L, R,
+        Hkv, bs]``. A float pool is quantized here, on the device, with
+        ``quantize_kv``'s amax/127 round-half-even convention (that of
+        ``quantization.quantize_kv_block``); an int8 pool's blocks and
+        scales are taken verbatim."""
+        k = self.pool["k"].index_select(1, idx)
+        v = self.pool["v"].index_select(1, idx)
+        if "k_scale" in self.pool:
+            return (k, self.pool["k_scale"].index_select(1, idx),
+                    v, self.pool["v_scale"].index_select(1, idx))
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        return kq, ks, vq, vs
+
+    @torch.no_grad()
+    def _restore_chain(self, idx: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
+                       vq: torch.Tensor, vs: torch.Tensor) -> None:
+        """The restore's device program: payloads ``[L, R, ...]`` written
+        into the pool blocks named by ``idx`` [R], IN PLACE (the captured
+        graphs hold the pool's addresses, so the pool is never rebound).
+        A float pool dequantizes here, on the device; an int8 pool takes
+        q and the scales verbatim, so its restores are exact."""
+        if "k_scale" in self.pool:
+            self.pool["k"].index_copy_(1, idx, kq)
+            self.pool["v"].index_copy_(1, idx, vq)
+            self.pool["k_scale"].index_copy_(1, idx, ks)
+            self.pool["v_scale"].index_copy_(1, idx, vs)
+            return
+        dtype = self.pool["k"].dtype
+        self.pool["k"].index_copy_(1, idx, dequantize_kv(kq, ks, dtype))
+        self.pool["v"].index_copy_(1, idx, dequantize_kv(vq, vs, dtype))
+
+    def _block_index(self, blks: list[int]) -> torch.Tensor:
+        """``blks`` padded to ``_RESTORE_BATCH`` with scratch block 0, as a
+        device index tensor (never a Python int in a program)."""
+        return upload(np.array(blks + [0] * (_RESTORE_BATCH - len(blks)), np.int64), self.device)
+
+    def _staging(self) -> list[torch.Tensor]:
+        """The engine's one host staging set for a ``_RESTORE_BATCH`` group,
+        block-major (``[R, L, Hkv, bs, D]`` int8 K and V, ``[R, L, Hkv,
+        bs]`` f32 scales, in the order kq, ks, vq, vs) so each block's
+        payload is one contiguous run; pinned on the card. Allocated once
+        (``prewarm`` does it), so no spill or restore pays a pinned
+        allocation. Waits for the last restore's upload from it first:
+        the host may rewrite it only once that copy has run."""
+        if self._stage is None:
+            L, Hkv, D = self.cfg.n_layers, self.cfg.n_kv_heads, self.cfg.head_dim
+            q = (_RESTORE_BATCH, L, Hkv, self.block_size, D)
+            self._stage = [torch.empty(shape, dtype=dtype, pin_memory=self.device.type == "cuda")
+                           for shape, dtype in ((q, torch.int8), (q[:-1], torch.float32)) * 2]
+        if self._stage_uploaded is not None:
+            self._stage_uploaded.synchronize()
+            self._stage_uploaded = None
+        return self._stage
+
+    @torch.no_grad()
+    def _gather_blocks(self, blks: list[int]) -> list[np.ndarray]:
+        """Up to ``_RESTORE_BATCH`` pool blocks -> host int8 K/V and f32
+        scales, block-major, as views of the staging set (valid until the
+        next spill or restore). The gather (and for a float pool the
+        quantization) and the copy into pinned memory queue on the current
+        stream, behind every in-flight decode chunk; the readback is
+        waited on by event."""
+        n = len(blks)
+        stage = self._staging()
+        for h, t in zip(stage, self._gather_chain(self._block_index(blks))):
+            h[:n].copy_(t.narrow(1, 0, n).movedim(1, 0), non_blocking=True)
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
+        return [h[:n].numpy() for h in stage]
+
+    @torch.no_grad()
+    def _restore_group(self, blks: list[int], group: list[tuple]) -> None:
+        """Scatter up to ``_RESTORE_BATCH`` unpacked payloads ``(kq, ks,
+        vq, vs)`` into pool blocks ``blks`` in place: staged block-major in
+        the pinned set, uploaded without blocking, laid out as
+        ``_restore_chain``'s ``[L, R, ...]`` operands with zero lanes aimed
+        at scratch block 0, all on the current stream, so the restore
+        queues behind the in-flight window."""
+        n = len(blks)
+        parts = []
+        for j, h in enumerate(self._staging()):
+            view = h.numpy()
+            for b, payload in enumerate(group):
+                view[b] = payload[j]
+            t = torch.zeros((h.shape[1], _RESTORE_BATCH) + tuple(h.shape[2:]), dtype=h.dtype,
+                            device=self.device)
+            t.narrow(1, 0, n).copy_(h[:n].to(self.device, non_blocking=True).movedim(0, 1))
+            parts.append(t)
+        if self.device.type == "cuda":
+            self._stage_uploaded = torch.cuda.Event()
+            self._stage_uploaded.record()
+        self._restore_chain(self._block_index(blks), *parts)
+
+    def _spill_blocks(self, items: list) -> None:
+        """Copy evicted ``(digest, blk)`` blocks device->host into the tier
+        before the caller recycles them, ``_RESTORE_BATCH`` blocks a group.
+        The gather queues behind every in-flight chunk (published ref-0
+        blocks are never their target anyway), so the copy never sees a
+        half-written block. A device error raises."""
+        if not items:
+            return
+        t0 = time.monotonic()
+        spilled = 0
+        R = _RESTORE_BATCH
+        for lo in range(0, len(items), R):
+            group = items[lo: lo + R]
+            kq, ks, vq, vs = self._gather_blocks([blk for _, blk in group])
+            for n, (digest, _) in enumerate(group):
+                payload = pack_kv_payload(kq[n], ks[n], vq[n], vs[n])
+                self._kv_tier.put(digest, payload)
+                self.kv_spill_blocks += 1
+                self.kv_spill_bytes += len(payload)
+                spilled += len(payload)
+        self.kv_spill_s += time.monotonic() - t0
+        log.debug("kv tier: spilled %d blocks, %d bytes", len(items), spilled)
+
+    def _on_tier_evict(self, digest: str) -> None:
+        """The tier aged out or lost a payload: prune the matching spilled
+        radix node (and its subtree's payloads) so no match promises a
+        restore the tier cannot honour."""
+        dropped, freed = self._prefix_cache.drop_spilled(digest)
+        self._free_blocks.extend(freed)
+        for d in dropped:
+            self._kv_tier.discard(d)
+
+    def _match_prefix(self, prompt: list[int]) -> tuple[list[int], list[str]]:
+        """The longest run of cached full prompt blocks, capped so that at
+        least one prompt token is left to prefill (its logits sample the
+        first generated token), walking THROUGH spilled nodes: the
+        resident block ids, then the digests of the spilled (or remote)
+        chain that extends them. With the tier off the tree holds no
+        spilled node, so the second list is empty. A resident node never
+        sits below a spilled one (restores revive top-down), and the walk
+        stops at the first gap."""
+        matched: list[int] = []
+        spilled: list[str] = []
+        if not self.prefix_cache_enabled:
+            return matched, spilled
+        bs = self.block_size
+        cur = self._prefix_cache.cursor()
+        for i in range((len(prompt) - 1) // bs):
+            step = cur.step_tiered(tuple(prompt[i * bs: (i + 1) * bs]))
+            if step is None:
+                break
+            kind, val = step
+            if kind == "res":
+                if spilled:  # defensive: see the docstring
+                    break
+                matched.append(val)
+            else:
+                spilled.append(val)
+        return matched, spilled
+
+    def _restore_spilled(self, slot_idx: int, prompt: list[int], base: int,
+                         spilled: list[str]) -> int:
+        """Restore the spilled chain ``spilled`` that extends the slot's
+        ``base`` resident matched blocks; returns the blocks restored.
+
+        0. A remote run is pulled from its source replica and imported
+           into the tier first (``_migrate_remote``); a failed pull leaves
+           its nodes remote, so their reads below miss.
+        1. Every payload is read and validated BEFORE any block is popped
+           (our own pops could otherwise evict a payload still needed).
+           The first miss or corrupt payload prunes its node and subtree,
+           and the rest of the prompt is recomputed.
+        2. Fresh blocks are popped and the payloads scattered into them,
+           ``_RESTORE_BATCH`` a group.
+        3. The radix nodes are revived with the new blocks and the slot's
+           table is wired.
+        ``_admit`` checked the block budget: each restore pops one block
+        of the ``need`` it counted."""
+        bs = self.block_size
+        t0 = time.monotonic()
+        overlapped = self._dispatcher.in_flight > 0
+        remote = [d for d in spilled if self._prefix_cache.remote_source(d) is not None]
+        if remote:
+            self._migrate_remote(slot_idx, remote)
+        chain = []
+        for digest in spilled:
+            try:
+                payload = self._kv_tier.get(digest)
+                parsed = unpack_kv_payload(payload) if payload is not None else None
+            except Exception:  # noqa: BLE001 — any host-tier fault => recompute
+                parsed = None
+            if parsed is None:
+                self.kv_restore_fallbacks += 1
+                dropped, freed = self._prefix_cache.drop_spilled(digest)
+                self._free_blocks.extend(freed)
+                self._kv_tier.discard(digest)
+                for d in dropped:
+                    self._kv_tier.discard(d)
+                log.warning("kv tier: restore fell back to recompute at digest %s "
+                            "(slot %d, %d nodes pruned)", digest[:16], slot_idx, len(dropped))
+                break
+            chain.append(parsed)
+        if not chain:
+            self.kv_restore_s += time.monotonic() - t0
+            return 0
+        blks = [self._pop_block() for _ in chain]
+        try:
+            for lo in range(0, len(chain), _RESTORE_BATCH):
+                self._restore_group(blks[lo: lo + _RESTORE_BATCH],
+                                    chain[lo: lo + _RESTORE_BATCH])
+        except Exception:
+            self._free_blocks.extend(blks)  # their nodes stay spilled
+            raise
+        cur = self._prefix_cache.cursor()
+        for i in range(base):
+            # descend the resident prefix; publish on an existing node does
+            # not touch its LRU stamp again
+            cur.publish(tuple(prompt[i * bs: (i + 1) * bs]), int(self._tables[slot_idx, i]), 0)
+        for n, blk in enumerate(blks):
+            i = base + n
+            self._block_refs[blk] = 1
+            self._tables[slot_idx, i] = blk
+            self._nalloc[slot_idx] += 1
+            got = cur.publish(tuple(prompt[i * bs: (i + 1) * bs]), blk, 1)
+            assert got == blk, "restore revived a node another block holds"
+            self.kv_restore_hits += 1
+        self._dispatcher.note_restores(len(blks), overlapped)
+        self._dispatcher.invalidate_table(slot_idx)
+        self.kv_restore_s += time.monotonic() - t0
+        return len(blks)
+
+    # -- KV migration -------------------------------------------------------
+    def _mark_remote_chain(self, prompt: list[int], source: str) -> None:
+        """Record that every full prompt block the radix tree does not
+        cover is fetchable from ``source`` (remote nodes past the
+        frontier; resident and spilled nodes are descended untouched)."""
+        bs = self.block_size
+        cur = self._prefix_cache.cursor()
+        for i in range((len(prompt) - 1) // bs):
+            cur.publish_remote(tuple(prompt[i * bs: (i + 1) * bs]), source)
+
+    def _migrate_client(self) -> KVMigrationClient:
+        if self._kv_client is None:
+            self._kv_client = KVMigrationClient()
+        return self._kv_client
+
+    def _migrate_remote(self, slot_idx: int, remote: list[str]) -> None:
+        """Pull the envelope of a remote run (one pull, addressed by its
+        leaf) into the tier, promoting the covered gap-free prefix of its
+        nodes remote -> spilled. A failure leaves them remote, so the
+        caller's reads miss and recompute. Never raises."""
+        source = self._prefix_cache.remote_source(remote[0])
+        t0 = time.monotonic()
+        try:
+            envelope = self._migrate_client().fetch(source, remote[-1])
+            imported = set(import_chain(self._kv_tier, envelope))
+        except Exception as e:  # noqa: BLE001 — any fault => recompute
+            self.kv_migrate_s += time.monotonic() - t0
+            self.kv_migrate_failures += 1
+            log.warning("kv migration from %s failed (slot %d, %d blocks): %s",
+                        source, slot_idx, len(remote), type(e).__name__)
+            return
+        promoted = 0
+        for d in remote:
+            # past a gap a node is unrestorable (its ancestors miss first)
+            if d in imported and self._prefix_cache.promote_remote(d):
+                promoted += 1
+            else:
+                break
+        self.kv_migrate_s += time.monotonic() - t0
+        self.kv_migrate_chains += 1
+        self.kv_migrate_blocks += promoted
+        self.kv_migrate_bytes += len(envelope)
+
+    def export_kv_chain(self, digest: str, timeout: float = 5.0) -> Optional[bytes]:
+        """The KVM1 envelope of the root->leaf chain ``digest`` names, for a
+        peer's migration pull (the server's ``GET /kv/chain/<digest>``).
+        Thread-safe: the request goes through a mailbox to the scheduler
+        thread, the only one that may read the pool, cache and tier; with
+        no scheduler running it is served inline. None for an unknown
+        digest, with the tier off, or on timeout."""
+        if self._kv_tier is None:
+            return None
+        if self._thread is not None and self._thread.is_alive():
+            box: dict = {"done": threading.Event(), "envelope": None}
+            self._kv_export_requests.put((digest, box))
+            if not box["done"].wait(timeout):
+                return None
+            return box["envelope"]
+        return self._serve_kv_export(digest)
+
+    def _service_kv_exports(self) -> None:
+        """Drain the export mailbox (scheduler thread, between iterations)."""
+        while True:
+            try:
+                digest, box = self._kv_export_requests.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                box["envelope"] = self._serve_kv_export(digest)
+            except Exception:  # noqa: BLE001 — a failed export is a 404
+                log.exception("kv chain export failed")
+                box["envelope"] = None
+            finally:
+                box["done"].set()
+
+    def _serve_kv_export(self, digest: str) -> Optional[bytes]:
+        """Build the envelope: resident blocks gathered device->host as a
+        spill gathers them, spilled ones read from the tier; the longest
+        gap-free prefix of the chain is served."""
+        chain = self._prefix_cache.chain_to(digest)
+        if not chain:
+            return None
+        resident = [(d, blk) for d, blk in chain if blk >= 0]
+        payloads: dict[str, bytes] = {}
+        for lo in range(0, len(resident), _RESTORE_BATCH):
+            group = resident[lo: lo + _RESTORE_BATCH]
+            kq, ks, vq, vs = self._gather_blocks([blk for _, blk in group])
+            for n, (d, _) in enumerate(group):
+                payloads[d] = pack_kv_payload(kq[n], ks[n], vq[n], vs[n])
+        blocks = []
+        for d, blk in chain:
+            payload = payloads.get(d) if blk >= 0 else self._kv_tier.get(d)
+            if payload is None:
+                break  # a gap: nothing below it is restorable
+            blocks.append((d, payload))
+        if not blocks:
+            return None
+        self.kv_export_chains += 1
+        return pack_chain_envelope(blocks)
+
     def _reset_pool(self) -> None:
         """Zeroed pool and fresh allocator state after a failed dispatch.
         In place: the graphs hold the pool's addresses. The prefix cache
@@ -598,6 +1048,10 @@ class InferenceEngine:
         self._tables[:] = 0
         self._nalloc = [0] * self.max_slots
         self._prefix_cache.reset()
+        if self._kv_tier is not None:
+            # payloads are content-addressed, but the radix nodes that map
+            # digests to matches died with the cache
+            self._kv_tier.clear()
         self._block_refs.clear()
 
     # -- scheduler ---------------------------------------------------------
@@ -670,10 +1124,21 @@ class InferenceEngine:
     def _admit(self, slot_idx: int, req: Request) -> bool:
         """Assign a slot, reference the cached prefix and allocate blocks
         for the rest of the prompt (prefill runs chunk by chunk in the
-        scheduler loop, from the first uncached position). False, leaving
-        the request queued, when the pool cannot hold the prompt now."""
+        scheduler loop, from the first uncached position). With a host KV
+        tier the spilled (or, with ``kv_source``, remote) extension of the
+        match is restored first. False, leaving the request queued, when
+        the pool cannot hold the prompt now."""
         prompt = req.prompt_ids + req.tokens  # tokens: preempted resume
-        matched = self._match_prefix(prompt)
+        matched, spilled = self._match_prefix(prompt)
+        # a kv_source promises the uncovered prompt blocks at a peer: mark
+        # them remote so the restore path pulls their envelope
+        if self._kv_tier is not None and req.kv_source and (
+            len(matched) + len(spilled) < (len(prompt) - 1) // self.block_size
+        ):
+            self._mark_remote_chain(prompt, req.kv_source)
+            matched, spilled = self._match_prefix(prompt)
+        # spilled blocks are not subtracted: each restore pops a fresh
+        # block of this budget
         need = math.ceil(len(prompt) / self.block_size) - len(matched)
         # the matched blocks themselves are not evictable for the pops below
         if need > len(self._free_blocks) + self._prefix_cache.evictable_excluding(matched):
@@ -684,15 +1149,20 @@ class InferenceEngine:
             self._prefix_cache.ref(blk)
             self._tables[slot_idx, i] = blk
         self._nalloc[slot_idx] = len(matched)
+        # then the restored blocks (referenced, so the private pops below
+        # cannot evict them either)
+        restored = self._restore_spilled(slot_idx, prompt, len(matched), spilled) if spilled else 0
         ok = self._alloc(slot_idx, len(prompt))  # >= 1 block: invalidates the table row
         assert ok, "availability was checked above"
-        self.prefix_hit_blocks += len(matched)
-        self.prefix_hit_tokens += len(matched) * self.block_size
+        hit = len(matched) + restored
+        self.prefix_hit_blocks += hit
+        self.prefix_hit_tokens += hit * self.block_size
+        self.recompute_tokens_saved += restored * self.block_size
         slot = self.slots[slot_idx]
         slot.gen += 1  # a new occupant: stale in-flight chunks must not emit
         slot.req = req
         slot.prompt = prompt
-        slot.prefill_pos = len(matched) * self.block_size
+        slot.prefill_pos = hit * self.block_size
         slot.ready = False
         slot.draft_ready = False
         slot.length = len(prompt)
@@ -984,11 +1454,31 @@ class InferenceEngine:
         req = slot.req
         if req is None:
             return
+        if self._kv_tier is not None:
+            self._publish_preempt_chain(i)
         slot.req = None
         slot.ready = False
         self._free_slot_blocks(i)
         self._resume.append(req)
         self.requests_preempted += 1
+
+    def _publish_preempt_chain(self, i: int) -> None:
+        """With a tier: publish the preempted slot's fully written blocks
+        over prompt + generated tokens before they are freed, so under
+        pressure they spill and the resume restores them instead of
+        prefilling again. K/V is final for positions [0, length-1) (the
+        last token's K/V is written by the step that generates its
+        successor), and every call site reaches here with the window
+        drained. A slot mid-prefill published its prompt blocks already."""
+        slot = self.slots[i]
+        if not slot.ready or slot.req is None:
+            return
+        seq = slot.req.prompt_ids + slot.req.tokens
+        bs = self.block_size
+        cur = self._prefix_cache.cursor()
+        for b in range((slot.length - 1) // bs):
+            blk = int(self._tables[i, b])
+            cur.publish(tuple(seq[b * bs: (b + 1) * bs]), blk, self._block_refs.get(blk, 0))
 
     def _emit(self, slot_idx: int, token: int) -> None:
         slot = self.slots[slot_idx]
@@ -1084,6 +1574,46 @@ class InferenceEngine:
         self._fail_outstanding(f"decode failed: {e}", drain_queue=False)
         self._reset_pool()
 
+    def _cover(self, ready: list[int], spec_idx: list[int], plain_set: set,
+               k_steps: int) -> bool:
+        """Grow every participating slot's table to cover this iteration's
+        writes (evicting, and with a tier spilling, cached blocks),
+        preempting youngest-first when the pool runs dry once the window
+        has settled. Drops slots that stop participating from ``ready``.
+        True when the window was drained and the schedule must be rebuilt
+        from settled state."""
+        d = self._dispatcher
+        for i in list(ready):
+            s = self.slots[i]
+            if s.req is None or not s.ready:
+                ready.remove(i)  # preempted as a victim earlier in this pass
+                continue
+            if i in spec_idx:
+                # verification writes reach position length-2 + depth*(k+1),
+                # which eligibility keeps inside max_len
+                need_upto = s.length - 1 + self.spec_depth * (self.spec_k + 1)
+            elif i in plain_set:
+                # in-flight chunks write up to length+inflight first; writes
+                # never pass max_len-1 (the decode clamps)
+                need_upto = min(s.length + d.inflight_steps[i] + k_steps, self.max_len)
+            else:
+                continue  # remainder fully covered by the window
+            while not self._alloc(i, need_upto):
+                if d.in_flight:
+                    # in-flight chunks pin their slots' blocks and may finish
+                    # slots: settle the window before preempting anyone
+                    try:
+                        d.drain_all()
+                    except Exception as e:  # noqa: BLE001
+                        self._dispatch_failed(e)
+                    return True
+                if not self._preempt_youngest(keep=i):
+                    self._preempt(i)
+                    break
+            if s.req is None:
+                ready.remove(i)
+        return False
+
     def _run(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
@@ -1099,6 +1629,8 @@ class InferenceEngine:
         d = self._dispatcher
         while not self._stop.is_set():
             t_iter = time.monotonic()
+            if not self._kv_export_requests.empty():
+                self._service_kv_exports()
             self._admit_pending()
             prefilling = [i for i, s in enumerate(self.slots) if s.req is not None and not s.ready]
             ready = [i for i, s in enumerate(self.slots) if s.req is not None and s.ready]
@@ -1181,40 +1713,11 @@ class InferenceEngine:
             # runs dry, once the window has settled
             plain_set = set(plain)
             restart = False
-            for i in list(ready):
-                s = self.slots[i]
-                if s.req is None or not s.ready:
-                    ready.remove(i)  # preempted as a victim earlier in this pass
-                    continue
-                if i in spec_idx:
-                    # verification writes reach position
-                    # length-2 + depth*(k+1), which eligibility keeps
-                    # inside max_len
-                    need_upto = s.length - 1 + self.spec_depth * (self.spec_k + 1)
-                elif i in plain_set:
-                    # in-flight chunks write up to length+inflight first;
-                    # writes never pass max_len-1 (the decode clamps)
-                    need_upto = min(s.length + d.inflight_steps[i] + k_steps, self.max_len)
-                else:
-                    continue  # remainder fully covered by the window
-                while not self._alloc(i, need_upto):
-                    if d.in_flight:
-                        # in-flight chunks pin their slots' blocks and may
-                        # finish slots: settle the window before preempting
-                        # anyone, then rebuild the schedule from settled state
-                        try:
-                            d.drain_all()
-                        except Exception as e:  # noqa: BLE001
-                            self._dispatch_failed(e)
-                        restart = True
-                        break
-                    if not self._preempt_youngest(keep=i):
-                        self._preempt(i)
-                        break
-                if restart:
-                    break
-                if s.req is None:
-                    ready.remove(i)
+            try:
+                restart = self._cover(ready, spec_idx, plain_set, k_steps)
+            except Exception as e:  # noqa: BLE001 — a spill's device error
+                self._dispatch_failed(e)
+                restart = True
             if restart:
                 d.loop_busy_s += time.monotonic() - t_iter
                 continue

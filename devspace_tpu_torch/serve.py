@@ -1,16 +1,27 @@
 """HTTP server for the port's continuous-batching engine.
 
-    python -m devspace_tpu_torch.serve --port N [--device cpu]
+    python -m devspace_tpu_torch.serve --port N [--device cpu] [--kv-tier off|host|host+disk]
 
 Speaks the contract of the reference server
 (``examples/llama-inference/serve.py``) for plain and speculative serving:
 
 - ``POST /generate`` — JSON ``{"prompt_ids": [...], "max_new_tokens": N}``
   plus optional ``temperature``, ``eos_id``, ``seed``, ``top_k``,
-  ``top_p``, ``stop``, ``min_new_tokens``, ``logit_bias`` and ``stream``.
-  Replies ``{"tokens": [...]}``; with ``"stream": true`` newline-
-  delimited JSON, one ``{"token": t}`` per token then ``{"done": true}``.
-- ``GET /healthz`` — liveness plus the engine's ``stats()``.
+  ``top_p``, ``stop``, ``min_new_tokens``, ``logit_bias``, ``stream`` and
+  ``kv_source`` (the base URL of a replica that prefilled this prompt:
+  its KV chain is pulled from there instead of recomputed, and any
+  failure falls back to recomputing). Replies ``{"tokens": [...]}``; with
+  ``"stream": true`` newline-delimited JSON, one ``{"token": t}`` per
+  token then ``{"done": true}``.
+- ``POST /prefill`` — ``{"prompt_ids": [...]}``: runs the prompt for one
+  token so its KV chain lands in the prefix cache, ready to export.
+  Replies ``{"prefilled_tokens": n}``; 400 on bad input, 500 on an
+  engine failure.
+- ``GET /kv/chain/<digest>`` — the KVM1 envelope of the chain the digest
+  names (``application/octet-stream``), for a peer's ``kv_source`` pull;
+  404 for an unknown digest or with the tier off.
+- ``GET /healthz`` — liveness plus the engine's ``stats()`` (its
+  ``kv_tier`` is the tier's mode).
 - ``GET /readyz`` — 200, or 503 while draining.
 - ``POST /drain`` — enter drain mode (``{"off": true}`` leaves it):
   ``/readyz`` answers 503 while ``/healthz`` stays 200.
@@ -33,7 +44,9 @@ name; default: tiny drafts for itself, any other model has no draft).
 the checkpoint modules. ``ENGINE_OVERLAP=off`` runs the serial decode
 loop (dispatch depth 1; default: the depth-2 window), and ``PREWARM=1``
 builds every program (``InferenceEngine.prewarm``) before the port
-opens. ``--device`` defaults to cuda, and no CUDA is an error.
+opens. ``--kv-tier`` turns on the host KV tier (``DEVSPACE_KV_TIER`` when
+the flag is omitted; default off), which the KV chain endpoints need.
+``--device`` defaults to cuda, and no CUDA is an error.
 """
 
 from __future__ import annotations
@@ -42,6 +55,7 @@ import argparse
 import http.server
 import json
 import logging
+import math
 import os
 import time
 from typing import Optional
@@ -50,9 +64,11 @@ import torch
 
 from .device import resolve_device
 from .inference import InferenceEngine
+from .inference.kv_tier import kv_payload_bytes
 from .models import transformer as tfm
 
 CONFIGS = {"tiny": tfm.TINY, "llama2-7b": tfm.LLAMA2_7B, "llama2-13b": tfm.LLAMA2_13B}
+BLOCK_SIZE = 64  # the engine's paged-KV block, in tokens
 
 log = logging.getLogger(__name__)
 
@@ -120,6 +136,7 @@ def _generate_kwargs(body: dict) -> dict:
             if body.get("logit_bias")
             else None
         ),
+        kv_source=str(body["kv_source"]) if body.get("kv_source") else None,
     )
 
 
@@ -156,6 +173,20 @@ def make_handler(server: Server):
             elif path == "/readyz":
                 ready = not server.draining
                 self._json(200 if ready else 503, {"ready": ready, "draining": server.draining})
+            elif path.startswith("/kv/chain/"):
+                try:
+                    envelope = server.engine.export_kv_chain(path[len("/kv/chain/"):])
+                except Exception:  # noqa: BLE001 — a failed export is a miss
+                    log.exception("kv chain export failed")
+                    envelope = None
+                if envelope is None:
+                    self._json(404, {"error": "unknown chain digest"})
+                    return
+                self.send_response(200)
+                self.send_header("Content-Type", "application/octet-stream")
+                self.send_header("Content-Length", str(len(envelope)))
+                self.end_headers()
+                self.wfile.write(envelope)
             else:
                 self._json(404, {"error": "not found"})
 
@@ -190,6 +221,19 @@ def make_handler(server: Server):
                     self._json(400, {"error": str(e)})
                 except Exception:  # noqa: BLE001 — no internals in the reply
                     log.exception("speculative request failed")
+                    self._json(500, {"error": "internal server error"})
+                return
+            if self.path == "/prefill":
+                # the first phase of a two-phase placement: the chain lands
+                # in the prefix cache, for a decode replica to pull
+                try:
+                    prompt = [int(t) for t in self._body()["prompt_ids"]]
+                    server.engine.submit(prompt, 1).result(timeout=600)
+                    self._json(200, {"prefilled_tokens": len(prompt)})
+                except (ValueError, KeyError, TypeError) as e:  # client input
+                    self._json(400, {"error": str(e)})
+                except Exception:  # noqa: BLE001 — no internals in the reply
+                    log.exception("prefill failed")
                     self._json(500, {"error": "internal server error"})
                 return
             if self.path != "/generate":
@@ -239,6 +283,18 @@ def make_http_server(server: Server, host: str = "0.0.0.0", port: int = 8000):
     return http.server.ThreadingHTTPServer((host, port), make_handler(server))
 
 
+def kv_tier_budget(cfg: tfm.TransformerConfig, max_slots: int) -> int:
+    """The host KV tier's bytes for a server's engine: one KVT1 payload
+    for every block of its pool, and never less than the engine's own
+    256 MiB default. The tier must hold whole chains: a chain or KVM1
+    envelope longer than the tier evicts its own root while it is put,
+    and then none of it restores (at Llama-2-7B, 256 MiB holds 15 of the
+    17.3 MB payloads, less than one 1024-token prompt)."""
+    blocks = max_slots * math.ceil(cfg.max_seq_len / BLOCK_SIZE)
+    payload = kv_payload_bytes(cfg.n_layers, cfg.n_kv_heads, BLOCK_SIZE, cfg.head_dim)
+    return max(256 << 20, blocks * payload)
+
+
 def build_engine(
     model: str = "tiny",
     device: Optional[str] = None,
@@ -249,10 +305,13 @@ def build_engine(
     spec_k: int = 4,
     spec_depth: int = 1,
     dispatch_depth: Optional[int] = None,
+    kv_tier: Optional[str] = None,
 ) -> InferenceEngine:
     """An engine for ``model`` with random weights (seed 0) on ``device``;
     with ``draft_model`` (a config name sharing the vocabulary), also a
-    draft with random weights (seed 1) for speculative decoding."""
+    draft with random weights (seed 1) for speculative decoding.
+    ``kv_tier`` is the engine's (``None`` reads ``DEVSPACE_KV_TIER``),
+    its budget :func:`kv_tier_budget`."""
     if model not in CONFIGS:
         raise ValueError(f"MODEL={model!r} unknown (choices: {', '.join(CONFIGS)})")
     cfg = CONFIGS[model]
@@ -272,10 +331,11 @@ def build_engine(
             )
         draft_params = tfm.init_params(draft_cfg, torch.Generator(device=dev).manual_seed(1))
     return InferenceEngine(
-        params, cfg, max_slots=max_slots, chunk_max=chunk_max,
+        params, cfg, max_slots=max_slots, chunk_max=chunk_max, block_size=BLOCK_SIZE,
         kv_dtype=kv_dtype, device=dev,
         draft_params=draft_params, draft_cfg=draft_cfg, spec_k=spec_k, spec_depth=spec_depth,
-        dispatch_depth=dispatch_depth,
+        dispatch_depth=dispatch_depth, kv_tier=kv_tier,
+        kv_tier_bytes=kv_tier_budget(cfg, max_slots),
     )
 
 
@@ -299,6 +359,9 @@ def main(argv=None) -> None:
     ap.add_argument("--port", type=int, default=int(os.environ.get("PORT", 8000)))
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--device", default=None)
+    ap.add_argument("--kv-tier", choices=["off", "host", "host+disk"], default=None,
+                    help="spill evicted KV prefix chains to host RAM (optionally disk-backed) "
+                         "and restore them on a match; defaults to $DEVSPACE_KV_TIER, else off")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     model = os.environ.get("MODEL", "tiny")
@@ -312,6 +375,7 @@ def main(argv=None) -> None:
         spec_k=int(os.environ.get("SPEC_K", 4)),
         spec_depth=int(os.environ.get("SPEC_DEPTH", 1)),
         dispatch_depth=1 if os.environ.get("ENGINE_OVERLAP") == "off" else None,
+        kv_tier=args.kv_tier,
     )
     if os.environ.get("PREWARM", "0") == "1":
         t0 = time.monotonic()
@@ -319,7 +383,8 @@ def main(argv=None) -> None:
         print(f"prewarmed {len(timings)} programs in {time.monotonic() - t0:.1f}s", flush=True)
     engine.start()
     httpd = make_http_server(Server(engine, model), args.host, args.port)
-    print(f"serving {model} on {engine.device} at :{httpd.server_address[1]}", flush=True)
+    print(f"serving {model} on {engine.device} at :{httpd.server_address[1]} "
+          f"(kv tier {engine.kv_tier_mode})", flush=True)
     try:
         httpd.serve_forever()
     finally:

@@ -1,10 +1,14 @@
 """chip_smoke.py's bookkeeping, on the CPU: which kind each profiled
 kernel counts under, the flash kernels' work and rates, and that it
-builds every CUDA source of the port. The script itself runs on the card
+builds every CUDA source of the port; and a rehearsal of the kv_tier
+phase's control flow at TINY. The script itself runs on the card
 (``python3 chip_smoke.py``); these are the parts a reader takes on trust
 from its output."""
 
+import json
+
 import pytest
+import torch
 
 import chip_smoke as cs
 from devspace_tpu_torch.ops import _build
@@ -91,3 +95,51 @@ def test_attention_bound_is_bytes_at_the_main_paths_shapes():
         bound_ms, by = cs.attention_bound(bh, t, d)
         assert by == "bytes"
         assert bound_ms == pytest.approx(4 * bh * t * d * 2 / cs.HBM_BYTES_PER_S * 1e3)
+
+
+# -- a CPU rehearsal of the kv_tier phase -------------------------------------
+TINY_KV_TIER = {"max_slots": 2, "max_len": 128, "block_size": 8, "n_blocks": 17,
+                "tier_bytes": 1 << 20, "shared": 32, "distinct": 64, "tail": 8, "new_tokens": 16}
+
+
+def test_kv_tier_phase_rehearsed_on_the_cpu(monkeypatch):
+    """The kv_tier phase's control flow and checks at TINY on the CPU
+    (the waves scaled with the pool: the shared chain is 4 blocks): the
+    paged-decode calls a replay would launch are counted by a stand-in,
+    ``prewarm_engine`` builds without the card's launch accounting, and
+    the bf16 tie bound only has to admit this TINY's own rounding."""
+    from devspace_tpu_torch.inference import graphs
+    from devspace_tpu_torch.models import transformer as tfm
+
+    calls = [0]
+    real_attention, real_run = tfm.paged_decode_attention, graphs.ProgramTable.run
+
+    def counting_attention(*args, **kwargs):
+        calls[0] += 1
+        return real_attention(*args, **kwargs)
+
+    def counting_run(self, key):
+        before = calls[0]
+        real_run(self, key)
+        self.paged_decode_launches += calls[0] - before
+
+    def cpu_prewarm(engine):
+        engine.prewarm()
+        return {"captures": engine.stats()["graph_captures"]}
+
+    monkeypatch.setattr(tfm, "paged_decode_attention", counting_attention)
+    monkeypatch.setattr(graphs.ProgramTable, "run", counting_run)
+    monkeypatch.setattr(cs, "prewarm_engine", cpu_prewarm)
+    params = tfm.init_params(tfm.TINY, torch.Generator().manual_seed(0))
+    line = cs.phase_kv_tier(params, torch.device("cpu"), "cpu", tie_bound=0.5, cfg=tfm.TINY,
+                            sizes=TINY_KV_TIER, model="tiny")
+    assert line["phase"] == "kv_tier" and line["waves"] == [32, 64, 64, 40]
+    for pool in ("bf16", "int8"):
+        got = line[pool]
+        assert got["restore_hits"] == 4 and got["recompute_tokens_saved"] == 32
+        assert got["kv_spill_blocks"] > 0 and got["kv_restore_fallbacks"] == 0
+        assert got["wave4_paged_decode_launches"] == tfm.TINY.n_layers * 15
+        assert got["launches"] > got["wave4_paged_decode_launches"]
+    assert line["int8"]["wave4_equal_tokens"] == 16
+    assert line["migration"]["blocks"] == 4 and line["migration"]["envelope_bytes"] > 0
+    json.dumps(line)  # one JSON line

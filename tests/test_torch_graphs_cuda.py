@@ -19,6 +19,10 @@ there is no CUDA device. Run on the card with
   stream equals a fresh engine's.
 - End to end: float32 TINY served through graphs at depth 1 and 2 equals
   greedy ``generate`` on the card, with and without a draft.
+- With the host KV tier on an int8 pool, a spill and a restore after
+  ``prewarm`` capture no graph and leave the pool's buffers where the
+  graphs hold them: the chunks replayed after the restore decode the
+  restored K/V, and the stream equals the tier-off stream.
 
 Block 0 is scratch (parked rows all write position 0 of it), so pool
 comparisons skip it.
@@ -246,3 +250,48 @@ def test_engine_streams_equal_generate(dev, draft):
         with torch.no_grad():
             want = tfm.generate(params, torch.tensor([prompt], device=dev), F32, n)
         assert got == want[0].tolist()
+
+
+def kv_tier_waves(seed=0):
+    """A 48-token shared prompt (3 blocks of 16), two distinct 96-token
+    prompts that evict it (spilling it with the tier on), then the shared
+    prompt with a tail of its own, which restores its 3 blocks."""
+    g = torch.Generator().manual_seed(seed)
+    shared = torch.randint(1, 256, (48,), generator=g).tolist()
+    distinct = [torch.randint(1, 256, (96,), generator=g).tolist() for _ in range(2)]
+    return [shared, *distinct, shared + torch.randint(1, 256, (8,), generator=g).tolist()]
+
+
+@pytest.mark.cuda
+def test_kv_tier_restore_decodes_through_the_graphs(dev):
+    """With the host tier on an int8 pool, after ``prewarm``: the waves
+    spill the shared chain and restore it, no graph is captured, and the
+    replayed chunks after the restore decode the restored K/V (the stream
+    equals the tier-off stream: a restore that rebound the pool would
+    leave the graphs reading the old one)."""
+    params = tfm.init_params(BF16, torch.Generator(device=dev).manual_seed(0))
+    waves = kv_tier_waves()
+    streams, stats = {}, {}
+    for tier in ("off", "host"):
+        engine = InferenceEngine(params, BF16, device=dev, max_slots=1, max_len=MAX_LEN,
+                                 block_size=BS, n_blocks=1 + MAX_LEN // BS, kv_dtype="int8",
+                                 kv_tier=tier)
+        engine.prewarm()
+        captures = engine.stats()["graph_captures"]
+        pool = {k: t.data_ptr() for k, t in engine.pool.items()}
+        engine.start()
+        try:
+            streams[tier] = [engine.submit(p, 16).result(timeout=300) for p in waves[:3]]
+            before = engine.stats()
+            streams[tier].append(engine.submit(waves[3], 16).result(timeout=300))
+            st = engine.stats()
+        finally:
+            engine.stop()
+        assert st["graph_captures"] == captures
+        assert {k: t.data_ptr() for k, t in engine.pool.items()} == pool
+        assert st["paged_decode_launches"] - before["paged_decode_launches"] == BF16.n_layers * 15
+        stats[tier] = st
+    assert stats["host"]["kv_spill_blocks"] > 0
+    assert stats["host"]["kv_restore_hits"] == 3 and stats["host"]["kv_restore_fallbacks"] == 0
+    assert stats["off"]["kv_restore_hits"] == 0
+    assert streams["host"] == streams["off"]

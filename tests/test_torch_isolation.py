@@ -37,8 +37,9 @@ def test_every_module_imports_with_jax_blocked():
     assert out.returncode == 0, out.stdout + out.stderr
     assert out.stdout.startswith("ok")
     assert "devspace_tpu_torch.inference.engine" in MODULES and len(MODULES) >= 12
-    for name in ("dispatch", "graphs", "prefix_cache"):
+    for name in ("dispatch", "graphs", "prefix_cache", "kv_tier", "quantization"):
         assert f"devspace_tpu_torch.inference.{name}" in MODULES
+    assert "devspace_tpu_torch.resilience.policy" in MODULES
 
 
 def imported_names(path: Path) -> list[str]:

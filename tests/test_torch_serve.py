@@ -2,8 +2,12 @@
 TINY: the reference server's contract — /generate (JSON and ndjson
 stream), /healthz, /readyz and /drain, /generate_speculative (greedy
 through the engine's speculative path; 400 on sampling fields, 501
-without a draft), 404 elsewhere."""
+without a draft), 404 elsewhere; and with the host KV tier (--kv-tier or
+DEVSPACE_KV_TIER) /prefill, /kv/chain/<digest> and /generate's
+kv_source, which pulls a chain from a second in-process server and
+falls back to recomputing when the source is dead."""
 
+import contextlib
 import json
 import os
 import socket
@@ -17,6 +21,8 @@ import urllib.request
 import pytest
 
 from devspace_tpu_torch import serve
+from devspace_tpu_torch.inference.kv_tier import unpack_chain_envelope
+from devspace_tpu_torch.inference.prefix_cache import fingerprint_chain
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -52,6 +58,32 @@ def spec_url():
         httpd.server_close()
         engine.stop()
         thread.join(timeout=10)
+
+
+@contextlib.contextmanager
+def serving(engine):
+    engine.start()
+    httpd = serve.make_http_server(serve.Server(engine, "tiny"), "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{httpd.server_address[1]}"
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        engine.stop()
+        thread.join(timeout=10)
+
+
+@pytest.fixture(scope="module")
+def tier_urls():
+    """Four TINY servers with the host tier on an int8 pool (exact
+    restores): a prefill source, a cold one, a decode replica pulling
+    from the source and one whose source is dead."""
+    with contextlib.ExitStack() as stack:
+        yield [stack.enter_context(serving(serve.build_engine(
+            "tiny", device="cpu", max_slots=2, kv_dtype="int8", kv_tier="host")))
+            for _ in range(4)]
 
 
 def call(url, path, body=None, timeout=60):
@@ -185,3 +217,101 @@ def test_module_entry_point_takes_port():
     finally:
         proc.terminate()
         proc.wait(timeout=10)
+
+
+# -- the host KV tier and KV migration ----------------------------------------
+PROMPT = [(11 * i) % 250 + 3 for i in range(100)]  # one full 64-token block
+
+
+def test_kv_tier_option_and_env(monkeypatch):
+    monkeypatch.delenv("DEVSPACE_KV_TIER", raising=False)
+    assert serve.build_engine("tiny", device="cpu", max_slots=1).kv_tier_mode == "off"
+    monkeypatch.setenv("DEVSPACE_KV_TIER", "host")
+    assert serve.build_engine("tiny", device="cpu", max_slots=1).kv_tier_mode == "host"
+    engine = serve.build_engine("tiny", device="cpu", max_slots=1, kv_tier="off")
+    assert engine.kv_tier_mode == "off"  # the flag wins
+
+
+def test_kv_tier_budget_holds_the_pool():
+    """The server sizes its tier to hold a payload for every pool block,
+    so a max_len chain fits whole; at TINY that is the 256 MiB floor."""
+    from devspace_tpu_torch.inference.kv_tier import kv_payload_bytes
+    from devspace_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.LLAMA2_7B
+    payload = kv_payload_bytes(cfg.n_layers, cfg.n_kv_heads, serve.BLOCK_SIZE, cfg.head_dim)
+    assert payload == 17_301_524
+    budget = serve.kv_tier_budget(cfg, 8)
+    assert budget == 8 * (cfg.max_seq_len // serve.BLOCK_SIZE) * payload
+    assert budget // payload >= cfg.max_seq_len // serve.BLOCK_SIZE > (256 << 20) // payload
+    assert serve.kv_tier_budget(tfm.TINY, 8) == 256 << 20
+    engine = serve.build_engine("tiny", device="cpu", max_slots=1, kv_tier="host")
+    assert engine._kv_tier.max_bytes == serve.kv_tier_budget(tfm.TINY, 1)
+
+
+def test_kv_tier_flag_reaches_healthz():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "MODEL": "tiny", "MAX_SLOTS": "1", "DEVSPACE_KV_TIER": "off"}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "devspace_tpu_torch.serve", "--port", str(port),
+         "--host", "127.0.0.1", "--device", "cpu", "--kv-tier", "host"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+    )
+    try:
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                code, raw = call(f"http://127.0.0.1:{port}", "/healthz", timeout=2)
+                break
+            except OSError:
+                assert proc.poll() is None, proc.stdout.read().decode()
+                assert time.monotonic() < deadline, "server did not come up"
+                time.sleep(0.2)
+        assert code == 200 and json.loads(raw)["kv_tier"] == "host"
+    finally:
+        proc.terminate()
+        proc.wait(timeout=10)
+
+
+def test_prefill_and_chain_export(tier_urls, url):
+    source = tier_urls[0]
+    code, raw = call(source, "/prefill", {"prompt_ids": PROMPT})
+    assert code == 200 and json.loads(raw) == {"prefilled_tokens": len(PROMPT)}
+    assert call(source, "/prefill", {"max_new_tokens": 3})[0] == 400  # no prompt
+    assert call(source, "/prefill", {"prompt_ids": list(range(200))})[0] == 400  # too long
+    assert call(source, "/prefill", {"prompt_ids": ["x"]})[0] == 400
+    health = json.loads(call(source, "/healthz")[1])
+    assert health["kv_tier"] == "host" and health["prefix_cached_blocks"] == 1
+    digest = fingerprint_chain(PROMPT, 64)[0]
+    code, raw = call(source, f"/kv/chain/{digest}")
+    assert code == 200
+    assert [d for d, _ in unpack_chain_envelope(raw)] == [digest]
+    assert call(source, "/kv/chain/" + "ff" * 16)[0] == 404
+    assert call(url, f"/kv/chain/{digest}")[0] == 404  # tier off
+    assert json.loads(call(url, "/healthz")[1])["kv_tier"] == "off"
+
+
+def test_generate_with_kv_source_pulls_the_chain(tier_urls):
+    source, cold, decode, orphan = tier_urls
+    body = {"prompt_ids": PROMPT, "max_new_tokens": 8}
+    assert call(source, "/prefill", {"prompt_ids": PROMPT})[0] == 200
+    code, raw = call(cold, "/generate", body)
+    assert code == 200
+    want = json.loads(raw)["tokens"]
+    code, raw = call(decode, "/generate", {**body, "kv_source": source})
+    assert code == 200 and json.loads(raw)["tokens"] == want
+    health = json.loads(call(decode, "/healthz")[1])
+    assert health["kv_migrate_chains"] == 1 and health["kv_migrate_blocks"] == 1
+    assert health["kv_restore_hits"] == 1 and health["kv_migrate_failures"] == 0
+    assert json.loads(call(source, "/healthz")[1])["kv_export_chains"] >= 1
+    # a dead source: the recompute ladder gives the same stream
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        dead = f"http://127.0.0.1:{s.getsockname()[1]}"
+    code, raw = call(orphan, "/generate", {**body, "kv_source": dead})
+    assert code == 200 and json.loads(raw)["tokens"] == want
+    health = json.loads(call(orphan, "/healthz")[1])
+    assert health["kv_migrate_failures"] == 1 and health["kv_restore_fallbacks"] == 1
+    assert health["kv_migrate_chains"] == 0 and health["kv_tier_remote_nodes"] == 0
