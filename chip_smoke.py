@@ -28,16 +28,27 @@ three paths:
   the tier-off ones, bf16 tokens are the eager argmax or a near tie),
   and a KVM1 migration of that chain between two servers (``POST
   /prefill`` on one, ``/generate`` with ``kv_source`` on the other;
-  the migrated blocks equal the source's byte for byte);
+  the migrated blocks equal the source's byte for byte); then int8
+  weights from a checkpoint (``int8_weights`` phase): the 7B params are
+  saved by ``save_checkpoint`` into a temporary directory and restored
+  byte for byte by ``load_serving_params``, and
+  ``serve.build_engine(checkpoint=..., quantize="int8")`` serves the
+  smoke requests and the steady burst after ``prewarm`` through the
+  paged-decode kernel, each greedy stream held to an eager forward's
+  argmax over the same int8 params, beside a bf16 engine kept alive;
 - speculative serving: the target and draft LMs of
   scripts/train_draft_pair.py (target: vocab 32000, dim 1024, 8 layers,
   8 heads, ffn 2816; draft: dim 256, 2 layers, 4 heads, ffn 704; bf16)
   train on the Markov corpus at batch 32 x 129 through the
-  short-sequence attention and cross-entropy kernels, then an engine
-  with the draft answers greedy and sampled requests (draft prefill
-  through the short-sequence kernel, verification blocks through the
-  paged-decode kernel, each spec round a replayed graph) beside an engine
-  without it, and one request goes through HTTP ``/generate_speculative``.
+  short-sequence attention and cross-entropy kernels, by the port of
+  that script (scripts/train_draft_pair_torch.py), which saves them as
+  checkpoints; ``InferenceEngine.from_checkpoint`` restores them (the
+  params byte for byte) into an engine with the draft, which answers
+  greedy and sampled requests (draft prefill through the short-sequence
+  kernel, verification blocks through the paged-decode kernel, each
+  spec round a replayed graph), beside one without it, whose streams
+  equal those of an engine over the in-memory params, and one request
+  goes through HTTP ``/generate_speculative``.
 
 The engine's paged-decode launches are counted per graph replay
 (``stats()["paged_decode_launches"]``): the wrapper's own count moves
@@ -60,12 +71,16 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+from pathlib import Path
 from typing import Optional
 import urllib.error
 import urllib.request
@@ -75,8 +90,9 @@ import torch
 import torch.nn.functional as F
 
 from devspace_tpu_torch import serve
-from devspace_tpu_torch.inference import InferenceEngine
+from devspace_tpu_torch.inference import InferenceEngine, load_serving_params
 from devspace_tpu_torch.inference import engine as einf
+from devspace_tpu_torch.inference import quantization as wq
 from devspace_tpu_torch.inference import kv_tier as kvt
 from devspace_tpu_torch.inference import speculative as spec
 from devspace_tpu_torch.models import transformer as tfm
@@ -88,6 +104,10 @@ from devspace_tpu_torch.ops import normalization as rn
 from devspace_tpu_torch.ops import paged_attention as pa
 from devspace_tpu_torch.training import data as tdata
 from devspace_tpu_torch.training import trainer as ttrainer
+from devspace_tpu_torch.training.checkpoint import save_checkpoint
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+import train_draft_pair_torch as pair_script  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, dense bf16
 # on the tensor cores, float32 outside them
@@ -774,6 +794,174 @@ def phase_engine_int8(params, dev, card) -> dict:
         "ttft_s_median": statistics.median(run["ttft_s"]),
         **{k: v for k, v in run.items() if k != "ttft_s"},
     }
+
+
+# -- int8 weights from a checkpoint ------------------------------------------------
+def tree_bytes(params: dict) -> int:
+    """Bytes of a param tree's leaves, an int8 weight's ``q`` and ``scale``
+    both counted."""
+    total = 0
+    for leaf in ttrainer.param_leaves(params):
+        parts = (leaf.q, leaf.scale) if isinstance(leaf, wq.QuantizedLinear) else (leaf,)
+        total += sum(t.numel() * t.element_size() for t in parts)
+    return total
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+# the weight shapes of one Llama-2-7B decode step ([D_in, D_out]) and how
+# many of each a step multiplies: wq, wk, wv, wo; w_gate, w_up; w_down (32
+# layers each); lm_head
+INT8_PRODUCT_SHAPES = {"attn": ((4096, 4096), 4 * 32), "gate_up": ((4096, 11008), 2 * 32),
+                       "down": ((11008, 4096), 32), "lm_head": ((4096, 32000), 1)}
+
+
+def int8_product_times(dev, rows: int = 8) -> dict:
+    """Where the int8 weight product's time goes, at a decode step's
+    shapes (``rows`` x D_in bf16 activations), each kind cycling through
+    enough distinct weights to miss the 50 MB L2 as the 32 layers do:
+    the dense bf16 product, the card's int8 product whole, its upcast of
+    ``q`` alone and its float32-output product alone (and the same
+    product with bf16 output, for comparison), with the bytes bound of
+    the int8 product (``q`` read once); then each summed over one step's
+    products."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+    for name, ((d_in, d_out), _) in INT8_PRODUCT_SHAPES.items():
+        n = max(2, math.ceil(200e6 / (2 * d_in * d_out)))
+        dense = [(torch.randn((d_in, d_out), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+                 for _ in range(n)]
+        quant = [wq.quantize_weight(w) for w in dense]
+        upcast = [ql.q.to(torch.bfloat16) for ql in quant]
+        x = torch.randn((rows, d_in), generator=g, device=dev).to(torch.bfloat16)
+        it = iter(range(1 << 30))
+        cases = {
+            "dense_bf16": lambda: x @ dense[next(it) % n],
+            "int8": lambda: x @ quant[next(it) % n],
+            "upcast": lambda: quant[next(it) % n].q.to(torch.bfloat16),
+            "mm_f32_out": lambda: torch.mm(x, upcast[next(it) % n], out_dtype=torch.float32),
+            "mm_bf16_out": lambda: torch.mm(x, upcast[next(it) % n]),
+        }
+        out[name] = {case: device_ms(fn, 40)[0] for case, fn in cases.items()}
+        out[name]["int8_bound_ms"] = (d_in * d_out + 4 * d_out + 2 * rows * (d_in + d_out)) \
+            / HBM_BYTES_PER_S * 1e3
+        del dense, quant, upcast
+    out["step"] = {case: sum(out[name][case] * count
+                             for name, (_, count) in INT8_PRODUCT_SHAPES.items())
+                   for case in out["attn"]}
+    return out
+
+
+def phase_int8_weights(params, dev, card, bf16_graph_ms, cfg=tfm.LLAMA2_7B,
+                       model="llama2-7b") -> dict:
+    """The train -> serve seam at full width with int8 weights: the params
+    in memory saved by ``save_checkpoint`` as a bare tree into a
+    temporary directory (its free space checked first) and restored by
+    ``load_serving_params`` (every leaf equal to the saved one byte for
+    byte); ``q`` and ``scale`` made on the card equal those made on the
+    CPU from the same leaf (lm_head, the first and last layers'
+    w_down); then ``serve.build_engine(checkpoint=..., quantize="int8")``
+    serves after ``prewarm`` — the smoke requests, each greedy stream
+    held to an eager forward's argmax over the same int8 params up to
+    near ties, and the steady burst — with no graph captured after
+    prewarm, while a bf16 engine over the same weights stays alive
+    (peak memory with both)."""
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    dense_bytes = tree_bytes(params)
+    tmp = tempfile.mkdtemp(prefix="int8-weights-")
+    free = shutil.disk_usage(tmp).free
+    line = {"phase": "int8_weights", "model": model, "card": card,
+            "disk": {"free_gb": free / 1e9, "checkpoint_gb": dense_bytes / 1e9}}
+    if free < 1.05 * dense_bytes:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise RuntimeError(f"{tmp}: {free / 1e9:.2f} GB free, the checkpoint needs "
+                           f"{dense_bytes / 1e9:.2f} GB")
+    engines = []
+    try:
+        sync(dev)
+        t0 = time.monotonic()
+        save_checkpoint(os.path.join(tmp, "step_00000001"), params)
+        save_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        restored, step = load_serving_params(tmp, cfg, device=dev)
+        sync(dev)
+        load_s = time.monotonic() - t0
+        assert step == 1 and assert_same_bytes(restored, params) == dense_bytes
+        del restored
+        layers = params["layers"]
+        checked = {"lm_head": params["lm_head"], "layers.0.w_down": layers[0]["w_down"],
+                   f"layers.{len(layers) - 1}.w_down": layers[-1]["w_down"]}
+        for name, leaf in checked.items():
+            here, there = wq.quantize_weight(leaf), wq.quantize_weight(leaf.cpu())
+            assert torch.equal(here.q.cpu(), there.q), name
+            assert torch.equal(bits(here.scale.cpu()), bits(there.scale)), name
+        sync(dev)
+        t0 = time.monotonic()
+        qtree = wq.quantize_params(params)
+        sync(dev)
+        quantize_s = time.monotonic() - t0
+        del qtree
+        products = int8_product_times(dev)
+        bf16 = InferenceEngine(params, cfg, device=dev, max_slots=8,
+                               max_len=min(2048, cfg.max_seq_len))
+        engines.append(bf16)
+        bf16_warm = prewarm_engine(bf16)
+        t0 = time.monotonic()
+        engine = serve.build_engine(model, device=dev, checkpoint=tmp, quantize="int8")
+        sync(dev)
+        build_s = time.monotonic() - t0
+        engines.append(engine)
+        for name in wq._MATMUL_LEAVES - {"lm_head"}:
+            assert isinstance(engine.params["layers"][0][name], wq.QuantizedLinear), name
+        assert isinstance(engine.params["lm_head"], wq.QuantizedLinear)
+        step_times = decode_step_times(engine)
+        warm = prewarm_engine(engine)
+        engine.start()
+        engine.submit(list(range(1, 9)), 4).result(timeout=600)  # warm-up, not counted
+        requests = serving_requests(cfg)
+        run = drive_engine(engine, requests)
+        results = run.pop("results")
+        n_new = requests[0][1]
+        assert [len(r) for r in results[:5]] == [n_new] * 5, [len(r) for r in results]
+        assert results[5] == [1234] * 4, results[5]
+        gaps = logit_path_gaps(engine.params, cfg, [requests[i][0] + results[i] for i in GREEDY],
+                               dev, LOGIT_PATH_REL_7B, positions=n_new + 1)
+        tie_bound = NEAR_TIE_GAPS * (gaps["verify_vs_decode"] + gaps["forward_vs_decode"])
+        ties = [t for i in GREEDY for t in argmax_ties(engine.params, cfg, requests[i][0],
+                                                        results[i], tie_bound)]
+        steady = steady_burst(engine)
+        st = engine.stats()
+        assert st["requests_failed"] == 0
+        assert st["graph_captures"] == warm["captures"], "a graph was captured after prewarm"
+        line.update({
+            "save_s": save_s, "save_gbps": dense_bytes / save_s / 1e9,
+            "load_s": load_s, "load_gbps": dense_bytes / load_s / 1e9,
+            "dense_params_byte_equal": True, "q_scale_card_equals_cpu": sorted(checked),
+            "quantize_s": quantize_s, "build_engine_s": build_s,
+            "dense_weight_gb": dense_bytes / 1e9, "int8_weight_gb": tree_bytes(engine.params) / 1e9,
+            "decode_step_b8_ctx1024": step_times, "bf16_graph_ms": bf16_graph_ms,
+            "graph_ms_over_bf16": step_times["graph_ms"] / bf16_graph_ms,
+            "product_ms": products,
+            "prewarm": warm, "bf16_engine_prewarm": bf16_warm,
+            "prompt_lens": [len(p) for p, _, _ in requests], "max_new_tokens": n_new,
+            "ttft_s_median": statistics.median(run["ttft_s"]),
+            **{k: v for k, v in run.items() if k != "ttft_s"},
+            "argmax_near_ties": ties, "near_tie_bound": tie_bound, "logit_path_gaps": gaps,
+            "steady": steady,
+            "steady_ms_per_step_over_graph_ms": steady["ms_per_step"] / step_times["graph_ms"],
+            "graph_captures_after_prewarm": st["graph_captures"] - warm["captures"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else None,
+        })
+    finally:
+        for engine in engines:
+            engine.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return line
 
 
 # -- the host KV tier and KV migration ------------------------------------------
@@ -1511,81 +1699,59 @@ def reset_counts() -> None:
     sa.LAUNCHES = rn.LAUNCHES = pa.LAUNCHES = 0
 
 
-def serving_copy(params: dict) -> dict:
-    return ttrainer.tree_like(params, [p.detach() for p in ttrainer.param_leaves(params)])
-
-
-def train_one(name: str, cfg, sample, seed: int, dev) -> tuple[dict, dict]:
-    """``train_one`` of scripts/train_draft_pair.py: Adam steps on the
-    corpus from seeded params -> (trained params, report). Each step runs
-    the short-sequence attention kernel once per layer (T = 128) and the
-    loss kernel once; flash attention never."""
-    params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
-    for p in ttrainer.param_leaves(params):
-        p.requires_grad_()
-    opt = ttrainer.adam(PAIR_LR)
-    state = ttrainer.init_train_state(params, opt)
-    inner = ttrainer.make_lm_train_step(tfm.forward, cfg, opt)
-    losses = []
-
-    def step_fn(state, batch):
-        state, loss = inner(state, batch)
-        losses.append(loss)
-        return state, loss
-
-    batches = (sample(PAIR_BATCH, PAIR_SEQ, seed=seed * 100_000 + s) for s in range(PAIR_STEPS))
+def phase_train_pair(dev, card, out: str) -> tuple[dict, dict, dict]:
+    """The pair trained by scripts/train_draft_pair_torch.py's
+    ``train_pair`` (its recipe: Adam steps from seeded params on the
+    corpus, then the held-out greedy agreement), which saves both as bare
+    params under ``out`` (``target/``, ``draft/``) and writes
+    ``pair.json``. Each training step runs the short-sequence attention
+    kernel once per layer (T = 128) and the loss kernel once, flash
+    attention never; the agreement's T = 64 forwards run short attention
+    once per layer."""
     reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, _ = ttrainer.train_loop(step_fn, state, batches)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
+    meta, trained = pair_script.train_pair(
+        out, PAIR_TARGET, PAIR_DRAFT, PAIR_CORPUS, steps=PAIR_STEPS, batch=PAIR_BATCH,
+        seq=PAIR_SEQ, lr=PAIR_LR, device=dev, log=lambda *a: None)
     counts = {"attention": sa.LAUNCHES, **train_counts()}
-    expect = {"attention": cfg.n_layers * PAIR_STEPS, "flash_fwd": 0, "flash_bwd_dq": 0,
-              "flash_bwd_dkv": 0, "cross_entropy": PAIR_STEPS}
-    assert counts == expect, (name, counts, expect)
+    layers = PAIR_TARGET.n_layers + PAIR_DRAFT.n_layers
+    expect = {"attention": layers * (PAIR_STEPS + 1), "flash_fwd": 0, "flash_bwd_dq": 0,
+              "flash_bwd_dkv": 0, "cross_entropy": 2 * PAIR_STEPS}
+    assert counts == expect, (counts, expect)
     assert sa.LAST_DISPATCH["impl"] == "cuda" and xl.LAST_DISPATCH["impl"] == "cuda"
-    losses = [x.item() for x in losses]
-    assert all(math.isfinite(x) for x in losses), losses
-    assert losses[-1] < losses[0], (losses[0], losses[-1])
-    n_params = sum(p.numel() for p in ttrainer.param_leaves(params))
-    return serving_copy(state["params"]), {
-        "params_m": n_params / 1e6, "steps": PAIR_STEPS,
-        "step_ms": elapsed * 1e3 / PAIR_STEPS,  # sampling each batch on the host included
-        "tok_per_s": PAIR_BATCH * (PAIR_SEQ - 1) * PAIR_STEPS / elapsed,
-        "first_loss": losses[0], "last_loss": losses[-1], "launches": counts,
-    }
-
-
-def greedy_agreement(t_params, d_params, sample) -> dict:
-    """``greedy_agreement`` of scripts/train_draft_pair.py: held-out
-    greedy next-token agreement between target and draft, and each
-    model's accuracy against the corpus, at positions with full order-2
-    context (T = 64: the short-sequence kernel)."""
-    tokens = sample(64, 65, seed=9)
-    with torch.no_grad():
-        tp = tfm.forward(t_params, tokens[:, :-1], PAIR_TARGET).argmax(-1)[:, 1:]
-        dp = tfm.forward(d_params, tokens[:, :-1], PAIR_DRAFT).argmax(-1)[:, 1:]
-    actual = tokens[:, 2:]
-    return {"target_draft_agreement": (tp == dp).float().mean().item(),
-            "target_accuracy": (tp == actual).float().mean().item(),
-            "draft_accuracy": (dp == actual).float().mean().item()}
-
-
-def phase_train_pair(dev, card) -> tuple[dict, dict, dict]:
-    sample = tdata.markov_sampler(**PAIR_CORPUS, device=dev)
-    t_params, t_report = train_one("target", PAIR_TARGET, sample, 0, dev)
-    d_params, d_report = train_one("draft", PAIR_DRAFT, sample, 1, dev)
-    before = sa.LAUNCHES
-    agreement = greedy_agreement(t_params, d_params, sample)
-    assert sa.LAUNCHES - before == PAIR_TARGET.n_layers + PAIR_DRAFT.n_layers
+    with open(os.path.join(out, "pair.json")) as f:
+        assert json.load(f) == json.loads(json.dumps(meta))
+    reports = {}
+    for name, (_, report) in trained.items():
+        assert report["losses_finite"] and report["last_loss"] < report["first_loss"], report
+        assert os.listdir(os.path.join(out, name)) == [f"step_{PAIR_STEPS:08d}"]
+        reports[name] = {
+            **{k: report[k] for k in ("params_m", "steps", "first_loss", "last_loss")},
+            "step_ms": report["seconds"] * 1e3 / PAIR_STEPS,  # batch sampling on the host included
+            "tok_per_s": PAIR_BATCH * (PAIR_SEQ - 1) * PAIR_STEPS / report["seconds"],
+        }
     return {
-        "phase": "train_pair", "card": card, "batch": PAIR_BATCH, "seq": PAIR_SEQ,
-        "optimizer": f"adam({PAIR_LR})", "corpus": PAIR_CORPUS,
-        "target": t_report, "draft": d_report, **agreement,
-        "attention_launches": t_report["launches"]["attention"] + d_report["launches"]["attention"],
-        "xent_launches": t_report["launches"]["cross_entropy"] + d_report["launches"]["cross_entropy"],
-    }, t_params, d_params
+        "phase": "train_pair", "card": card, "script": "scripts/train_draft_pair_torch.py",
+        "batch": PAIR_BATCH, "seq": PAIR_SEQ, "optimizer": f"adam({PAIR_LR})",
+        "corpus": PAIR_CORPUS, **reports,
+        **{k: meta[k] for k in ("target_draft_agreement", "target_accuracy", "draft_accuracy",
+                                "params_ratio")},
+        "launches": counts,
+        "attention_launches": counts["attention"], "xent_launches": counts["cross_entropy"],
+    }, trained["target"][0], trained["draft"][0]
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bytes, for a bit-for-bit comparison."""
+    return t.detach().contiguous().view(torch.uint8)
+
+
+def assert_same_bytes(a: dict, b: dict) -> int:
+    """Two param trees hold the same bytes, leaf by leaf -> their bytes."""
+    la, lb = ttrainer.param_leaves(a), ttrainer.param_leaves(b)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        assert x.dtype == y.dtype and x.shape == y.shape and torch.equal(bits(x), bits(y))
+    return sum(x.numel() * x.element_size() for x in la)
 
 
 def phase_spec_small_reference(dev) -> dict:
@@ -1729,18 +1895,35 @@ def drive_spec_engine(engine, requests) -> dict:
             "attention_launches": sa.LAUNCHES, **delta}
 
 
-def phase_spec_engine(t_params, d_params, dev, card) -> dict:
-    """The trained pair through an engine with the draft and one without:
-    six greedy requests with corpus prompts, then one sampled request
-    twice, then HTTP."""
+def phase_spec_engine(t_params, d_params, pair_dir, dev, card) -> dict:
+    """The trained pair served from its checkpoints: the params
+    ``load_serving_params`` restores equal the trained ones byte for
+    byte; an engine with the draft and one without, both built by
+    ``InferenceEngine.from_checkpoint``, beside an engine over the
+    in-memory params, whose greedy streams the restored plain engine's
+    equal token for token. Six greedy requests with corpus prompts, then
+    one sampled request twice, then HTTP."""
+    roots = {name: os.path.join(pair_dir, name) for name in ("target", "draft")}
+    t0 = time.monotonic()
+    restored = {name: load_serving_params(root, cfg, device=dev)
+                for (name, root), cfg in zip(roots.items(), (PAIR_TARGET, PAIR_DRAFT))}
+    restore_s = time.monotonic() - t0
+    restored_bytes = 0
+    for name, live in (("target", t_params), ("draft", d_params)):
+        params, step = restored[name]
+        assert step == PAIR_STEPS, (name, step)
+        restored_bytes += assert_same_bytes(params, live)
+    del restored
     sample = tdata.markov_sampler(**PAIR_CORPUS, device="cpu")
     prompts = [sample(1, n, seed=100 + i)[0].tolist() for i, n in enumerate(SPEC_PROMPT_LENS)]
     requests = [(p, SPEC_NEW_TOKENS, {}) for p in prompts]
     kw = dict(device=dev, max_slots=8, max_len=1024, block_size=64)
     engines = {
-        "spec": InferenceEngine(t_params, PAIR_TARGET, draft_params=d_params, draft_cfg=PAIR_DRAFT,
-                                spec_k=SPEC_K, spec_depth=1, **kw),
-        "plain": InferenceEngine(t_params, PAIR_TARGET, **kw),
+        "spec": InferenceEngine.from_checkpoint(
+            roots["target"], PAIR_TARGET, draft_checkpoint=roots["draft"], draft_cfg=PAIR_DRAFT,
+            spec_k=SPEC_K, spec_depth=1, **kw),
+        "plain": InferenceEngine.from_checkpoint(roots["target"], PAIR_TARGET, **kw),
+        "in_memory": InferenceEngine(t_params, PAIR_TARGET, **kw),
     }
     runs, warm = {}, {}
     try:
@@ -1751,6 +1934,8 @@ def phase_spec_engine(t_params, d_params, dev, card) -> dict:
             runs[name] = drive_spec_engine(engine, requests)
             assert [len(r) for r in runs[name]["results"]] == [SPEC_NEW_TOKENS] * len(requests)
         assert runs["spec"]["spec_rounds"] > 0 and runs["plain"]["spec_rounds"] == 0
+        assert runs["plain"]["results"] == runs["in_memory"]["results"], \
+            "the restored engine's greedy streams differ from the in-memory params' engine"
         gaps = logit_path_gaps(
             t_params, PAIR_TARGET, [p + r for p, r in zip(prompts, runs["plain"]["results"])], dev)
         tie_bound = NEAR_TIE_GAPS * (gaps["verify_vs_decode"] + gaps["forward_vs_decode"])
@@ -1792,6 +1977,8 @@ def phase_spec_engine(t_params, d_params, dev, card) -> dict:
         for engine in engines.values():
             engine.stop()
     line = {"phase": "spec_engine", "model": "draft-pair", "card": card, "spec_k": SPEC_K,
+            "from_checkpoint": {"restore_s": restore_s, "bytes": restored_bytes,
+                                "params_byte_equal": True, "streams_equal_in_memory": True},
             "prompt_lens": list(SPEC_PROMPT_LENS), "max_new_tokens": SPEC_NEW_TOKENS,
             "streams_identical": not ties, "near_ties": ties, "near_tie_bound": tie_bound,
             "logit_path_gaps": gaps, "logit_path_rel": LOGIT_PATH_REL,
@@ -1878,11 +2065,15 @@ def main() -> int:
                    f"prefill512 {ATTN_PREFILL_SHAPE}; rms_norm bf16 {list(RMS_SHAPES[0])}, "
                    f"rms_norm_4096 bf16 {list(RMS_WIDE)}",
           **spec_timing})
-    pair_line, t_params, d_params = phase_train_pair(dev, card)
-    emit(pair_line)
-    emit({"phase": "spec_small_reference", "card": card, **phase_spec_small_reference(dev)})
-    spec_line = phase_spec_engine(t_params, d_params, dev, card)
-    emit(spec_line)
+    pair_dir = tempfile.mkdtemp(prefix="spec-pair-")
+    try:
+        pair_line, t_params, d_params = phase_train_pair(dev, card, pair_dir)
+        emit(pair_line)
+        emit({"phase": "spec_small_reference", "card": card, **phase_spec_small_reference(dev)})
+        spec_line = phase_spec_engine(t_params, d_params, pair_dir, dev, card)
+        emit(spec_line)
+    finally:
+        shutil.rmtree(pair_dir, ignore_errors=True)
     del t_params, d_params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1909,6 +2100,11 @@ def main() -> int:
     emit(int8_line)
     kv_line = phase_kv_tier(params, dev, card, engine_line["near_tie_bound"])
     emit(kv_line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8w_line = phase_int8_weights(params, dev, card,
+                                    engine_line["decode_step_b8_ctx1024"]["graph_ms"])
+    emit(int8w_line)
 
     kernels = []
     for variant, line in (("bf16", engine_line), ("int8", int8_line)):
@@ -1923,6 +2119,9 @@ def main() -> int:
         if variant == "bf16":
             by_path["speculative"] = spec_line["spec"]["paged_decode_launches"]
             err_by_path["speculative"] = errs["verify/bfloat16/float"]
+            # int8 weights from a checkpoint, over a bf16 pool
+            by_path["int8_weights"] = int8w_line["launches"]
+            err_by_path["int8_weights"] = err_by_path["serving"]
         kernels.append({
             "name": f"paged_decode[{variant} pool]",
             "route": "cuda",

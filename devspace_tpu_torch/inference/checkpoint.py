@@ -1,0 +1,118 @@
+"""Serving-side checkpoint loading — the train -> serve seam.
+
+Counterpart of ``devspace_tpu/inference/checkpoint.py``. Training writes
+step-managed checkpoints of the train state (``training/checkpoint.py``
+``CheckpointManager``) or a bare params tree; serving needs only the
+params. ``load_serving_params`` restores them alone (a train state's
+``opt_state.pt``, ~2x the param bytes under Adam, is never opened),
+checks every shape against the serving config, places them on one
+device leaf by leaf from the mapped file (host memory never holds the
+tree a second time), and optionally quantizes each matmul weight to
+int8 as it lands. The reference's tensor-parallel placement (``mesh``,
+``model_axis``) waits for the port of ``parallel/``.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional, Union
+
+import torch
+
+from ..device import resolve_device
+from ..models import transformer as tfm
+from ..training.checkpoint import list_step_dirs, read_meta, restore_checkpoint
+from .quantization import _is_matmul_leaf, quantize_weight
+
+
+def _resolve_step_dir(path: str, step: Optional[int]) -> tuple[str, Optional[int]]:
+    """``path`` is either a training root full of ``step_NNNNNNNN`` dirs
+    (pick ``step`` or the latest) or one checkpoint dir directly."""
+    path = os.path.abspath(path)
+    steps = list_step_dirs(path)
+    if steps:
+        if step is None:
+            return steps[-1][1], steps[-1][0]
+        for s, p in steps:
+            if s == step:
+                return p, s
+        raise FileNotFoundError(
+            f"no step_{step:08d} under {path} (available steps: {[s for s, _ in steps]})"
+        )
+    if step is not None:
+        raise FileNotFoundError(
+            f"{path} contains no step_NNNNNNNN dirs to select step {step} from"
+        )
+    if not os.path.isdir(path):
+        raise FileNotFoundError(f"no checkpoint at {path}")
+    base = os.path.basename(path.rstrip(os.sep))
+    found = (
+        int(base[len("step_"):])
+        if base.startswith("step_") and base[len("step_"):].isdigit()
+        else None
+    )
+    return path, found
+
+
+def _is_train_state(path: str) -> bool:
+    """Whether the checkpoint holds a full train state (restore its
+    ``params`` alone) or a bare params tree, from ``meta.json``; no
+    tensor bytes are read. Unreadable metadata assumes the train-state
+    layout, as the reference does (the restore then fails clearly)."""
+    try:
+        return read_meta(path)["kind"] == "train_state"
+    except (OSError, ValueError, KeyError):
+        return True
+
+
+def _place(tree, device: torch.device, quantize: bool):
+    """Each leaf of ``tree`` (mapped from the file) copied to ``device``,
+    and a matmul weight quantized there, one leaf at a time."""
+
+    def walk(node, name=""):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, name) for v in node]
+        leaf = node.to(device)
+        return quantize_weight(leaf) if quantize and _is_matmul_leaf(name, leaf) else leaf
+
+    return walk(tree)
+
+
+def load_serving_params(
+    path: str,
+    cfg: tfm.TransformerConfig,
+    step: Optional[int] = None,
+    device: Optional[Union[str, torch.device]] = None,
+    quantize: Optional[str] = None,
+) -> tuple[dict, Optional[int]]:
+    """Restore serving params from a checkpoint.
+
+    ``path``: a training checkpoint root (``step_NNNNNNNN`` dirs — the
+    latest, or ``step``, is chosen) or one checkpoint dir. Accepts both a
+    train state (its params restored alone) and a bare params tree.
+    Leaves land on ``device`` (``None`` means cuda, as every entry point)
+    in ``cfg.dtype`` (norms float32), after their shapes are checked
+    against ``init_params(cfg)`` built on the meta device; a mismatch is
+    a ``ValueError``. ``quantize="int8"`` applies weight-only int8
+    (``inference/quantization.py``). Returns ``(params, step)``, ``step``
+    None when the directory name carries no step number."""
+    if quantize not in (None, "int8"):
+        raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
+    dev = resolve_device(device)
+    resolved, found_step = _resolve_step_dir(path, step)
+    template = tfm.init_params(cfg, torch.Generator(), device="meta")
+    try:
+        if _is_train_state(resolved):
+            params = restore_checkpoint(resolved, {"params": template}, partial=True)["params"]
+        else:
+            params = restore_checkpoint(resolved, template)
+    except FileNotFoundError:
+        raise
+    except Exception as e:  # noqa: BLE001 — surface the seam, keep the cause
+        raise ValueError(
+            f"checkpoint at {resolved} does not match the serving config "
+            f"(wrong model config, or not a params/train-state checkpoint): {e}"
+        ) from e
+    return _place(params, dev, quantize == "int8"), found_step

@@ -64,6 +64,11 @@ timeline) wait for a later slice, as does the tensor-parallel ``mesh``.
   (``decode_block_paged``) and 1..``spec_k``+1 tokens commit per slot;
   the other ready slots take the plain decode chunk in the same
   iteration. Greedy streams are those of plain decoding, token for token.
+- **Checkpoints and int8 weights**: ``from_checkpoint`` restores the
+  params from a training checkpoint (``inference/checkpoint.py``),
+  optionally as weight-only int8 (``inference/quantization.py``:
+  ``QuantizedLinear`` leaves, served wherever dense ones are, since
+  every weight use is ``x @ w``).
 
 Every decode step's and every verification block's attention runs
 through the paged-decode CUDA kernel when the engine lives on the card
@@ -254,8 +259,9 @@ class InferenceEngine:
     without it; ``"cpu"`` runs the plain PyTorch path, calling each
     program eagerly where the card replays its graph. ``params`` (and
     ``draft_params``) must already live there (see
-    ``models.transformer.init_params`` and
-    ``models.convert.params_from_numpy``)."""
+    ``models.transformer.init_params``,
+    ``models.convert.params_from_numpy`` and :meth:`from_checkpoint`);
+    their matmul weights may be int8 ``QuantizedLinear`` leaves."""
 
     def __init__(
         self,
@@ -434,6 +440,46 @@ class InferenceEngine:
                 self._programs.define(("spec", mode), partial(self._spec_program, mode))
 
     # -- public API --------------------------------------------------------
+    @classmethod
+    def from_checkpoint(
+        cls,
+        path: str,
+        cfg: tfm.TransformerConfig,
+        *,
+        step: Optional[int] = None,
+        quantize: Optional[str] = None,
+        draft_checkpoint: Optional[str] = None,
+        draft_cfg: Optional[tfm.TransformerConfig] = None,
+        draft_step: Optional[int] = None,
+        **engine_kwargs,
+    ) -> "InferenceEngine":
+        """The train -> serve seam in one call: restore params from a
+        checkpoint (``inference/checkpoint.py``: the params alone, on the
+        engine's ``device``, int8 weight-quantized with
+        ``quantize="int8"``) and build the engine; every weight is placed
+        before the engine exists, so the graphs ``prewarm`` captures hold
+        their final addresses. ``draft_checkpoint``/``draft_cfg`` restore
+        a trained draft for speculative decoding the same way, dense.
+        Other kwargs go to the constructor (call ``.start()`` as usual).
+        The reference's ``mesh``/``model_axis`` wait for ``parallel/``."""
+        from .checkpoint import load_serving_params
+
+        device = engine_kwargs.get("device")
+        params, _ = load_serving_params(path, cfg, step=step, device=device, quantize=quantize)
+        draft_params = None
+        if draft_checkpoint is None and draft_cfg is not None:
+            raise ValueError(
+                "draft_cfg without draft_checkpoint — from_checkpoint restores draft "
+                "weights, it cannot invent them"
+            )
+        if draft_checkpoint is not None:
+            if draft_cfg is None:
+                raise ValueError("draft_checkpoint requires draft_cfg")
+            draft_params, _ = load_serving_params(draft_checkpoint, draft_cfg, step=draft_step,
+                                                  device=device)
+        return cls(params, cfg, draft_params=draft_params,
+                   draft_cfg=draft_cfg if draft_params is not None else None, **engine_kwargs)
+
     def submit(
         self,
         prompt_ids: list[int],

@@ -1,20 +1,173 @@
-"""int8 quantization of KV blocks for the host KV tier.
+"""Weight-only int8 quantization for serving, and int8 KV blocks for the
+host KV tier.
 
-The port's copy of the KV-block part of
-``devspace_tpu/inference/quantization.py``: ``quantize_kv_block`` and
-``dequantize_kv_block`` on numpy, with the scale floor ``KV_SCALE_EPS``
-that ``ops.paged_attention.quantize_kv`` shares. The weight-only
-quantization of that module (``QuantizedLinear`` and the functions over
-a parameter tree) waits for the int8-weights slice.
+The port's copy of ``devspace_tpu/inference/quantization.py``.
+
+Weights: each matmul weight ``[D_in, D_out]`` is stored as int8 with a
+float32 scale per output column (``QuantizedLinear``); the product
+dequantizes on the fly, ``x @ q * scale``. Activations stay in the model
+dtype; no calibration. Embeddings (a gather) and norms stay dense.
+``quantize_params`` turns a transformer param tree
+(``models.transformer.init_params``) into one the model and the engine
+serve unchanged: every weight use is ``x @ w``, which reaches
+``QuantizedLinear.__rmatmul__`` (a tensor's ``__matmul__`` returns
+``NotImplemented`` for a non-tensor).
+
+The product. The reference computes ``dot_general(x, q,
+preferred_element_type=f32) * scale`` and rounds once to ``x.dtype``:
+
+- the plain version, ``((x.float() @ q.float()) * scale).to(x.dtype)``,
+  is that in float32. It runs on the CPU and is the card's reference;
+- on the card a bf16/fp16 ``x`` multiplies ``q`` upcast to ``x.dtype``
+  (exact: |q| <= 127 fits the 8-bit significand) with float32 output
+  (``torch.mm(..., out_dtype=torch.float32)``), then the scale in
+  float32 and one rounding to ``x.dtype``: the same products summed in
+  another order, so the two agree within one ulp of ``x.dtype``. Its one
+  temporary is the upcast weight (262 MB for Llama-2-7B's lm_head),
+  freed before the next product. A float32 ``x`` takes the plain version.
+
+KV blocks: ``quantize_kv_block`` and ``dequantize_kv_block`` on numpy,
+with the scale floor ``KV_SCALE_EPS`` that
+``ops.paged_attention.quantize_kv`` shares.
 """
 
 from __future__ import annotations
 
+from typing import Union
+
 import numpy as np
+import torch
 
 from ..ops.paged_attention import KV_SCALE_EPS
 
-__all__ = ["KV_SCALE_EPS", "quantize_kv_block", "dequantize_kv_block"]
+__all__ = [
+    "KV_SCALE_EPS", "QuantizedLinear", "quantize_weight", "quantize_params",
+    "dequantize_params", "quantization_error", "quantize_kv_block", "dequantize_kv_block",
+]
+
+# transformer matmul leaves worth quantizing (embeddings are gathers, norms
+# are tiny)
+_MATMUL_LEAVES = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head"})
+
+
+def quantized_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``x @ (q * scale)`` as the reference computes it: float32
+    products and sums, one rounding to ``x.dtype``."""
+    return ((x.float() @ q.float()) * scale).to(x.dtype)
+
+
+def quantized_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``x [..., D_in] @ q [D_in, D_out] * scale [D_out]`` in ``x.dtype``:
+    the plain version on the CPU and for float32 ``x``; on the card a
+    16-bit ``x`` goes through one matrix product with float32 output
+    (module docstring)."""
+    if x.device.type != "cuda" or x.dtype not in (torch.bfloat16, torch.float16):
+        return quantized_matmul_plain(x, q, scale)
+    y = torch.mm(x.reshape(-1, x.shape[-1]), q.to(x.dtype), out_dtype=torch.float32)
+    return (y * scale).to(x.dtype).view(*x.shape[:-1], q.shape[1])
+
+
+class QuantizedLinear:
+    """int8 weight ``q [D_in, D_out]`` and float32 ``scale [D_out]``;
+    behaves like the dense weight under ``x @ w``."""
+
+    def __init__(self, q: torch.Tensor, scale: torch.Tensor):
+        self.q = q
+        self.scale = scale
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.q.shape
+
+    @property
+    def dtype(self) -> torch.dtype:  # what the dense weight would have been
+        return torch.bfloat16
+
+    def to(self, device: Union[str, torch.device]) -> "QuantizedLinear":
+        return QuantizedLinear(self.q.to(device), self.scale.to(device))
+
+    def __rmatmul__(self, x: torch.Tensor) -> torch.Tensor:
+        return quantized_matmul(x, self.q, self.scale)
+
+    def __repr__(self) -> str:
+        return f"QuantizedLinear(shape={tuple(self.q.shape)})"
+
+
+def quantize_weight(w: torch.Tensor) -> QuantizedLinear:
+    """Symmetric per-output-column int8 quantization of ``w [D_in,
+    D_out]``: the scale maps each column's max |w| to 127 (1.0 for an
+    all-zero column), ``w / scale`` divided in float32 and rounded half to
+    even, clipped to +-127 — the reference's arithmetic, so ``q`` and
+    ``scale`` are the same bytes on the CPU, on the card and in JAX."""
+    w32 = w.float()
+    absmax = w32.abs().amax(dim=0)
+    # a tensor divisor: CUDA divides by a Python scalar as a product with
+    # its reciprocal, which rounds some scales one ulp away from the CPU's
+    scale = torch.where(absmax == 0, torch.ones_like(absmax),
+                        absmax / torch.full_like(absmax, 127.0))
+    q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
+    return QuantizedLinear(q, scale)
+
+
+def _is_matmul_leaf(name: str, node) -> bool:
+    return name in _MATMUL_LEAVES and isinstance(node, torch.Tensor) and node.ndim == 2
+
+
+def quantize_params(params: dict) -> dict:
+    """Quantize every matmul weight of a transformer param tree (see
+    ``models.transformer.init_params``); other leaves pass through."""
+
+    def walk(node, name=""):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, name) for v in node)
+        return quantize_weight(node) if _is_matmul_leaf(name, node) else node
+
+    return walk(params)
+
+
+def dequantize_params(params: dict) -> dict:
+    """The inverse, for checkpointing or debugging: every
+    ``QuantizedLinear`` back to a bf16 dense weight."""
+
+    def walk(node):
+        if isinstance(node, QuantizedLinear):
+            return (node.q.float() * node.scale).to(torch.bfloat16)
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    return walk(params)
+
+
+def quantization_error(params: dict) -> float:
+    """Max relative per-leaf reconstruction error over the matmul leaves
+    of a DENSE tree (a sanity metric; ~<1% for normal-ish weights)."""
+    errs = []
+
+    def walk(node, name=""):
+        if isinstance(node, QuantizedLinear):
+            raise ValueError(
+                "quantization_error needs the DENSE params (the original weights are gone "
+                "from a quantized tree, so the error cannot be measured from it)"
+            )
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, k)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v, name)
+        elif _is_matmul_leaf(name, node):
+            ql = quantize_weight(node)
+            w = node.float()
+            deq = ql.q.float() * ql.scale
+            errs.append(float(torch.linalg.norm(w - deq) / max(float(torch.linalg.norm(w)), 1e-9)))
+
+    walk(params)
+    return max(errs) if errs else 0.0
 
 
 def quantize_kv_block(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

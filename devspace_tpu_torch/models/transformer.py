@@ -64,15 +64,19 @@ TINY = TransformerConfig(
 )
 
 # -- params -----------------------------------------------------------------
-def init_params(cfg: TransformerConfig, generator: torch.Generator) -> dict:
+def init_params(
+    cfg: TransformerConfig, generator: torch.Generator, device: Optional[torch.device] = None
+) -> dict:
     """Seeded random params {embed, layers: [{wq,wk,wv,wo,w_gate,w_up,
     w_down, attn_norm, ffn_norm}], final_norm, lm_head} on the
     generator's device: normal * 0.02 in ``cfg.dtype``, norms ones in
     float32 — the reference's recipe. A CUDA generator makes Llama-2-7B
     in well under a second on the card. The draws cannot reproduce
     ``jax.random``, so parity tests convert JAX params instead
-    (``models/convert.py``)."""
-    device = generator.device
+    (``models/convert.py``). ``device="meta"`` (with a CPU generator)
+    gives the tree's shapes and dtypes without memory, the counterpart
+    of ``jax.eval_shape(init_params)``."""
+    device = generator.device if device is None else torch.device(device)
     hd = cfg.head_dim
 
     def dense(shape):

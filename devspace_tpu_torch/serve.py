@@ -34,14 +34,20 @@ Speaks the contract of the reference server
   value; 501 when the engine has no draft model.
 - anything else — 404.
 
-Weights are random, drawn from a seeded ``torch.Generator`` on the
-device. Environment: ``MODEL`` (tiny | llama2-7b | llama2-13b, default
-tiny), ``KV_DTYPE`` (int8 for a quantized pool), ``MAX_SLOTS``,
-``CHUNK_MAX``, ``PORT`` (``--port`` wins); ``SPEC`` (0 turns the draft
-model off), ``SPEC_K``, ``SPEC_DEPTH`` and ``DRAFT_MODEL`` (a config
-name; default: tiny drafts for itself, any other model has no draft).
-``DRAFT_CHECKPOINT`` is refused: restoring weights waits for the port of
-the checkpoint modules. ``ENGINE_OVERLAP=off`` runs the serial decode
+Weights: ``CHECKPOINT=<dir>`` restores trained ones (a training root of
+``step_NNNNNNNN`` dirs, whose latest step is served, or one checkpoint
+dir: the train -> serve seam, ``inference.load_serving_params``; an
+Orbax checkpoint of the JAX package converts with
+``scripts/convert_checkpoint.py``); without it they are random, drawn
+from a seeded ``torch.Generator`` on the device. ``QUANTIZE=int8``
+serves weight-only int8 (any other value is refused). Environment:
+``MODEL`` (tiny | llama2-7b | llama2-13b, default tiny: the config the
+checkpoint must match), ``KV_DTYPE`` (int8 for a quantized pool),
+``MAX_SLOTS``, ``CHUNK_MAX``, ``PORT`` (``--port`` wins); ``SPEC`` (0
+turns the draft model off), ``SPEC_K``, ``SPEC_DEPTH``, ``DRAFT_MODEL``
+(a config name; default: tiny drafts for itself, any other model has no
+draft) and ``DRAFT_CHECKPOINT`` (the draft's trained weights, dense;
+random without it). ``ENGINE_OVERLAP=off`` runs the serial decode
 loop (dispatch depth 1; default: the depth-2 window), and ``PREWARM=1``
 builds every program (``InferenceEngine.prewarm``) before the port
 opens. ``--kv-tier`` turns on the host KV tier (``DEVSPACE_KV_TIER`` when
@@ -63,8 +69,9 @@ from typing import Optional
 import torch
 
 from .device import resolve_device
-from .inference import InferenceEngine
+from .inference import InferenceEngine, load_serving_params
 from .inference.kv_tier import kv_payload_bytes
+from .inference.quantization import quantize_params
 from .models import transformer as tfm
 
 CONFIGS = {"tiny": tfm.TINY, "llama2-7b": tfm.LLAMA2_7B, "llama2-13b": tfm.LLAMA2_13B}
@@ -306,17 +313,34 @@ def build_engine(
     spec_depth: int = 1,
     dispatch_depth: Optional[int] = None,
     kv_tier: Optional[str] = None,
+    checkpoint: Optional[str] = None,
+    quantize: Optional[str] = None,
+    draft_checkpoint: Optional[str] = None,
 ) -> InferenceEngine:
-    """An engine for ``model`` with random weights (seed 0) on ``device``;
-    with ``draft_model`` (a config name sharing the vocabulary), also a
-    draft with random weights (seed 1) for speculative decoding.
-    ``kv_tier`` is the engine's (``None`` reads ``DEVSPACE_KV_TIER``),
-    its budget :func:`kv_tier_budget`."""
+    """An engine for ``model`` on ``device``: its weights restored from
+    ``checkpoint`` (``inference.load_serving_params``), else random (seed
+    0); ``quantize="int8"`` serves them weight-only int8. With
+    ``draft_model`` (a config name sharing the vocabulary), also a draft
+    for speculative decoding, restored dense from ``draft_checkpoint``,
+    else random (seed 1). ``kv_tier`` is the engine's (``None`` reads
+    ``DEVSPACE_KV_TIER``), its budget :func:`kv_tier_budget`."""
     if model not in CONFIGS:
         raise ValueError(f"MODEL={model!r} unknown (choices: {', '.join(CONFIGS)})")
+    if quantize not in (None, "int8"):
+        raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
+    if draft_checkpoint is not None and draft_model is None:
+        raise ValueError("a draft checkpoint needs its config: name it with DRAFT_MODEL")
     cfg = CONFIGS[model]
     dev = resolve_device(device)
-    params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    if checkpoint:
+        params, step = load_serving_params(checkpoint, cfg, device=dev, quantize=quantize)
+        print(f"restored {model} params from {checkpoint}"
+              + (f" (step {step})" if step is not None else "")
+              + (f", {quantize} weights" if quantize else ""), flush=True)
+    else:
+        params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+        if quantize:
+            params = quantize_params(params)
     draft_params = draft_cfg = None
     if draft_model is not None:
         if draft_model not in CONFIGS:
@@ -329,7 +353,13 @@ def build_engine(
                 f"draft model '{draft_model}' has vocab_size {draft_cfg.vocab_size} != "
                 f"target {cfg.vocab_size}: a draft must share the target's vocabulary"
             )
-        draft_params = tfm.init_params(draft_cfg, torch.Generator(device=dev).manual_seed(1))
+        if draft_checkpoint:
+            draft_params, dstep = load_serving_params(draft_checkpoint, draft_cfg, device=dev)
+            print(f"restored draft '{draft_model}' params from {draft_checkpoint}"
+                  + (f" (step {dstep})" if dstep is not None else ""), flush=True)
+        else:
+            draft_params = tfm.init_params(draft_cfg,
+                                           torch.Generator(device=dev).manual_seed(1))
     return InferenceEngine(
         params, cfg, max_slots=max_slots, chunk_max=chunk_max, block_size=BLOCK_SIZE,
         kv_dtype=kv_dtype, device=dev,
@@ -343,12 +373,8 @@ def draft_model_from_env(model: str) -> Optional[str]:
     """The reference server's draft policy: ``SPEC=0`` turns speculation
     off; otherwise ``DRAFT_MODEL`` names the draft's config, and by
     default only tiny drafts for itself (for a real model a self-draft
-    would double the weights and speed nothing up)."""
-    if os.environ.get("DRAFT_CHECKPOINT"):
-        raise SystemExit(
-            "DRAFT_CHECKPOINT is not supported yet: restoring weights waits for the "
-            "port of the checkpoint modules; unset it to draft with random weights"
-        )
+    would double the weights and speed nothing up). ``DRAFT_CHECKPOINT``
+    (read by :func:`main`) restores the draft's weights."""
     if os.environ.get("SPEC", "1") == "0":
         return None
     return os.environ.get("DRAFT_MODEL", "tiny" if model == "tiny" else None)
@@ -365,17 +391,26 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     model = os.environ.get("MODEL", "tiny")
+    quantize = os.environ.get("QUANTIZE") or None
+    if quantize and quantize != "int8":
+        raise SystemExit(f"QUANTIZE={quantize!r} (only int8 exists)")
+    draft_model = draft_model_from_env(model)
     engine = build_engine(
         model,
         device=args.device,
         kv_dtype=os.environ.get("KV_DTYPE") or None,
         max_slots=int(os.environ.get("MAX_SLOTS", 8)),
         chunk_max=int(os.environ.get("CHUNK_MAX", 8)),
-        draft_model=draft_model_from_env(model),
+        draft_model=draft_model,
         spec_k=int(os.environ.get("SPEC_K", 4)),
         spec_depth=int(os.environ.get("SPEC_DEPTH", 1)),
         dispatch_depth=1 if os.environ.get("ENGINE_OVERLAP") == "off" else None,
         kv_tier=args.kv_tier,
+        checkpoint=os.environ.get("CHECKPOINT") or None,
+        quantize=quantize,
+        # the draft's checkpoint counts only when there is a draft, as in
+        # the reference server
+        draft_checkpoint=(os.environ.get("DRAFT_CHECKPOINT") or None) if draft_model else None,
     )
     if os.environ.get("PREWARM", "0") == "1":
         t0 = time.monotonic()

@@ -1,0 +1,382 @@
+"""Checkpoint save and restore, step-managed, in a format torch alone reads.
+
+Counterpart of ``devspace_tpu/training/checkpoint.py``. The reference
+writes Orbax checkpoints; the card's machine has neither orbax nor
+safetensors, so the port has a format of its own, and
+``scripts/convert_checkpoint.py`` carries checkpoints between the two.
+
+A checkpoint is one directory:
+
+- ``params.pt``: the parameter tree flattened to ``{name: tensor}``
+  (``layers.3.wq``), written by ``torch.save`` from CPU tensors and read
+  with ``torch.load(weights_only=True, mmap=True)``, so a restore maps
+  the file instead of reading it into memory. Every dtype, bf16 too, is
+  kept bit for bit;
+- ``opt_state.pt``, only for a train state: the optimizer's
+  ``state_dict()``. A restore of the params alone never opens it;
+- ``meta.json``: the format and its version, the kind (``params`` for a
+  bare tree, ``train_state`` for ``{"params", "opt_state", "step"}``),
+  the step, the tree's structure and every leaf's shape and dtype.
+
+A save writes a temporary sibling (``step_00000010.tmp-...``) and
+renames it into place, so a reader never sees half a checkpoint and
+``list_step_dirs`` skips the sibling, as the reference skips Orbax's tmp
+directories. The train state is the port's
+(``training.trainer.init_train_state``): the optimizer is a live
+``torch.optim.Optimizer`` over the param tensors, so restoring into a
+template fills its tensors in place and loads the optimizer's state.
+
+The reference's ``sharded_template`` and its mesh placement wait for
+the port of ``parallel/``: here every restore lands on one device.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+from typing import Any, Optional
+
+import torch
+
+FORMAT = "devspace-torch-checkpoint"
+VERSION = 1
+PARAMS_FILE, OPT_FILE, META_FILE = "params.pt", "opt_state.pt", "meta.json"
+_TRAIN_KEYS = ("params", "opt_state", "step")
+
+
+def is_train_state(state: Any) -> bool:
+    return isinstance(state, dict) and "params" in state and "opt_state" in state
+
+
+def _flatten(tree: Any, prefix: str, flat: dict) -> Any:
+    """The JSON skeleton of ``tree`` (each leaf replaced by its name),
+    filling ``flat`` with name -> tensor."""
+    if isinstance(tree, dict):
+        return {k: _flatten(v, f"{prefix}{k}.", flat) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_flatten(v, f"{prefix}{i}.", flat) for i, v in enumerate(tree)]
+    if isinstance(tree, torch.Tensor):
+        name = prefix[:-1]
+        flat[name] = tree
+        return name
+    raise TypeError(f"cannot checkpoint a {type(tree).__name__} leaf at {prefix[:-1]!r}")
+
+
+def _unflatten(skeleton: Any, flat: dict) -> Any:
+    if isinstance(skeleton, dict):
+        return {k: _unflatten(v, flat) for k, v in skeleton.items()}
+    if isinstance(skeleton, list):
+        return [_unflatten(v, flat) for v in skeleton]
+    return flat[skeleton]
+
+
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    """A CPU tensor owning exactly ``t``'s bytes (``torch.save`` writes a
+    view's whole storage, so views are copied)."""
+    t = t.detach().to("cpu")
+    if not t.is_contiguous() or t.untyped_storage().nbytes() != t.nbytes:
+        t = t.clone()
+    return t
+
+
+def _host_tree(x: Any) -> Any:
+    """An optimizer ``state_dict`` (or any nested value) with every
+    tensor copied to the host."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", copy=True)
+    if isinstance(x, dict):
+        return {k: _host_tree(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_host_tree(v) for v in x)
+    return x
+
+
+def snapshot(state: Any) -> dict:
+    """What a save writes, copied to the host: ``{"meta", "params",
+    "opt_state"}`` (``opt_state`` None for a bare params tree)."""
+    train = is_train_state(state)
+    params = state["params"] if train else state
+    flat: dict = {}
+    skeleton = _flatten(params, "", flat)
+    flat = {name: _host_copy(t) for name, t in flat.items()}
+    opt = None
+    step = None
+    if train:
+        opt = state["opt_state"]
+        opt = _host_tree(opt.state_dict() if isinstance(opt, torch.optim.Optimizer) else opt)
+        step = int(state.get("step", 0))
+    meta = {
+        "format": FORMAT, "version": VERSION,
+        "kind": "train_state" if train else "params", "step": step, "tree": skeleton,
+        "leaves": {n: {"shape": list(t.shape), "dtype": str(t.dtype).removeprefix("torch.")}
+                   for n, t in flat.items()},
+    }
+    return {"meta": meta, "params": flat, "opt_state": opt}
+
+
+def write_snapshot(path: str, snap: dict, force: bool = True) -> None:
+    """Write ``snap`` (from :func:`snapshot`) as the checkpoint ``path``:
+    into a temporary sibling, then renamed into place."""
+    path = os.path.abspath(path.rstrip(os.sep))
+    if os.path.exists(path) and not force:
+        raise FileExistsError(f"checkpoint {path} exists (force=False)")
+    parent = os.path.dirname(path)
+    os.makedirs(parent, exist_ok=True)
+    tmp = f"{path}.tmp-{os.getpid()}-{threading.get_ident()}"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    try:
+        torch.save(snap["params"], os.path.join(tmp, PARAMS_FILE))
+        if snap["opt_state"] is not None:
+            torch.save(snap["opt_state"], os.path.join(tmp, OPT_FILE))
+        with open(os.path.join(tmp, META_FILE), "w") as f:
+            json.dump(snap["meta"], f)
+        if os.path.exists(path):
+            old = f"{tmp}-old"
+            os.rename(path, old)
+            os.rename(tmp, path)
+            shutil.rmtree(old, ignore_errors=True)
+        else:
+            os.rename(tmp, path)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+
+
+def save_checkpoint(path: str, state: Any, force: bool = True) -> None:
+    """Save a params tree, or a train state ``{"params", "opt_state",
+    "step"}``, as the checkpoint directory ``path``."""
+    write_snapshot(path, snapshot(state), force=force)
+
+
+def read_meta(path: str) -> dict:
+    """The checkpoint's ``meta.json``; ``ValueError`` for a directory that
+    is not a checkpoint of this format (an Orbax one: convert it with
+    ``scripts/convert_checkpoint.py``)."""
+    try:
+        with open(os.path.join(path, META_FILE)) as f:
+            meta = json.load(f)
+    except FileNotFoundError:
+        if not os.path.isdir(path):
+            raise
+        raise ValueError(
+            f"{path} holds no {META_FILE}: not a checkpoint of the port's format "
+            f"(an Orbax checkpoint converts with scripts/convert_checkpoint.py)"
+        ) from None
+    if meta.get("format") != FORMAT or meta.get("version") != VERSION:
+        raise ValueError(f"{path}: unknown checkpoint format {meta.get('format')!r} "
+                         f"version {meta.get('version')!r}")
+    return meta
+
+
+def _fill(saved: Any, template: Any, where: str) -> Any:
+    """``saved`` laid out as ``template``: a tensor leaf on the meta device
+    becomes the saved tensor in the template's dtype (still mapped from
+    the file where the dtype is the saved one); a tensor leaf anywhere
+    else is filled in place."""
+    if isinstance(template, dict):
+        if not isinstance(saved, dict) or set(saved) != set(template):
+            raise ValueError(f"{where or 'tree'}: the saved keys differ from the template's "
+                             f"{sorted(template)}")
+        return {k: _fill(saved[k], template[k], f"{where}.{k}".lstrip(".")) for k in template}
+    if isinstance(template, (list, tuple)):
+        if not isinstance(saved, list) or len(saved) != len(template):
+            raise ValueError(f"{where}: the saved entries differ from the template's "
+                             f"{len(template)}")
+        return type(template)(_fill(s, t, f"{where}.{i}")
+                              for i, (s, t) in enumerate(zip(saved, template)))
+    if not isinstance(template, torch.Tensor):
+        raise TypeError(f"{where}: template leaf must be a tensor, got {type(template).__name__}")
+    if tuple(saved.shape) != tuple(template.shape):
+        raise ValueError(f"{where}: saved shape {tuple(saved.shape)} != template's "
+                         f"{tuple(template.shape)}")
+    if template.device.type == "meta":
+        return saved.to(dtype=template.dtype)
+    with torch.no_grad():
+        template.copy_(saved)
+    return template
+
+
+def restore_checkpoint(path: str, template: Optional[Any] = None, partial: bool = False) -> Any:
+    """Restore the checkpoint ``path``.
+
+    Without a template: the tree as saved, its tensors mapped from the
+    file on the CPU; a train state's ``opt_state`` is the optimizer's
+    ``state_dict`` and ``step`` an int.
+
+    With a template (the tree to restore, or a train state's dict), the
+    saved tree must have its structure and shapes (``ValueError``
+    otherwise): a template tensor on the meta device becomes the saved
+    tensor in the template's dtype on the CPU, any other template
+    tensor is filled in place; an optimizer loads the saved state, and
+    ``step`` is the saved step. ``partial=True`` (needs a template)
+    restores only the parts of a train state the template names:
+    ``{"params": ...}`` reads the params and never opens
+    ``opt_state.pt``."""
+    path = os.path.abspath(path)
+    meta = read_meta(path)
+    train = meta["kind"] == "train_state"
+    if partial and template is None:
+        raise ValueError("partial restore needs a template naming the subtree")
+    if template is not None and train:
+        parts = set(template) if isinstance(template, dict) else set()
+        if not parts or not parts <= set(_TRAIN_KEYS):
+            raise ValueError(f"{path} holds a train state: the template must name parts "
+                             f"of {_TRAIN_KEYS}")
+        if not partial and parts != set(_TRAIN_KEYS):
+            raise ValueError(f"{path}: a full restore needs all of {_TRAIN_KEYS} "
+                             f"(partial=True restores a part)")
+    elif template is not None and is_train_state(template):
+        raise ValueError(f"{path} holds a bare params tree, not a train state")
+    flat = torch.load(os.path.join(path, PARAMS_FILE), weights_only=True, mmap=True,
+                      map_location="cpu")
+    params = _unflatten(meta["tree"], flat)
+    if template is None:
+        if not train:
+            return params
+        opt = torch.load(os.path.join(path, OPT_FILE), weights_only=True, map_location="cpu")
+        return {"params": params, "opt_state": opt, "step": meta["step"]}
+    if not train:
+        return _fill(params, template, "")
+    out = {}
+    if "params" in template:
+        out["params"] = _fill(params, template["params"], "params")
+    if "opt_state" in template:
+        opt = torch.load(os.path.join(path, OPT_FILE), weights_only=True, map_location="cpu")
+        target = template["opt_state"]
+        if isinstance(target, torch.optim.Optimizer):
+            target.load_state_dict(opt)
+            opt = target
+        out["opt_state"] = opt
+    if "step" in template:
+        out["step"] = meta["step"]
+    return out
+
+
+def list_step_dirs(root: str) -> list[tuple[int, str]]:
+    """All ``root/step_NNNNNNNN`` checkpoint dirs as (step, path), numeric
+    order — the one parser of the step-dir naming convention."""
+    out: list[tuple[int, str]] = []
+    try:
+        names = os.listdir(root)
+    except OSError:
+        return out
+    for d in names:
+        if d.startswith("step_"):
+            try:
+                out.append((int(d[len("step_"):]), os.path.join(root, d)))
+            except ValueError:
+                continue  # e.g. a save's temporary sibling
+    return sorted(out)
+
+
+def latest_step_dir(root: str) -> Optional[str]:
+    """Step-numbered checkpoint dirs: root/step_00000010 etc."""
+    steps = list_step_dirs(root)
+    return steps[-1][1] if steps else None
+
+
+class CheckpointManager:
+    """Step-managed checkpointing with retention and resume.
+
+    ``maybe_save`` checkpoints every ``save_interval`` steps into
+    ``root/step_NNNNNNNN`` and keeps the newest ``max_to_keep``;
+    ``restore_or_init`` makes a cold start and a resumed run the same
+    call site. ``use_async=True`` copies the state to the host in
+    ``save`` and writes it on a thread, overlapping the next steps; a
+    save waits for the one before it, and ``wait_until_finished`` (which
+    ``restore``, ``close`` and ``train_loop`` call) commits the last and
+    raises its error, if any."""
+
+    def __init__(self, root: str, save_interval: int = 100, max_to_keep: int = 3,
+                 use_async: bool = False):
+        self.root = os.path.abspath(root)
+        self.save_interval = max(1, int(save_interval))
+        self.max_to_keep = max(1, int(max_to_keep))
+        self.use_async = use_async
+        self._writer: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        os.makedirs(self.root, exist_ok=True)
+
+    def _dir(self, step: int) -> str:
+        return os.path.join(self.root, f"step_{step:08d}")
+
+    def all_steps(self) -> list[int]:
+        return [step for step, _ in list_step_dirs(self.root)]
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, state: Any) -> str:
+        path = self._dir(step)
+        if not self.use_async:
+            save_checkpoint(path, state, force=True)
+            self._gc()
+            return path
+        self.wait_until_finished()
+        snap = snapshot(state)  # the device -> host copy, before the state moves on
+
+        def write():
+            try:
+                write_snapshot(path, snap, force=True)
+                self._gc()
+            except BaseException as e:  # noqa: BLE001 — raised by wait_until_finished
+                self._error = e
+
+        self._writer = threading.Thread(target=write, name=f"checkpoint-{step}", daemon=True)
+        self._writer.start()
+        return path
+
+    def wait_until_finished(self) -> None:
+        """Block until an in-flight asynchronous save has committed; raise
+        the error it met."""
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+        if self._error is not None:
+            error, self._error = self._error, None
+            raise error
+
+    def close(self) -> None:
+        """Commit any in-flight save. Idempotent."""
+        self.wait_until_finished()
+
+    def __enter__(self) -> "CheckpointManager":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def maybe_save(self, step: int, state: Any) -> Optional[str]:
+        """Save when the policy says so (every ``save_interval`` steps);
+        returns the path when a checkpoint was written."""
+        if step % self.save_interval:
+            return None
+        return self.save(step, state)
+
+    def restore(self, step: Optional[int] = None, template: Any = None) -> Any:
+        self.wait_until_finished()
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {self.root}")
+        return restore_checkpoint(self._dir(step), template)
+
+    def restore_or_init(self, init_fn, template: Any = None) -> tuple[Any, int]:
+        """``(state, step)``: the latest checkpoint, or ``(init_fn(), 0)``
+        on a cold start. Without a ``template`` the checkpoint is restored
+        into ``init_fn()``'s state: its tensors filled in place and its
+        optimizer loaded, so the optimizer keeps its hold on the params."""
+        self.wait_until_finished()
+        step = self.latest_step()
+        if step is None:
+            return init_fn(), 0
+        if template is None:
+            template = init_fn()
+        return self.restore(step, template), step
+
+    def _gc(self) -> None:
+        for step in self.all_steps()[: -self.max_to_keep]:
+            shutil.rmtree(self._dir(step), ignore_errors=True)

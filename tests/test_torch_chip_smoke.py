@@ -1,12 +1,13 @@
 """chip_smoke.py's bookkeeping, on the CPU: which kind each profiled
 kernel counts under, the flash kernels' work and rates, and that it
-builds every CUDA source of the port; and a rehearsal of the kv_tier
-phase's control flow at TINY. The script itself runs on the card
+builds every CUDA source of the port; and rehearsals of the kv_tier
+and int8_weights phases' control flow at TINY. The script itself runs on the card
 (``python3 chip_smoke.py``); these are the parts a reader takes on trust
 from its output."""
 
 import json
 
+import numpy as np
 import pytest
 import torch
 
@@ -97,17 +98,31 @@ def test_attention_bound_is_bytes_at_the_main_paths_shapes():
         assert bound_ms == pytest.approx(4 * bh * t * d * 2 / cs.HBM_BYTES_PER_S * 1e3)
 
 
+def test_int8_product_shapes_are_one_7b_step():
+    """The products ``int8_product_times`` sums are one Llama-2-7B decode
+    step's: every matmul weight of every layer, and lm_head once."""
+    from devspace_tpu_torch.inference import quantization as wq
+    from devspace_tpu_torch.models import transformer as tfm
+
+    params = tfm.init_params(tfm.LLAMA2_7B, torch.Generator(), device="meta")
+    shapes = [tuple(t.shape) for layer in params["layers"] for name, t in layer.items()
+              if name in wq._MATMUL_LEAVES] + [tuple(params["lm_head"].shape)]
+    want = {}
+    for shape in shapes:
+        want[shape] = want.get(shape, 0) + 1
+    assert {shape: count for shape, count in cs.INT8_PRODUCT_SHAPES.values()} == want
+
+
 # -- a CPU rehearsal of the kv_tier phase -------------------------------------
 TINY_KV_TIER = {"max_slots": 2, "max_len": 128, "block_size": 8, "n_blocks": 17,
                 "tier_bytes": 1 << 20, "shared": 32, "distinct": 64, "tail": 8, "new_tokens": 16}
 
 
-def test_kv_tier_phase_rehearsed_on_the_cpu(monkeypatch):
-    """The kv_tier phase's control flow and checks at TINY on the CPU
-    (the waves scaled with the pool: the shared chain is 4 blocks): the
-    paged-decode calls a replay would launch are counted by a stand-in,
-    ``prewarm_engine`` builds without the card's launch accounting, and
-    the bf16 tie bound only has to admit this TINY's own rounding."""
+@pytest.fixture
+def counting_launches(monkeypatch):
+    """Stand-ins for the card's launch accounting: each paged-decode call
+    a program makes is counted as a replay's launch, and
+    ``prewarm_engine`` builds without the card's checks."""
     from devspace_tpu_torch.inference import graphs
     from devspace_tpu_torch.models import transformer as tfm
 
@@ -130,6 +145,73 @@ def test_kv_tier_phase_rehearsed_on_the_cpu(monkeypatch):
     monkeypatch.setattr(tfm, "paged_decode_attention", counting_attention)
     monkeypatch.setattr(graphs.ProgramTable, "run", counting_run)
     monkeypatch.setattr(cs, "prewarm_engine", cpu_prewarm)
+
+
+def tiny_serving_requests(cfg):
+    """serving_requests' six kinds at TINY's 128 positions: greedy at
+    rows 0, 1, 3 and 4, sampled at 2, forced tokens and a stop at 5."""
+    rng = np.random.default_rng(0)
+    S, E = 123, 45
+    return [
+        (rng.integers(1, cfg.vocab_size, 7).tolist(), 32, {}),
+        (rng.integers(1, cfg.vocab_size, 20).tolist(), 32, {}),
+        (rng.integers(1, cfg.vocab_size, 33).tolist(), 32,
+         {"temperature": 0.8, "top_p": 0.9, "seed": 7}),
+        (rng.integers(1, cfg.vocab_size, 50).tolist(), 32, {}),
+        (rng.integers(1, cfg.vocab_size, 70).tolist(), 32, {}),
+        (rng.integers(1, cfg.vocab_size, 16).tolist(), 32,
+         {"eos_id": E, "stop": [[S, S]], "min_new_tokens": 4, "logit_bias": {S: 1e4}}),
+    ]
+
+
+def test_int8_weights_phase_rehearsed_on_the_cpu(monkeypatch, counting_launches):
+    """The int8_weights phase's control flow and checks at TINY on the
+    CPU: the save, the byte-equal restore, q and scale made twice,
+    ``build_engine(checkpoint=, quantize="int8")`` serving the smoke
+    requests (sized for TINY, the forced token 123) and a steady burst
+    of 4 x 24, greedy streams against the eager argmax, captures flat.
+    The timings (CUDA events) are stand-ins."""
+    from devspace_tpu_torch.inference import quantization as wq
+    from devspace_tpu_torch.models import transformer as tfm
+
+    tiny = tiny_serving_requests(tfm.TINY)
+    monkeypatch.setattr(cs, "serving_requests", lambda cfg: tiny)
+    monkeypatch.setattr(cs, "STEADY", {"requests": 4, "prompt": 8, "new_tokens": 24})
+    monkeypatch.setattr(cs, "decode_step_times", lambda engine: {"graph_ms": 2.0})
+    monkeypatch.setattr(cs, "int8_product_times", lambda dev: {})  # CUDA events only
+    real_drive = cs.drive_engine
+
+    def drive(engine, requests):
+        run = real_drive(engine, requests)
+        assert run["results"][5] == [123] * 4  # the forced token, cut by its stop
+        run["results"][5] = [1234] * 4  # the 7B requests force 1234
+        return run
+
+    monkeypatch.setattr(cs, "drive_engine", drive)
+    params = tfm.init_params(tfm.TINY, torch.Generator().manual_seed(0))
+    line = cs.phase_int8_weights(params, torch.device("cpu"), "cpu", 1.0, cfg=tfm.TINY,
+                                 model="tiny")
+    assert line["phase"] == "int8_weights" and line["dense_params_byte_equal"]
+    assert line["q_scale_card_equals_cpu"] == ["layers.0.w_down", "layers.1.w_down", "lm_head"]
+    assert line["launches"] == tfm.TINY.n_layers * line["decode_steps"] > 0
+    assert line["graph_captures_after_prewarm"] == 0 and line["graph_ms_over_bf16"] == 2.0
+    assert line["steady"]["decode_steps"] > 0 and line["peak_mem_gb"] is None
+    # one byte a matmul weight and four a column's scale; the embedding
+    # and the norms stay dense
+    leaves = [(name, t) for name, t in params.items() if name != "layers"]
+    leaves += [item for layer in params["layers"] for item in layer.items()]
+    want = sum(t.numel() + 4 * t.shape[1] if name in wq._MATMUL_LEAVES
+               else t.numel() * t.element_size() for name, t in leaves)
+    assert line["int8_weight_gb"] == want / 1e9
+    json.dumps(line)  # one JSON line
+
+
+def test_kv_tier_phase_rehearsed_on_the_cpu(counting_launches):
+    """The kv_tier phase's control flow and checks at TINY on the CPU
+    (the waves scaled with the pool: the shared chain is 4 blocks), the
+    bf16 tie bound only has to admit this TINY's own rounding."""
+    from devspace_tpu_torch.models import transformer as tfm
+
     params = tfm.init_params(tfm.TINY, torch.Generator().manual_seed(0))
     line = cs.phase_kv_tier(params, torch.device("cpu"), "cpu", tie_bound=0.5, cfg=tfm.TINY,
                             sizes=TINY_KV_TIER, model="tiny")

@@ -19,6 +19,7 @@ import urllib.error
 import urllib.request
 
 import pytest
+import torch
 
 from devspace_tpu_torch import serve
 from devspace_tpu_torch.inference.kv_tier import unpack_chain_envelope
@@ -172,7 +173,19 @@ def test_generate_speculative_k_and_bad_input(spec_url):
     assert call(spec_url, "/generate_speculative", {**ok, "max_new_tokens": 10_000})[0] == 400
 
 
-def test_draft_policy_from_env(monkeypatch):
+@pytest.fixture(scope="module")
+def checkpoint_root(tmp_path_factory):
+    """TINY params (seed 5) saved at step 7 under a training root."""
+    from devspace_tpu_torch.models import transformer as tfm
+    from devspace_tpu_torch.training.checkpoint import CheckpointManager
+
+    root = tmp_path_factory.mktemp("serve_ckpt")
+    params = tfm.init_params(tfm.TINY, torch.Generator().manual_seed(5))
+    CheckpointManager(str(root)).save(7, params)
+    return str(root), params
+
+
+def test_draft_policy_from_env(monkeypatch, checkpoint_root):
     for name in ("SPEC", "DRAFT_MODEL", "DRAFT_CHECKPOINT"):
         monkeypatch.delenv(name, raising=False)
     assert serve.draft_model_from_env("tiny") == "tiny"  # tiny drafts for itself
@@ -181,9 +194,17 @@ def test_draft_policy_from_env(monkeypatch):
     assert serve.draft_model_from_env("llama2-7b") == "llama2-13b"
     monkeypatch.setenv("SPEC", "0")
     assert serve.draft_model_from_env("tiny") is None
-    monkeypatch.setenv("DRAFT_CHECKPOINT", "runs/draft")
-    with pytest.raises(SystemExit, match="DRAFT_CHECKPOINT"):
-        serve.draft_model_from_env("tiny")
+    # DRAFT_CHECKPOINT restores the draft's weights (it names no config)
+    root, params = checkpoint_root
+    monkeypatch.setenv("DRAFT_CHECKPOINT", root)
+    monkeypatch.delenv("SPEC")
+    monkeypatch.delenv("DRAFT_MODEL")
+    draft = serve.draft_model_from_env("tiny")
+    assert draft == "tiny"
+    engine = serve.build_engine("tiny", device="cpu", max_slots=1, draft_model=draft,
+                                draft_checkpoint=os.environ["DRAFT_CHECKPOINT"])
+    assert torch.equal(engine.draft_params["lm_head"], params["lm_head"])
+    assert not torch.equal(engine.params["lm_head"], params["lm_head"])  # the target: seed 0
 
 
 def test_build_engine_checks_the_draft():
@@ -191,6 +212,73 @@ def test_build_engine_checks_the_draft():
         serve.build_engine("tiny", device="cpu", draft_model="nope")
     with pytest.raises(ValueError, match="vocab"):
         serve.build_engine("tiny", device="cpu", draft_model="llama2-7b")
+    with pytest.raises(ValueError, match="DRAFT_MODEL"):
+        serve.build_engine("tiny", device="cpu", draft_checkpoint="runs/draft")
+
+
+def test_build_engine_restores_a_checkpoint(checkpoint_root, capsys):
+    from devspace_tpu_torch.inference.quantization import QuantizedLinear, quantize_weight
+
+    root, params = checkpoint_root
+    engine = serve.build_engine("tiny", device="cpu", max_slots=1, checkpoint=root)
+    assert torch.equal(engine.params["lm_head"], params["lm_head"])
+    assert f"restored tiny params from {root} (step 7)\n" in capsys.readouterr().out
+    engine = serve.build_engine("tiny", device="cpu", max_slots=1, checkpoint=root,
+                                quantize="int8")
+    assert "(step 7), int8 weights" in capsys.readouterr().out
+    got, want = engine.params["layers"][0]["wv"], quantize_weight(params["layers"][0]["wv"])
+    assert isinstance(got, QuantizedLinear) and torch.equal(got.q, want.q)
+    random = serve.build_engine("tiny", device="cpu", max_slots=1, quantize="int8")
+    assert isinstance(random.params["lm_head"], QuantizedLinear)  # seeded weights, quantized
+    with pytest.raises(ValueError, match="int4"):
+        serve.build_engine("tiny", device="cpu", quantize="int4")
+    with pytest.raises(ValueError, match="does not match the serving config"):
+        serve.build_engine("llama2-7b", device="cpu", checkpoint=root)
+
+
+def test_main_refuses_an_unknown_quantize(monkeypatch):
+    monkeypatch.setenv("QUANTIZE", "int4")
+    with pytest.raises(SystemExit, match="only int8 exists"):
+        serve.main(["--device", "cpu", "--port", "0"])
+
+
+def test_module_entry_point_serves_a_checkpoint(checkpoint_root):
+    """``CHECKPOINT``, ``QUANTIZE=int8`` and ``DRAFT_CHECKPOINT`` through
+    ``python -m devspace_tpu_torch.serve``: the weights are restored,
+    the target quantized, and /generate_speculative answers with the
+    restored draft."""
+    root, _ = checkpoint_root
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "MODEL": "tiny", "MAX_SLOTS": "1", "CHECKPOINT": root,
+           "QUANTIZE": "int8", "DRAFT_CHECKPOINT": root}
+    env.pop("SPEC", None)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "devspace_tpu_torch.serve", "--port", str(port),
+         "--host", "127.0.0.1", "--device", "cpu"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+    )
+    base = f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                code, _ = call(base, "/healthz", timeout=2)
+                break
+            except OSError:
+                assert proc.poll() is None, proc.stdout.read().decode()
+                assert time.monotonic() < deadline, "server did not come up"
+                time.sleep(0.2)
+        assert code == 200
+        code, raw = call(base, "/generate_speculative", {"prompt_ids": [5, 1, 4],
+                                                         "max_new_tokens": 6})
+        assert code == 200 and len(json.loads(raw)["tokens"]) == 6
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=10)[0].decode()
+    assert f"restored tiny params from {root} (step 7), int8 weights" in out
+    assert f"restored draft 'tiny' params from {root} (step 7)" in out
 
 
 def test_module_entry_point_takes_port():
