@@ -55,6 +55,18 @@ The engine's paged-decode launches are counted per graph replay
 only while ``prewarm`` captures the graphs, and the script checks that
 it stays at 0 while the engine serves.
 
+The model zoo (after the LM's training): the loss kernel at the
+classifiers' and the MoE LM's shapes and flash at head width 128, each
+held against its plain version and timed; ResNet-50 at full width in
+float32 on the card against the CPU (eval logits, one SGD step's loss
+and running statistics); bench.py's ResNet-50 harness (space-to-depth
+stem, bf16, batch 256 x 224^2, SGD 0.1 with momentum 0.9, 3 + 20 steps,
+one profiled step by kind of kernel, then a few steps with the conv7
+stem); the MNIST MLP for 200 Adam steps (loss below 1e-3 by step 100);
+ViT-B/16 at batch 128 x 224^2; and Mixtral-8x7B's widths at 2 layers
+(batch 2 x 2048 tokens, AdamW) through flash attention at D = 128 and
+the loss kernel, each with its launch counts.
+
 The RMSNorm kernel lies on no model's path (as in the JAX package); it is
 built, held against its plain version and timed.
 
@@ -67,8 +79,10 @@ prints no result.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import os
@@ -95,12 +109,14 @@ from devspace_tpu_torch.inference import engine as einf
 from devspace_tpu_torch.inference import quantization as wq
 from devspace_tpu_torch.inference import kv_tier as kvt
 from devspace_tpu_torch.inference import speculative as spec
+from devspace_tpu_torch.models import mlp, moe, resnet, vit
 from devspace_tpu_torch.models import transformer as tfm
 from devspace_tpu_torch.ops import _build
 from devspace_tpu_torch.ops import attention as sa
 from devspace_tpu_torch.ops import flash_attention as fa
 from devspace_tpu_torch.ops import losses as xl
 from devspace_tpu_torch.ops import normalization as rn
+from devspace_tpu_torch.parallel import expert_parallel as eparallel
 from devspace_tpu_torch.ops import paged_attention as pa
 from devspace_tpu_torch.training import data as tdata
 from devspace_tpu_torch.training import trainer as ttrainer
@@ -1363,13 +1379,13 @@ def phase_train_kernel_parity(dev) -> dict:
     return out
 
 
-def phase_train_kernel_timing(dev) -> dict:
-    """Each kernel at the bench step's shape (bf16, causal [128, 2048,
-    64]; logits f32 [16384, 32000]) beside its plain version, one library
-    call computing the same function (SDPA forward; SDPA backward for dq
-    and dk/dv together; F.cross_entropy) and its bound."""
-    bh, t, d = FLASH_SHAPES["bench"]
-    q, k, v, do = flash_inputs(5, (bh, t, d), torch.bfloat16, dev)
+def flash_timing(shape, heads: int, seed: int, dev) -> dict:
+    """Each flash kernel at bf16 causal ``shape`` [B*H, T, D] beside its
+    plain version, one library call computing the same function (SDPA
+    forward on [B, H, T, D] with ``heads`` heads; SDPA backward for dq
+    and dk/dv together) and its bound."""
+    bh, t, d = shape
+    q, k, v, do = flash_inputs(seed, (bh, t, d), torch.bfloat16, dev)
     o, lse = fa.flash_fwd(q, k, v, True)
     delta = (do.float() * o.float()).sum(-1)
     out = {}
@@ -1388,12 +1404,13 @@ def phase_train_kernel_timing(dev) -> dict:
         out[name] = {"kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None,
                      **flash_rates(name, bh, t, d, True, ms, bound_ms)}
-    q4, k4, v4 = [x.view(8, 16, t, d).detach().requires_grad_() for x in (q, k, v)]
+    q4, k4, v4 = [x.view(bh // heads, heads, t, d).detach().requires_grad_() for x in (q, k, v)]
     out["fwd"]["library_ms"], _ = device_ms(
         lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True), 20)
     sdpa = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
     lib_bwd, _ = device_ms(
-        lambda: torch.autograd.grad(sdpa, (q4, k4, v4), do.view(8, 16, t, d), retain_graph=True), 20)
+        lambda: torch.autograd.grad(sdpa, (q4, k4, v4), do.view(bh // heads, heads, t, d),
+                                    retain_graph=True), 20)
     pair_ms = out["bwd_dq"]["kernel_ms"] + out["bwd_dkv"]["kernel_ms"]
     pair_gflop = out["bwd_dq"]["gflop"] + out["bwd_dkv"]["gflop"]
     pair_bound = out["bwd_dq"]["bound_ms"] + out["bwd_dkv"]["bound_ms"]
@@ -1402,19 +1419,32 @@ def phase_train_kernel_timing(dev) -> dict:
     out["fwd"]["library_max_abs_err"] = (sdpa.detach().view(bh, t, d).float() - o.float()).abs().max().item()
     del q, k, v, do, o, lse, delta, q4, k4, v4, sdpa
     torch.cuda.empty_cache()
-    b, vocab = XENT_SHAPE
-    g = torch.Generator(device=dev).manual_seed(6)
+    return out
+
+
+def xent_timing(b: int, vocab: int, seed: int, dev) -> dict:
+    """The loss kernel on f32 logits [b, vocab] beside its plain version,
+    ``F.cross_entropy`` and its bound."""
+    g = torch.Generator(device=dev).manual_seed(seed)
     logits = 3 * torch.randn((b, vocab), generator=g, device=dev)
     labels = torch.randint(0, vocab, (b,), generator=g, device=dev)
     ms, _ = device_ms(lambda: xl.xent_fwd(logits, labels), 20)
     plain_ms, _ = device_ms(lambda: xl._xent_fwd_reference(logits, labels), 5)
     lib_ms, _ = device_ms(lambda: F.cross_entropy(logits, labels, reduction="none"), 20)
     bound_ms, bound_by = xent_bound(b, vocab, 4)
-    out["xent"] = {"kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by}
     del logits
     torch.cuda.empty_cache()
-    return out
+    return {"kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_train_kernel_timing(dev) -> dict:
+    """Each kernel at the bench step's shape (bf16, causal [128, 2048,
+    64]; logits f32 [16384, 32000]) beside its plain version, one library
+    call computing the same function (SDPA forward; SDPA backward for dq
+    and dk/dv together; F.cross_entropy) and its bound."""
+    return {**flash_timing(FLASH_SHAPES["bench"], BENCH_LM.n_heads, 5, dev),
+            "xent": xent_timing(*XENT_SHAPE, 6, dev)}
 
 
 def trainable(params: dict, dev) -> dict:
@@ -1480,10 +1510,15 @@ def kernel_kind(name: str) -> str:
     return "other"
 
 
-def device_breakdown(step_fn) -> dict:
-    """One step under torch.profiler: device time by kind of kernel (the
-    port's kernels, matrix products, the rest) against the step's wall
-    time, whose remainder is the device's idle share."""
+LM_KINDS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "short_attention", "cross_entropy",
+            "matmul", "other")
+
+
+def device_breakdown(step_fn, classify=kernel_kind, kinds=LM_KINDS) -> dict:
+    """One step under torch.profiler: device time by kind of kernel
+    (``classify(name)``, one of ``kinds``: for the LM the port's kernels,
+    matrix products, the rest) against the step's wall time, whose
+    remainder is the device's idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1492,8 +1527,7 @@ def device_breakdown(step_fn) -> dict:
         step_fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kinds = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0, "short_attention": 0.0,
-             "cross_entropy": 0.0, "matmul": 0.0, "other": 0.0}
+    kinds = dict.fromkeys(kinds, 0.0)
     top = []  # (ms, calls, kernel name)
     for evt in prof.key_averages():
         if str(getattr(evt, "device_type", "")).split(".")[-1] != "CUDA":
@@ -1504,7 +1538,7 @@ def device_breakdown(step_fn) -> dict:
         if us is None:
             us = evt.self_cuda_time_total
         name = evt.key
-        kinds[kernel_kind(name)] += us / 1e3
+        kinds[classify(name)] += us / 1e3
         top.append((us / 1e3, evt.count, name[:90]))
     busy = sum(kinds.values())
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
@@ -1531,32 +1565,17 @@ def phase_train(dev, card) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_train_counts()
-    losses = []
-    for tokens in batches[:TRAIN_WARMUP]:
-        state, loss = step(state, tokens)
-        losses.append(loss)
-    torch.cuda.synchronize()
-    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-              for _ in range(TRAIN_STEPS)]
-    t0 = time.perf_counter()
-    for (start, end), tokens in zip(events, batches[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_STEPS]):
-        start.record()
-        state, loss = step(state, tokens)
-        end.record()
-        losses.append(loss)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
+    state, losses, step_ms, elapsed = timed_steps(
+        step, state, batches[:TRAIN_WARMUP + TRAIN_STEPS], TRAIN_WARMUP)
     counts = train_counts()
     n_steps = TRAIN_WARMUP + TRAIN_STEPS
     expect = {name: (1 if key is None else cfg.n_layers) * n_steps
               for name, (key, _, _) in TRAIN_KERNELS.items()}
     assert counts == expect, (counts, expect)
     assert fa.LAST_DISPATCH["impl"] == "cuda" and xl.LAST_DISPATCH["impl"] == "cuda"
-    losses = [x.item() for x in losses]
-    assert all(math.isfinite(x) for x in losses), losses
+    losses = scalar_losses(losses)
     assert losses[-1] < losses[0], losses
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    step_ms = [s.elapsed_time(e) for s, e in events]
     tok_s = TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / elapsed
     breakdown = device_breakdown(lambda: step(state, batches[-1]))
     return {
@@ -1567,6 +1586,391 @@ def phase_train(dev, card) -> dict:
         "peak_mem_gb": peak_gb, "losses": losses, "launches": counts,
         "profiled_step": breakdown,
     }
+
+
+# -- the model zoo (ResNet-50, the MNIST MLP, ViT-B/16, the Mixtral-width MoE)
+def zoo_kernel_kind(name: str) -> str:
+    """The kind a device kernel of a vision or MoE step counts under: the
+    loss kernel and the flash kernels by their symbols, the optimizer's
+    fused multi-tensor kernels, BatchNorm and the elementwise and
+    reduction kernels around it (ReLU, casts, residual adds, the spatial
+    mean), convolutions and matrix products by cuDNN's, cuBLAS's and
+    CUTLASS's names (the classifier's one head product counts there
+    too), everything else "other"."""
+    if "xent_kernel" in name:
+        return "loss_kernel"
+    kind = kernel_kind(name)
+    if kind.startswith("flash"):
+        return "flash"
+    n = name.lower()
+    if "multi_tensor_apply" in n:
+        return "optimizer"
+    if "pool" in n:  # max pooling, whose NHWC kernels' names read like cuDNN's
+        return "other"
+    if any(s in n for s in ("batch_norm", "elementwise", "reduce_kernel", "softmax")):
+        return "elementwise"
+    if kind == "matmul" or any(s in n for s in ("conv", "fprop", "dgrad", "wgrad", "cudnn",
+                                                 "implicit", "nhwc", "nchw")):
+        return "conv_matmul"
+    return "other"
+
+
+ZOO_KINDS = ("conv_matmul", "elementwise", "loss_kernel", "flash", "optimizer", "other")
+# bench.py's headline harness (bench.py:182-256): ResNet-50 v1.5, the
+# space-to-depth stem, bf16, batch 256 x 224^2 from default_rng(0), 1000
+# classes, SGD 0.1 with momentum 0.9, 3 warm-up and 20 timed steps; 4.09
+# GFLOP a forward per image (bench.py:254), x3 for a train step. cuDNN
+# picks its algorithms by timing them (``cudnn.benchmark``) in every zoo
+# phase, the parity one included
+RESNET = {"batch": 256, "image": 224, "classes": 1000, "lr": 0.1, "warmup": 3, "steps": 20,
+          "conv7_warmup": 2, "conv7_steps": 5}
+RESNET50_FWD_GFLOP_PER_IMG = 4.09
+ZOO_SMALL = {"batch": 8, "image": 64}
+# ResNet-50 on the card against the CPU, float32 (TF32 off): sums in
+# other orders through 53 conv + BatchNorm layers, ~4e-6 a product
+ZOO_SMALL_REL = 1e-3
+# examples/jax-mnist: MLP (512, 256, 10), Adam 1e-3, batch 256
+MNIST = {"batch": 256, "lr": 1e-3, "steps": 200, "check_step": 100, "below": 1e-3}
+# ViT-B/16 at 224^2, batch 128, bf16, Adam 1e-3, one fixed batch
+VIT = {"batch": 128, "image": 224, "classes": 1000, "lr": 1e-3, "warmup": 3, "steps": 10}
+# MIXTRAL_8X7B's widths at 2 of its 32 layers (46.7B parameters do not
+# fit one card; 2 layers are 3.16B), batch 2 x 2049 Markov tokens, AdamW
+MOE_CFG = dataclasses.replace(moe.MIXTRAL_8X7B, n_layers=2)
+MOE = {"batch": 2, "seq": 2048, "lr": 3e-4, "warmup": 2, "steps": 8}
+# the loss kernel at each zoo path's shape (f32 logits [rows, classes]),
+# flash at the MoE's (bf16 causal [B*H, T, D]: batch 2, 32 heads)
+ZOO_XENT_SHAPES = {"resnet50": (RESNET["batch"], RESNET["classes"]), "mnist": (MNIST["batch"], 10),
+                   "vit": (VIT["batch"], VIT["classes"]),
+                   "moe": (MOE["batch"] * MOE["seq"], MOE_CFG.vocab_size)}
+ZOO_FLASH_SHAPE = (MOE["batch"] * MOE_CFG.n_heads, MOE["seq"], MOE_CFG.head_dim)
+ZOO_FLASH_HEADS = MOE_CFG.n_heads
+
+
+@contextlib.contextmanager
+def cudnn_benchmark():
+    """cuDNN picks each convolution's algorithm by timing the candidates
+    on first use of a shape (the zoo phases' setting)."""
+    before = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark = before
+
+
+def phase_zoo_kernel_parity(dev) -> dict:
+    """The loss kernel against its plain version at the zoo's f32 shapes,
+    and the flash forward and backward pair at the MoE's bf16 causal
+    [64, 2048, 128]."""
+    out = {}
+    for b, vocab in ZOO_XENT_SHAPES.values():
+        g = torch.Generator(device=dev).manual_seed(7)
+        logits = 3 * torch.randn((b, vocab), generator=g, device=dev)
+        labels = torch.randint(0, vocab, (b,), generator=g, device=dev)
+        loss, lse = xl.xent_fwd(logits, labels)
+        torch.cuda.synchronize()
+        assert xl.LAST_DISPATCH["impl"] == "cuda"
+        rloss, rlse = xl._xent_fwd_reference(logits, labels)
+        torch.testing.assert_close(loss, rloss, rtol=XENT_RTOL, atol=XENT_ATOL)
+        torch.testing.assert_close(lse, rlse, rtol=XENT_RTOL, atol=XENT_ATOL)
+        out[f"xent/{b}x{vocab}"] = {"loss": (loss - rloss).abs().max().item(),
+                                    "lse": (lse - rlse).abs().max().item()}
+    q, k, v, do = flash_inputs(8, ZOO_FLASH_SHAPE, torch.bfloat16, dev)
+    o, lse, delta, dq, dk, dv = flash_run(q, k, v, do, True)
+    torch.cuda.synchronize()
+    assert fa.LAST_DISPATCH["impl"] == "cuda"
+    ro, rlse = fa.flash_fwd_reference(q, k, v, True)
+    rdq = fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, True)
+    rdk, rdv = fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, True)
+    torch.testing.assert_close(lse, rlse, rtol=F32_RTOL, atol=1e-4, msg="d128 lse")
+    line = {t: kernel_err(g, r, f"moe d128 {t}")
+            for t, g, r in (("o", o, ro), ("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv))}
+    line["lse"] = (lse - rlse).abs().max().item()
+    out["flash/bfloat16/causal/" + "x".join(map(str, ZOO_FLASH_SHAPE))] = line
+    del q, k, v, do, o, lse, delta, dq, dk, dv, ro, rlse, rdq, rdk, rdv
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_zoo_kernel_timing(dev) -> dict:
+    """The loss kernel at each zoo shape and the flash kernels at the
+    MoE's, each beside its plain version, its library call and bound."""
+    out = {f"xent/{b}x{v}": xent_timing(b, v, 9, dev) for b, v in ZOO_XENT_SHAPES.values()}
+    out["flash_d128"] = flash_timing(ZOO_FLASH_SHAPE, ZOO_FLASH_HEADS, 10, dev)
+    return out
+
+
+def classifier_batch(batch: int, image: int, classes: int, seed: int, dev) -> dict:
+    """One batch as bench.py makes it: unit normals NHWC and uniform
+    labels from ``np.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    images = rng.normal(size=(batch, image, image, 3)).astype(np.float32)
+    labels = rng.integers(0, classes, size=batch)
+    return {"image": torch.from_numpy(images).to(dev), "label": torch.from_numpy(labels).to(dev)}
+
+
+def phase_zoo_small_reference(dev) -> dict:
+    """ResNet-50 (space-to-depth stem, full width) in float32 at batch 8
+    x 64^2 on the card, through cuDNN and the loss kernel, against the
+    same model on the CPU through the plain versions: eval-mode logits,
+    the loss of one SGD step and the running statistics after it, each
+    within ``ZOO_SMALL_REL`` of its largest value."""
+    cpu = torch.device("cpu")
+    base = resnet.ResNet50(num_classes=1000, dtype=torch.float32, stem="space_to_depth",
+                           device=cpu, seed=0)
+    batch = classifier_batch(ZOO_SMALL["batch"], ZOO_SMALL["image"], 1000, 1, cpu)
+    result = {}
+    for d in (cpu, dev):
+        model = copy.deepcopy(base).to(d)
+        with torch.no_grad():
+            logits = model(batch["image"].to(d), train=False)
+        opt = ttrainer.sgd(RESNET["lr"])
+        step = ttrainer.make_classifier_train_step(model, opt, has_batch_stats=True)
+        reset_train_counts()
+        _, loss = step(ttrainer.init_train_state(model, opt),
+                       {k: t.to(d) for k, t in batch.items()})
+        result[d] = (logits.cpu(), loss.item(), [b.cpu() for b in model.buffers()])
+    assert xl.LAUNCHES == 1, xl.LAUNCHES  # the card's step, the last one
+    logit_err = ((result[dev][0] - result[cpu][0]).abs().max()
+                 / result[cpu][0].abs().max()).item()
+    loss_err = abs(result[dev][1] - result[cpu][1]) / abs(result[cpu][1])
+    stats_err = max(((a - b).abs().max() / b.abs().max()).item()
+                    for a, b in zip(result[dev][2], result[cpu][2]))
+    for name, err in (("logits", logit_err), ("loss", loss_err), ("batch_stats", stats_err)):
+        assert err <= ZOO_SMALL_REL, f"card vs CPU {name} differ by {err} of the largest value"
+    return {"model": "resnet50/space_to_depth/f32", **ZOO_SMALL, "loss": result[dev][1],
+            "logit_rel_err": logit_err, "loss_rel_err": loss_err, "stats_rel_err": stats_err,
+            "rel_tol": ZOO_SMALL_REL, "cudnn_benchmark": torch.backends.cudnn.benchmark}
+
+
+def timed_steps(step, state, batches, warmup: int) -> tuple:
+    """Run every batch through ``step``; the ones after ``warmup`` between
+    CUDA events. Returns (state, losses as tensors, per-step device ms,
+    host seconds of the timed steps)."""
+    losses = []
+    for batch in batches[:warmup]:
+        state, loss = step(state, batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    timed = batches[warmup:]
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in timed]
+    t0 = time.perf_counter()
+    for (start, end), batch in zip(events, timed):
+        start.record()
+        state, loss = step(state, batch)
+        end.record()
+        losses.append(loss)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    return state, losses, [s.elapsed_time(e) for s, e in events], elapsed
+
+
+def scalar_losses(losses) -> list:
+    out = [(x["loss"] if isinstance(x, dict) else x).item() for x in losses]
+    assert all(math.isfinite(x) for x in out), out
+    return out
+
+
+def classifier_run(model, opt, batch, warmup: int, steps: int) -> dict:
+    step = ttrainer.make_classifier_train_step(model, opt, has_batch_stats=any(
+        True for _ in model.buffers()))
+    state = ttrainer.init_train_state(model, opt)
+    state, losses, step_ms, elapsed = timed_steps(step, state, [batch] * (warmup + steps), warmup)
+    n = batch["label"].shape[0]
+    return {"state": state, "step": step, "losses": scalar_losses(losses),
+            "step_ms_median": statistics.median(step_ms), "step_ms": step_ms,
+            "imgs_per_s": n * steps / elapsed}
+
+
+def phase_resnet50_train(dev, card) -> dict:
+    """bench.py's ResNet-50 harness on the port: 3 warm-up and 20 timed
+    SGD steps on one 256 x 224^2 batch, then one profiled step, then the
+    example's conv7 stem for a few steps. The loss finite and falling,
+    the loss kernel launched once a step."""
+    batch = classifier_batch(RESNET["batch"], RESNET["image"], RESNET["classes"], 0, dev)
+    model = resnet.ResNet50(num_classes=RESNET["classes"], dtype=torch.bfloat16,
+                            stem="space_to_depth", device=dev, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_train_counts()
+    run = classifier_run(model, ttrainer.sgd(RESNET["lr"]), batch, RESNET["warmup"],
+                         RESNET["steps"])
+    n_steps = RESNET["warmup"] + RESNET["steps"]
+    assert train_counts()["cross_entropy"] == n_steps, (train_counts(), n_steps)
+    assert xl.LAST_DISPATCH["impl"] == "cuda"
+    losses = run["losses"]
+    assert losses[-1] < losses[0], losses
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profiled = device_breakdown(lambda: run["step"](run["state"], batch), zoo_kernel_kind,
+                                ZOO_KINDS)
+    launches = train_counts()["cross_entropy"]  # the timed steps' and the profiled one's
+    assert launches == n_steps + 1, (launches, n_steps)
+    del run["state"], run["step"], model
+    gc.collect()
+    torch.cuda.empty_cache()
+    conv7 = resnet.ResNet50(num_classes=RESNET["classes"], dtype=torch.bfloat16, stem="conv7",
+                            device=dev, seed=0)
+    reset_train_counts()
+    c7 = classifier_run(conv7, ttrainer.sgd(RESNET["lr"]), batch, RESNET["conv7_warmup"],
+                        RESNET["conv7_steps"])
+    c7_launches = train_counts()["cross_entropy"]
+    assert c7_launches == RESNET["conv7_warmup"] + RESNET["conv7_steps"], c7_launches
+    del c7["state"], c7["step"], conv7, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    flop_per_img = 3 * RESNET50_FWD_GFLOP_PER_IMG * 1e9
+    return {
+        "phase": "resnet50_train", "card": card, "model": "resnet50/space_to_depth/bf16",
+        "params_m": n_params / 1e6, **{k: RESNET[k] for k in ("batch", "image", "warmup", "steps")},
+        "cudnn_benchmark": torch.backends.cudnn.benchmark,
+        "imgs_per_s": run["imgs_per_s"], "step_ms_median": run["step_ms_median"],
+        "step_ms": run["step_ms"], "model_tflops": flop_per_img * run["imgs_per_s"] / 1e12,
+        "peak_mem_gb": peak_gb, "losses": losses, "xent_launches": launches + c7_launches,
+        "profiled_step": profiled,
+        "conv7": {"imgs_per_s": c7["imgs_per_s"], "step_ms_median": c7["step_ms_median"],
+                  "model_tflops": flop_per_img * c7["imgs_per_s"] / 1e12,
+                  "losses": c7["losses"], "xent_launches": c7_launches},
+    }
+
+
+def phase_mnist_train(dev, card) -> dict:
+    """examples/jax-mnist on the port: the MLP (512, 256, 10), Adam 1e-3,
+    200 steps on ``synthetic_mnist(256, seed=0)``; the loss at step 100
+    below 1e-3 (the JAX example is below 1e-6 by step 50 on the CPU)."""
+    model = mlp.MLP(features=(512, 256, 10), device=dev, seed=0)
+    opt = ttrainer.adam(MNIST["lr"])
+    state = ttrainer.init_train_state(model, opt)
+    step = ttrainer.make_classifier_train_step(model, opt)
+    batches = list(itertools.islice(tdata.synthetic_mnist(MNIST["batch"], seed=0, device=dev),
+                                    MNIST["steps"]))
+    reset_train_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for batch in batches:
+        state, loss = step(state, batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    losses = scalar_losses(losses)
+    launches = train_counts()["cross_entropy"]
+    assert launches == MNIST["steps"], launches
+    at = losses[MNIST["check_step"]]
+    assert at < MNIST["below"], f"loss {at} at step {MNIST['check_step']}"
+    return {"phase": "mnist_train", "card": card, "model": "mlp(512,256,10)/f32", **MNIST,
+            "loss_at_check_step": at, "losses_every_10": losses[::10],
+            "step_ms_mean": elapsed * 1e3 / MNIST["steps"],
+            "imgs_per_s": MNIST["batch"] * MNIST["steps"] / elapsed, "xent_launches": launches}
+
+
+def vit_train_flop_per_image(hidden: int, depth: int, mlp_dim: int, patch: int, image: int,
+                             classes: int) -> float:
+    """3 x the forward's matrix-product flops (2 a multiply-add) of one
+    image: the patch embedding, per block q/k/v/out (4 D^2 a token), the
+    MLP (2 D M a token) and attention (2 T D a token: scores and P.V),
+    the head on the cls token."""
+    t = (image // patch) ** 2 + 1
+    embed = (t - 1) * patch * patch * 3 * hidden
+    block = t * (4 * hidden * hidden + 2 * hidden * mlp_dim + 2 * t * hidden)
+    return 3 * 2 * (embed + depth * block + hidden * classes)
+
+
+def phase_vit_train(dev, card) -> dict:
+    """ViT-B/16 at batch 128 x 224^2, bf16, Adam 1e-3: 3 warm-up and 10
+    timed steps on one batch; the loss finite and falling, the loss
+    kernel launched once a step."""
+    model = vit.ViT_B16(num_classes=VIT["classes"], dtype=torch.bfloat16,
+                        image_size=VIT["image"], device=dev, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = classifier_batch(VIT["batch"], VIT["image"], VIT["classes"], 0, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_train_counts()
+    run = classifier_run(model, ttrainer.adam(VIT["lr"]), batch, VIT["warmup"], VIT["steps"])
+    launches = train_counts()["cross_entropy"]
+    assert launches == VIT["warmup"] + VIT["steps"], launches
+    assert run["losses"][-1] < run["losses"][0], run["losses"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    flop = vit_train_flop_per_image(768, 12, 3072, 16, VIT["image"], VIT["classes"])
+    del run["state"], run["step"], model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"phase": "vit_train", "card": card, "model": "vit-b16/bf16", "params_m": n_params / 1e6,
+            **VIT, "imgs_per_s": run["imgs_per_s"], "step_ms_median": run["step_ms_median"],
+            "step_ms": run["step_ms"], "train_gflop_per_img": flop / 1e9,
+            "model_tflops": flop * run["imgs_per_s"] / 1e12, "peak_mem_gb": peak_gb,
+            "losses": run["losses"], "xent_launches": launches}
+
+
+def moe_active_params(cfg) -> int:
+    """Parameters a token's forward multiplies by: attention, the router,
+    ``experts_per_token`` experts of each layer, lm_head (the embedding
+    is a lookup)."""
+    hd = cfg.head_dim
+    attn = cfg.dim * (2 * cfg.n_heads * hd + 2 * cfg.n_kv_heads * hd)
+    expert = 3 * cfg.dim * cfg.ffn_dim
+    layer = attn + cfg.dim * cfg.num_experts + cfg.experts_per_token * expert
+    return cfg.n_layers * layer + cfg.dim * cfg.vocab_size
+
+
+def moe_dispatch_flop(cfg, tokens: int) -> float:
+    """The dense routing's one-hot products of one train step, apart from
+    6 N_active: dispatch (T E C D multiply-adds) and combine (the same),
+    forward and twice that backward, every layer."""
+    c = eparallel.expert_capacity(tokens, cfg.num_experts, cfg.capacity_factor,
+                                  cfg.experts_per_token)
+    return cfg.n_layers * 3 * 2 * 2 * tokens * cfg.num_experts * c * cfg.dim
+
+
+def phase_moe_train(dev, card) -> dict:
+    """MIXTRAL_8X7B's widths at 2 layers, bf16, batch 2 x 2049 from
+    ``markov_tokens``, AdamW 3e-4: 2 warm-up and 8 timed steps through
+    flash attention (T = 2048, D = 128, 32 heads from 8 KV heads) and the
+    loss kernel; ce and aux finite, every kernel launched as the step
+    count predicts."""
+    cfg = MOE_CFG
+    params = moe.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    leaves = ttrainer.param_leaves(params)
+    for p in leaves:
+        p.requires_grad_()
+    n_params = sum(p.numel() for p in leaves)
+    opt = ttrainer.adamw(MOE["lr"])
+    state = ttrainer.init_train_state(params, opt)
+    step = ttrainer.make_moe_lm_train_step(moe.forward, cfg, opt)
+    n_steps = MOE["warmup"] + MOE["steps"]
+    batches = list(itertools.islice(
+        tdata.markov_tokens(MOE["batch"], MOE["seq"] + 1, seed=0, device=dev), n_steps))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_train_counts()
+    state, metrics, step_ms, elapsed = timed_steps(step, state, batches, MOE["warmup"])
+    counts = train_counts()
+    expect = {name: (1 if key is None else cfg.n_layers) * n_steps
+              for name, (key, _, _) in TRAIN_KERNELS.items()}
+    assert counts == expect, (counts, expect)
+    losses = scalar_losses(metrics)
+    ce = [m["ce"].item() for m in metrics]
+    aux = [m["aux"].item() for m in metrics]
+    assert all(math.isfinite(x) for x in ce + aux), (ce, aux)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tokens = MOE["batch"] * MOE["seq"]
+    tok_s = tokens * MOE["steps"] / elapsed
+    n_active = moe_active_params(cfg)
+    dispatch = moe_dispatch_flop(cfg, tokens)
+    del state, params, leaves, opt, batches, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"phase": "moe_train", "card": card, "model": "mixtral-8x7b widths, 2 layers, bf16",
+            "params_b": n_params / 1e9, "active_params_b": n_active / 1e9, **MOE,
+            "capacity": eparallel.expert_capacity(tokens, cfg.num_experts, cfg.capacity_factor,
+                                                  cfg.experts_per_token),
+            "tok_per_s": tok_s, "step_ms_median": statistics.median(step_ms), "step_ms": step_ms,
+            "model_tflops": 6 * n_active * tok_s / 1e12,
+            "dispatch_tflop_per_step": dispatch / 1e12,
+            "dispatch_tflops": dispatch * tok_s / tokens / 1e12,
+            "peak_mem_gb": peak_gb, "losses": losses, "ce": ce, "aux": aux, "launches": counts}
 
 
 # -- speculative path ---------------------------------------------------------
@@ -2053,6 +2457,27 @@ def main() -> int:
     emit(train_line)
     torch.cuda.empty_cache()
 
+    zoo_parity = phase_zoo_kernel_parity(dev)
+    emit({"phase": "zoo_kernel_parity", "card": card, "xent_tol": [XENT_RTOL, XENT_ATOL],
+          "bf16_head_rel": BF16_HEAD_REL, "errors": zoo_parity})
+    zoo_timing = phase_zoo_kernel_timing(dev)
+    emit({"phase": "zoo_kernel_timing", "card": card,
+          "shape": f"xent f32 {list(ZOO_XENT_SHAPES.values())}; "
+                   f"flash bf16 causal [B*H, T, D] {list(ZOO_FLASH_SHAPE)}",
+          **zoo_timing})
+    with cudnn_benchmark():
+        emit({"phase": "zoo_small_reference", "card": card, **phase_zoo_small_reference(dev)})
+        resnet_line = phase_resnet50_train(dev, card)
+        emit(resnet_line)
+        mnist_line = phase_mnist_train(dev, card)
+        emit(mnist_line)
+        vit_line = phase_vit_train(dev, card)
+        emit(vit_line)
+    moe_line = phase_moe_train(dev, card)
+    emit(moe_line)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     attn_parity = phase_short_attention_parity(dev)
     emit({"phase": "short_attention_parity", "card": card, "f32_tol": [F32_RTOL, F32_ATOL],
           "bf16_head_rel": BF16_HEAD_REL, **attn_parity})
@@ -2169,8 +2594,31 @@ def main() -> int:
             entry["library_covers"] = "dq, dk and dv together (SDPA backward)"
         if name == "cross_entropy":
             entry["launches_by_path"] = {"train": entry["launches"],
-                                         "train_pair": pair_line["xent_launches"]}
-            entry["launches"] = sum(entry["launches_by_path"].values())
+                                         "train_pair": pair_line["xent_launches"],
+                                         "resnet50": resnet_line["xent_launches"],
+                                         "mnist": mnist_line["xent_launches"],
+                                         "vit": vit_line["xent_launches"],
+                                         "moe": moe_line["launches"][name]}
+            # the classifiers' and the MoE LM's logits
+            entry["other_shapes"] = {
+                f"{b}x{v}": {**zoo_timing[f"xent/{b}x{v}"],
+                             "max_abs_err": zoo_parity[f"xent/{b}x{v}"]["loss"]}
+                for b, v in ZOO_XENT_SHAPES.values()}
+        else:
+            entry["launches_by_path"] = {"train": entry["launches"],
+                                         "moe": moe_line["launches"][name]}
+            part = {"fwd": "o", "bwd_dq": "dq", "bwd_dkv": "dk"}[key]
+            d128 = zoo_parity["flash/bfloat16/causal/" + "x".join(map(str, ZOO_FLASH_SHAPE))]
+            t128 = zoo_timing["flash_d128"][key]
+            entry["other_shapes"] = {"x".join(map(str, ZOO_FLASH_SHAPE)): {
+                **{f: t128[f] for f in ("kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                                        "bound_share", "tflops", "library_ms")},
+                "max_abs_err": max(d128[p][0] for p in ((part, "dv") if part == "dk"
+                                                         else (part,)))}}
+            if key != "fwd":
+                entry["other_shapes"]["x".join(map(str, ZOO_FLASH_SHAPE))]["library_ms"] = \
+                    zoo_timing["flash_d128"]["bwd_pair"]["library_ms"]
+        entry["launches"] = sum(entry["launches_by_path"].values())
         kernels.append(entry)
     attn_paths = {"train_pair": pair_line["attention_launches"],
                   "spec_engine": spec_line["spec"]["attention_launches"],

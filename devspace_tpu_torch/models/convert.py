@@ -15,6 +15,11 @@ inverse (for trained params or grads); handing bf16 back as numpy's
 A weight quantized to int8 (``inference.quantization.QuantizedLinear``)
 crosses as the pair ``(q, scale)``, int8 and float32, both ways: on the
 JAX side that pair is ``QuantizedLinear.tree_flatten()[0]``.
+
+The vision models (``ResNet``, ``MLP``, ``ViT``) are torch modules whose
+names are flax's: ``module_from_flax`` and ``module_to_flax`` carry a
+flax variable tree ``{"params", "batch_stats"}`` into a module and back
+(the mapping is written out above ``module_from_flax``).
 """
 
 from __future__ import annotations
@@ -48,34 +53,33 @@ def params_from_numpy(
     trainable: bool = False,
 ) -> dict:
     """Reference param tree of numpy arrays -> the port's params on
-    ``device`` (``None`` means cuda, as every entry point). ``dtype``
-    casts the weight matrices (embed, projections, lm_head); norms stay
-    float32 as ``init_params`` makes them. Without ``dtype`` every leaf
-    keeps its dtype exactly. ``trainable=True`` makes every leaf a leaf
-    tensor that requires grad, as a trainer takes them. A ``(q, scale)``
-    pair becomes a ``QuantizedLinear`` (neither cast nor trainable)."""
+    ``device`` (``None`` means cuda, as every entry point): the LM's
+    tree, or the MoE's, whose layers hold a ``moe`` dict. ``dtype`` casts
+    the weight matrices (embed, projections, experts, lm_head); norms and
+    the MoE router (``moe/w_gate``) stay float32 as ``init_params`` makes
+    them. Without ``dtype`` every leaf keeps its dtype exactly.
+    ``trainable=True`` makes every leaf a leaf tensor that requires grad,
+    as a trainer takes them. A ``(q, scale)`` pair becomes a
+    ``QuantizedLinear`` (neither cast nor trainable)."""
     dev = resolve_device(device)
 
-    def conv(name: str, arr):
+    def conv(path: tuple, arr):
+        if isinstance(arr, dict):
+            return {name: conv(path + (name,), a) for name, a in arr.items()}
+        if isinstance(arr, (tuple, list)) and arr and isinstance(arr[0], dict):
+            return [conv(path, a) for a in arr]
+        name = "/".join(path)
         if isinstance(arr, (tuple, list)):
             q, scale = (tensor_from_numpy(np.asarray(a)).to(dev) for a in arr)
             if q.dtype != torch.int8 or scale.dtype != torch.float32:
                 raise TypeError(f"{name}: a quantized weight is (int8 q, float32 scale)")
             return QuantizedLinear(q, scale)
         t = tensor_from_numpy(np.asarray(arr))
-        if dtype is not None and name not in _NORMS:
+        if dtype is not None and path[-1] not in _NORMS and path[-2:] != ("moe", "w_gate"):
             t = t.to(dtype)
         return t.to(dev).requires_grad_(trainable)
 
-    return {
-        "embed": conv("embed", tree["embed"]),
-        "layers": [
-            {name: conv(name, layer[name]) for name in layer}
-            for layer in tree["layers"]
-        ],
-        "final_norm": conv("final_norm", tree["final_norm"]),
-        "lm_head": conv("lm_head", tree["lm_head"]),
-    }
+    return conv((), tree)
 
 
 def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -100,10 +104,91 @@ def leaf_to_numpy(leaf):
 def params_to_numpy(params: dict) -> dict:
     """The port's param tree (or a tree of grads in its shape) -> the same
     tree of numpy arrays, the inverse of ``params_from_numpy``."""
-    return {
-        "embed": leaf_to_numpy(params["embed"]),
-        "layers": [{name: leaf_to_numpy(t) for name, t in layer.items()}
-                   for layer in params["layers"]],
-        "final_norm": leaf_to_numpy(params["final_norm"]),
-        "lm_head": leaf_to_numpy(params["lm_head"]),
-    }
+    if isinstance(params, dict):
+        return {name: params_to_numpy(node) for name, node in params.items()}
+    if isinstance(params, list):
+        return [params_to_numpy(node) for node in params]
+    return leaf_to_numpy(params)
+
+
+# -- flax variable trees of the vision models -------------------------------
+# ``{"params": ..., "batch_stats": ...}`` of ``ResNet``, ``MLP`` and ``ViT``
+# (``jax.tree.map(np.asarray, variables)``) against the port's modules.
+# flax's module path is the port's submodule path and its leaf names are
+# the port's parameter and buffer names, one to one:
+#
+#   flax                                       port (state_dict name)
+#   params/conv_init/kernel   [kh, kw, I, O]   conv_init.kernel   [O, I, kh, kw]
+#   params/bn_init/{scale,bias}                bn_init.{scale,bias}
+#   batch_stats/bn_init/{mean,var}             bn_init.{mean,var} (buffers)
+#   params/BottleneckBlock_3/Conv_1/kernel     BottleneckBlock_3.Conv_1.kernel
+#   params/BottleneckBlock_3/BatchNorm_2/...   BottleneckBlock_3.BatchNorm_2....
+#   params/BottleneckBlock_3/{conv_proj,norm_proj}/...
+#   params/Dense_0/{kernel [in, out], bias}    Dense_0.{kernel [in, out], bias}
+#   params/patch_embed/{kernel, bias}          patch_embed.{kernel (OIHW), bias}
+#   params/{cls, pos_embed}                    cls, pos_embed
+#   params/block_0/MultiHeadDotProductAttention_0/query/kernel [D, H, hd]
+#                                              block_0.MultiHeadDotProductAttention_0.query.kernel
+#   params/block_0/MultiHeadDotProductAttention_0/out/kernel   [H, hd, D] (same shape)
+#   params/block_0/{LayerNorm_0,LayerNorm_1}, MlpBlock_0/{Dense_0,Dense_1}, final_norm, head
+#
+# The one layout change: a convolution kernel (a 4-D ``kernel``) is HWIO
+# in flax and OIHW in the port. Dense kernels keep flax's ``[in..., out...]``.
+
+
+def _flatten_tree(tree, prefix: tuple = ()) -> dict:
+    flat = {}
+    for name, node in tree.items():
+        if isinstance(node, dict) or hasattr(node, "items"):
+            flat.update(_flatten_tree(node, prefix + (name,)))
+        else:
+            flat[prefix + (name,)] = node
+    return flat
+
+
+def module_from_flax(module: torch.nn.Module, variables: dict) -> torch.nn.Module:
+    """Copy a flax variable tree of numpy arrays into ``module``'s
+    parameters (``"params"``) and buffers (``"batch_stats"``), in place,
+    on the module's device and in its leaves' dtypes; returns ``module``.
+    Raises ``KeyError`` unless the names match one to one and
+    ``ValueError`` on a shape that differs."""
+    own = {"params": dict(module.named_parameters()), "batch_stats": dict(module.named_buffers())}
+    for collection in variables:
+        if collection not in own:
+            raise KeyError(f"unknown flax collection {collection!r}")
+    for collection, targets in own.items():
+        flat = {".".join(path): arr
+                for path, arr in _flatten_tree(variables.get(collection, {})).items()}
+        if set(flat) != set(targets):
+            raise KeyError(f"{collection}: flax-only {sorted(set(flat) - set(targets))}, "
+                           f"port-only {sorted(set(targets) - set(flat))}")
+        for name, arr in flat.items():
+            t = tensor_from_numpy(np.asarray(arr))
+            if name.endswith("kernel") and t.dim() == 4:
+                t = t.permute(3, 2, 0, 1)  # HWIO -> OIHW
+            target = targets[name]
+            if t.shape != target.shape:
+                raise ValueError(f"{collection}/{name}: flax {tuple(t.shape)} "
+                                 f"vs port {tuple(target.shape)}")
+            with torch.no_grad():
+                target.copy_(t)
+    return module
+
+
+def module_to_flax(module: torch.nn.Module) -> dict:
+    """The inverse of ``module_from_flax``: ``{"params": ...,
+    "batch_stats": ...}`` (the latter only where the module has buffers)
+    as nested dicts of numpy arrays, convolution kernels back to HWIO."""
+    out: dict = {}
+    for collection, named in (("params", module.named_parameters()),
+                              ("batch_stats", module.named_buffers())):
+        for name, t in named:
+            t = t.detach()
+            if name.endswith("kernel") and t.dim() == 4:
+                t = t.permute(2, 3, 1, 0)  # OIHW -> HWIO
+            node = out.setdefault(collection, {})
+            *path, leaf = name.split(".")
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = tensor_to_numpy(t)
+    return out

@@ -1,1 +1,2 @@
-"""Training of the port: synthetic corpora and the LM train step."""
+"""Training of the port: synthetic data and the input pipeline, the
+classifier, LM and MoE train steps, checkpoints and the profiler."""

@@ -1,4 +1,5 @@
-"""The causal-LM train step, the train loop and gradient accumulation.
+"""The train steps (classifier, causal LM, MoE LM), the train loop and
+gradient accumulation.
 
 Counterpart of ``devspace_tpu/training/trainer.py`` (the single-device
 path: no mesh, no parameter sharding, no vocab-parallel loss; those wait
@@ -12,7 +13,14 @@ The optimizer is a factory ``params -> torch.optim.Optimizer``.
 defaults to weight decay 1e-2, so the factory passes every value
 explicitly. The two apply the same update (decoupled decay of the
 pre-update parameter, bias-corrected moments). ``adam(lr)`` is optax's
-``adam(lr)``: the same moments and no weight decay.
+``adam(lr)``: the same moments and no weight decay. ``sgd(lr, momentum)``
+is ``optax.sgd(lr, momentum=momentum)``: ``t = g + momentum * t; p -= lr
+* t``, which is ``torch.optim.SGD`` with ``dampening=0`` (its first step
+sets ``t = g``, as optax's zero-initialised trace gives).
+
+A param tree is any nesting of dicts and lists with tensors at the
+leaves (the LM's ``layers[i]``, the MoE's ``layers[i]["moe"]``), or a
+``torch.nn.Module`` (the vision models), whose parameters are its leaves.
 """
 
 from __future__ import annotations
@@ -39,31 +47,91 @@ def adam(lr: float, **overrides) -> Callable:
     return partial(torch.optim.Adam, lr=lr, **{**defaults, **overrides})
 
 
-def param_leaves(params: dict) -> list[torch.Tensor]:
-    """The tensors of a param tree, in one fixed order (embed, each
-    layer's entries, final_norm, lm_head)."""
-    return ([params["embed"]]
-            + [t for layer in params["layers"] for t in layer.values()]
-            + [params["final_norm"], params["lm_head"]])
+def sgd(lr: float, momentum: float = 0.9) -> Callable:
+    """``optax.sgd(lr, momentum=momentum)`` as a factory of
+    ``torch.optim.SGD`` (no dampening, no Nesterov)."""
+    return partial(torch.optim.SGD, lr=lr, momentum=momentum, dampening=0.0, nesterov=False)
 
 
-def tree_like(params: dict, leaves: list) -> dict:
-    """The tree of ``params``' shape holding ``leaves`` (param_leaves order)."""
+def param_leaves(params) -> list:
+    """The leaves of a param tree, depth first: a dict's children by
+    sorted key (as ``jax.tree.leaves`` lists them, so two trees with the
+    same keys list their leaves alike whatever order the dicts were built
+    in), a list's in order; a module's ``parameters()``."""
+    if isinstance(params, torch.nn.Module):
+        return list(params.parameters())
+    if isinstance(params, dict):
+        return [t for name in sorted(params) for t in param_leaves(params[name])]
+    if isinstance(params, (list, tuple)):
+        return [t for node in params for t in param_leaves(node)]
+    return [params]
+
+
+def tree_like(params, leaves: list):
+    """The tree of ``params``' shape holding ``leaves`` (param_leaves
+    order); dicts and lists are new, ``params`` is left as it is."""
     it = iter(leaves)
-    tree = {"embed": next(it)}
-    tree["layers"] = [{name: next(it) for name in layer} for layer in params["layers"]]
-    tree["final_norm"] = next(it)
-    tree["lm_head"] = next(it)
+
+    def build(node):
+        if isinstance(node, dict):
+            built = {name: build(node[name]) for name in sorted(node)}
+            return {name: built[name] for name in node}  # node's own key order
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(child) for child in node)
+        return next(it)
+
+    tree = build(params)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
     return tree
 
 
-def init_train_state(params: dict, optimizer: Callable) -> dict:
-    """``{"params", "opt_state": the torch optimizer over them, "step"}``."""
+def init_train_state(params, optimizer: Callable) -> dict:
+    """``{"params", "opt_state": the torch optimizer over them, "step"}``.
+    ``params`` is a param tree or a module (the classifiers')."""
     return {"params": params, "opt_state": optimizer(param_leaves(params)), "step": 0}
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return fused_cross_entropy(logits, labels).mean()
+
+
+def _apply_step(state: dict, loss_fn: Callable, *args):
+    """Zero the grads, ``loss_fn(*args) -> (loss, aux)``, backward, the
+    optimizer's step; returns ``(state with step + 1, loss, aux)``."""
+    opt = state["opt_state"]
+    opt.zero_grad(set_to_none=True)
+    loss, aux = loss_fn(*args)
+    loss.backward()
+    opt.step()
+    return {**state, "step": state["step"] + 1}, loss.detach(), aux
+
+
+def make_classifier_train_step(model: torch.nn.Module, optimizer: Callable = None,
+                               has_batch_stats: bool = False) -> Callable:
+    """Train step for the port's classifier modules (MLP, ResNet, ViT):
+    ``step_fn(state, {"image", "label"}) -> (state, loss)``, the mean
+    fused cross-entropy of ``model(image, train=True)``. ``state`` is
+    ``init_train_state(model, optimizer)``; ``optimizer`` is unused and
+    kept so the signature matches the JAX package's.
+
+    ``has_batch_stats``: the model keeps BatchNorm running statistics
+    (its buffers), which each step updates in place, as the reference's
+    ``mutable=["batch_stats"]`` returns them. It must say what the model
+    holds: a model with buffers and ``False``, or none and ``True``,
+    raises ``ValueError``, where the reference's apply would fail."""
+    if has_batch_stats != any(True for _ in model.buffers()):
+        raise ValueError(f"has_batch_stats={has_batch_stats} but the model "
+                         f"{'has' if not has_batch_stats else 'has no'} running statistics")
+
+    def loss_fn(images, labels):
+        return cross_entropy_loss(model(images, train=True), labels), None
+
+    def step_fn(state, batch):
+        state, loss, _ = _apply_step(state, loss_fn, batch["image"], batch["label"])
+        return state, loss
+
+    return step_fn
 
 
 def lm_loss(forward: Callable, cfg, attention_fn=None) -> Callable:
@@ -87,12 +155,32 @@ def make_lm_train_step(forward: Callable, cfg, optimizer: Callable, attention_fn
     loss_fn = lm_loss(forward, cfg, attention_fn)
 
     def step_fn(state, tokens):
-        opt = state["opt_state"]
-        opt.zero_grad(set_to_none=True)
-        loss = loss_fn(state["params"], tokens)
-        loss.backward()
-        opt.step()
-        return {**state, "step": state["step"] + 1}, loss.detach()
+        state, loss, _ = _apply_step(state, lambda: (loss_fn(state["params"], tokens), None))
+        return state, loss
+
+    return step_fn
+
+
+def make_moe_lm_train_step(forward: Callable, cfg, optimizer: Callable = None,
+                           attention_fn=None, moe_fn=None):
+    """Causal-LM train step for the MoE transformer (``models.moe``):
+    ``step_fn(state, tokens) -> (state, {"loss", "ce", "aux"})`` with
+    ``loss = ce + cfg.aux_weight * aux``, the next-token cross-entropy
+    through the fused loss and the mean load-balancing loss over layers.
+    ``moe_fn`` replaces the dense routing (``expert_parallel.moe_ffn``
+    waits for the port of ``parallel/``); ``optimizer`` is unused, as in
+    ``make_lm_train_step``."""
+
+    def loss_fn(params, tokens):
+        logits, aux = forward(params, tokens[:, :-1], cfg, attention_fn=attention_fn,
+                              moe_fn=moe_fn)
+        b, t, v = logits.shape
+        ce = cross_entropy_loss(logits.reshape(b * t, v), tokens[:, 1:].reshape(-1))
+        return ce + cfg.aux_weight * aux, (ce.detach(), aux.detach())
+
+    def step_fn(state, tokens):
+        state, loss, (ce, aux) = _apply_step(state, loss_fn, state["params"], tokens)
+        return state, {"loss": loss, "ce": ce, "aux": aux}
 
     return step_fn
 

@@ -5,7 +5,9 @@ and int8_weights phases' control flow at TINY. The script itself runs on the car
 (``python3 chip_smoke.py``); these are the parts a reader takes on trust
 from its output."""
 
+import copy
 import json
+import time
 
 import numpy as np
 import pytest
@@ -225,3 +227,162 @@ def test_kv_tier_phase_rehearsed_on_the_cpu(counting_launches):
     assert line["int8"]["wave4_equal_tokens"] == 16
     assert line["migration"]["blocks"] == 4 and line["migration"]["envelope_bytes"] > 0
     json.dumps(line)  # one JSON line
+
+
+# -- the model zoo's phases ---------------------------------------------------
+@pytest.mark.parametrize("name, kind", [
+    ("void at::native::batch_norm_collect_statistics_channels_last_kernel<at::native::Var, "
+     "c10::BFloat16, float, 4>(c10::BFloat16 const*, int, int)", "elementwise"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::(anonymous namespace)::"
+     "launch_clamp_scalar(at::TensorIteratorBase&)>(int)", "elementwise"),
+    ("void at::native::reduce_kernel<512, 1, at::native::ReduceOp<float>>(float)", "elementwise"),
+    ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc_tilesize128x128x64",
+     "conv_matmul"),
+    ("sm80_xmma_wgrad_implicit_gemm_indexed_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", "conv_matmul"),
+    ("void cudnn::engines_precompiled::nchwToNhwcKernel<__nv_bfloat16>(int)", "conv_matmul"),
+    ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_TNT", "conv_matmul"),
+    ("void at::native::(anonymous namespace)::max_pool_forward_nhwc<c10::BFloat16>(int)",
+     "other"),
+    ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel<at::native::"
+     "(anonymous namespace)::TensorListMetadata<3>>(int)", "optimizer"),
+    ("void (anonymous namespace)::xent_kernel<float>(float const*, long const*, float*, int)",
+     "loss_kernel"),
+    ("void (anonymous namespace)::flash_bwd_dkv_sm90_kernel<128>(__nv_bfloat16 const*, int)",
+     "flash"),
+    ("void at::native::(anonymous namespace)::cunn_SoftMaxForward<4, c10::BFloat16>(float)",
+     "elementwise"),
+])
+def test_zoo_kernel_kind(name, kind):
+    assert cs.zoo_kernel_kind(name) == kind
+    assert kind in cs.ZOO_KINDS
+
+
+def test_zoo_flop_counts():
+    """ViT-B/16's train step at 224^2 is 3 x its forward's products; the
+    MoE's active parameters are attention, the router, two of eight
+    experts and lm_head; its dispatch and combine products at 4096
+    tokens, C = 2048, are counted apart."""
+    gflop = cs.vit_train_flop_per_image(768, 12, 3072, 16, 224, 1000) / 1e9
+    assert gflop == pytest.approx(3 * 35.13, rel=1e-3)
+    cfg = cs.MOE_CFG
+    assert (cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.ffn_dim, cfg.num_experts,
+            cfg.experts_per_token, cfg.n_layers) == (4096, 32, 8, 14336, 8, 2, 2)
+    per_layer = 4096 * (2 * 4096 + 2 * 1024) + 4096 * 8 + 2 * 3 * 4096 * 14336
+    assert cs.moe_active_params(cfg) == 2 * per_layer + 4096 * 32000
+    assert cs.moe_dispatch_flop(cfg, 4096) == 2 * 3 * 2 * 2 * 4096 * 8 * 2048 * 4096
+
+
+class FakeEvent:
+    """A CUDA event's timing on the host clock."""
+
+    def __init__(self, enable_timing=False):
+        self.t = None
+
+    def record(self, stream=None):
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, other):
+        return (other.t - self.t) * 1e3
+
+
+@pytest.fixture
+def cpu_card(monkeypatch):
+    """The card's calls as stand-ins on the CPU: synchronisation, events
+    and peak memory, the profiled step (run once, unprofiled), and the
+    kernels' launch counts, moved by every call of the loss and flash
+    entry points as a launch on the card would. The counts and the last
+    dispatch are put back afterwards."""
+    from devspace_tpu_torch.ops import flash_attention as fa
+    from devspace_tpu_torch.ops import losses as xl
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+
+    def breakdown(step_fn, *args, **kwargs):
+        step_fn()
+        return {"stand_in": True}
+
+    monkeypatch.setattr(cs, "device_breakdown", breakdown)
+    for module in (xl, fa):
+        monkeypatch.setattr(module, "LAUNCHES", copy.copy(module.LAUNCHES))
+        monkeypatch.setattr(module, "LAST_DISPATCH", dict(module.LAST_DISPATCH))
+
+    def counted(module, fn_name, count):
+        real = getattr(module, fn_name)
+
+        def fn(*args, **kwargs):
+            out = real(*args, **kwargs)
+            if count is None:
+                module.LAUNCHES += 1
+            else:
+                module.LAUNCHES[count] += 1
+            module.LAST_DISPATCH["impl"] = "cuda"
+            return out
+
+        monkeypatch.setattr(module, fn_name, fn)
+
+    counted(xl, "xent_fwd", None)
+    for fn_name, count in (("flash_fwd", "fwd"), ("flash_bwd_dq", "bwd_dq"),
+                           ("flash_bwd_dkv", "bwd_dkv")):
+        counted(fa, fn_name, count)
+
+
+@pytest.fixture
+def few_torch_threads():
+    """At most two torch threads: the suite's workers share the cores, and
+    torch's many small ops on all of them spin against each other (ten
+    times slower under load)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
+def test_zoo_phases_rehearsed_on_the_cpu(monkeypatch, cpu_card, few_torch_threads):
+    """The zoo's phases at tiny sizes on the CPU, their checks included:
+    the phases' ResNet-50 and ViT-B/16 stand in as a 2-stage, 8-filter
+    ResNet (both stems) and a 1-block, 32-wide ViT; the ResNet against
+    itself at 2 x 32^2; bench.py's harness at 4 x 32^2 for 1 + 2 steps and
+    conv7 for 1 + 1; the MLP's 200 steps as on the card; the ViT at 2 x
+    32^2; the MoE at TINY_MOE's widths with T = 1280 (the flash path).
+    Timings are host-clock stand-ins."""
+    import dataclasses
+    import functools
+
+    from devspace_tpu_torch.models import moe, resnet, vit
+
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(cs.resnet, "ResNet50", functools.partial(
+        resnet.ResNet, stage_sizes=[1, 1], num_filters=8))
+    monkeypatch.setattr(cs.vit, "ViT_B16", functools.partial(
+        vit.ViT, hidden_dim=32, depth=1, num_heads=2, mlp_dim=64))
+    monkeypatch.setattr(cs, "ZOO_SMALL", {"batch": 2, "image": 32})
+    monkeypatch.setattr(cs, "RESNET", {**cs.RESNET, "batch": 4, "image": 32, "warmup": 1,
+                                       "steps": 2, "conv7_warmup": 1, "conv7_steps": 1})
+    monkeypatch.setattr(cs, "VIT", {**cs.VIT, "batch": 2, "image": 32, "warmup": 1, "steps": 2})
+    monkeypatch.setattr(cs, "MOE_CFG", dataclasses.replace(moe.TINY_MOE, dtype=torch.float32))
+    monkeypatch.setattr(cs, "MOE", {**cs.MOE, "seq": 1280, "batch": 1, "warmup": 1, "steps": 1})
+    with cs.cudnn_benchmark():
+        small = cs.phase_zoo_small_reference(cpu)
+        assert small["logit_rel_err"] == small["loss_rel_err"] == small["stats_rel_err"] == 0
+        line = cs.phase_resnet50_train(cpu, "cpu")
+        # the warm-up, the timed steps, the profiled step, then conv7's
+        assert line["xent_launches"] == 1 + 2 + 1 + 2 and line["conv7"]["xent_launches"] == 2
+        assert line["cudnn_benchmark"] is True and line["profiled_step"] == {"stand_in": True}
+        assert line["losses"][-1] < line["losses"][0]
+        json.dumps(line)
+        line = cs.phase_mnist_train(cpu, "cpu")
+        assert line["xent_launches"] == 200 and line["loss_at_check_step"] < 1e-3
+        json.dumps(line)
+        line = cs.phase_vit_train(cpu, "cpu")
+        assert line["xent_launches"] == 3 and line["losses"][-1] < line["losses"][0]
+        json.dumps(line)
+    assert torch.backends.cudnn.benchmark is False
+    line = cs.phase_moe_train(cpu, "cpu")
+    n = cs.MOE_CFG.n_layers * 2
+    assert line["launches"] == {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+                                "cross_entropy": 2}
+    assert len(line["ce"]) == len(line["aux"]) == 2
+    json.dumps(line)

@@ -28,7 +28,8 @@ def test_every_module_imports_with_jax_blocked():
         f"for name in {MODULES!r}:\n"
         "    importlib.import_module(name)\n"
         "added = set(sys.modules) - before - {'jax'}\n"
-        "bad = sorted(m for m in added if m.split('.')[0] in ('jax', 'jaxlib', 'devspace_tpu'))\n"
+        "bad = sorted(m for m in added if m.split('.')[0] in ('jax', 'jaxlib', 'devspace_tpu',\n"
+        "                                                      'flax', 'optax'))\n"
         "assert not bad, bad\n"
         "print('ok', len(added))\n"
     )
@@ -41,6 +42,10 @@ def test_every_module_imports_with_jax_blocked():
         assert f"devspace_tpu_torch.inference.{name}" in MODULES
     assert "devspace_tpu_torch.training.checkpoint" in MODULES
     assert "devspace_tpu_torch.resilience.policy" in MODULES
+    for name in ("models.resnet", "models.mlp", "models.vit", "models.moe", "models.layers",
+                 "models.convert", "parallel.expert_parallel", "training.data",
+                 "training.profiler", "training.trainer"):
+        assert f"devspace_tpu_torch.{name}" in MODULES
 
 
 def imported_names(path: Path) -> list[str]:
@@ -56,8 +61,8 @@ def imported_names(path: Path) -> list[str]:
 def test_no_source_imports_jax_or_the_jax_package():
     # the port's pair script runs on the card too; scripts/convert_checkpoint.py
     # is the one script that imports both packages
-    files = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py",
-                                             REPO / "scripts" / "train_draft_pair_torch.py"]
+    files = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"] + [
+        REPO / "scripts" / f"train_{name}_torch.py" for name in ("draft_pair", "resnet", "mnist")]
     bad = {
         str(f.relative_to(REPO)): name
         for f in files
