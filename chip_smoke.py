@@ -36,6 +36,17 @@ three paths:
   smoke requests and the steady burst after ``prewarm`` through the
   paged-decode kernel, each greedy stream held to an eager forward's
   argmax over the same int8 params, beside a bf16 engine kept alive;
+  the steady burst also runs on an engine with metrics on and one with
+  them off, alternated (``engine_variants.no_metrics``); last, the fleet
+  (``fleet`` phase): two replicas of that checkpoint, each ``python -m
+  devspace_tpu_torch.serve`` under the port's ``ReplicaFleet``, share
+  the card behind its ``RoutingGateway`` and ``TelemetryCollector``; a
+  greedy burst over three 512-token contexts is held to the same prompts
+  served directly, to prefix affinity, to the collector's federated
+  token count, to each replica's kernel launches and flat graph
+  captures; one replica is SIGKILLed (a request routed to it is rerouted
+  before its first byte) and restarted; a third replica's ``/readyz``
+  flips to 503 under an injected TTFT breach and comes back;
 - speculative serving: the target and draft LMs of
   scripts/train_draft_pair.py (target: vocab 32000, dim 1024, 8 layers,
   8 heads, ffn 2816; draft: dim 256, 2 layers, 4 heads, ffn 704; bf16)
@@ -723,7 +734,9 @@ def phase_engine_variants(params, dev, card, results, prefix_results) -> dict:
     """The same burst at dispatch depth 1 (the serial loop, replaying the
     same graphs) gives the same streams as depth 2, and the shared-prefix
     burst with the prefix cache off gives the same streams as with it on,
-    at its own time to first token."""
+    at its own time to first token. Then ``no_metrics``: the steady burst
+    on an engine with metrics on and one with them off, both alive,
+    alternated on, off, off, on: each one's ms per decode step."""
     cfg = tfm.LLAMA2_7B
     out = {"phase": "engine_variants", "model": "llama2-7b", "card": card}
     for name, kw in (("depth1", {"dispatch_depth": 1}), ("no_prefix_cache", {"prefix_cache": False})):
@@ -748,6 +761,34 @@ def phase_engine_variants(params, dev, card, results, prefix_results) -> dict:
         del engine
         gc.collect()
         torch.cuda.empty_cache()
+    engines = {m: InferenceEngine(params, cfg, device=dev, max_slots=8, max_len=2048, metrics=m)
+               for m in (True, False)}
+    try:
+        assert engines[True].telemetry is not None and engines[False].telemetry is None
+        for engine in engines.values():
+            prewarm_engine(engine)
+            engine.start()
+            engine.submit(list(range(1, 9)), 4).result(timeout=600)  # warm-up, not counted
+        steady = {True: [], False: []}
+        for m in (True, False, False, True):
+            steady[m].append(steady_burst(engines[m]))
+        for engine in engines.values():
+            assert engine.stats()["requests_failed"] == 0
+        assert engines[False].metrics_text() == ""
+        out["no_metrics"] = {
+            f"metrics_{'on' if m else 'off'}": {
+                "ms_per_step": [r["ms_per_step"] for r in runs],
+                "tok_per_s": [r["tok_per_s"] for r in runs]}
+            for m, runs in steady.items()}
+        on = statistics.mean(r["ms_per_step"] for r in steady[True])
+        off = statistics.mean(r["ms_per_step"] for r in steady[False])
+        out["no_metrics"]["on_over_off_ms_per_step"] = on / off
+    finally:
+        for engine in engines.values():
+            engine.stop()
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -755,7 +796,8 @@ def phase_engine_variants(params, dev, card, results, prefix_results) -> dict:
 def http_server(engine, model: str):
     """The port's HTTP server over ``engine`` on a free local port: yields
     its base URL, shuts the server down on exit."""
-    httpd = serve.make_http_server(serve.Server(engine, model), "127.0.0.1", 0)
+    server = serve.Server(engine, model)
+    httpd = serve.make_http_server(server, "127.0.0.1", 0)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     try:
@@ -763,6 +805,7 @@ def http_server(engine, model: str):
     finally:
         httpd.shutdown()
         httpd.server_close()
+        server.close()
         thread.join(timeout=30)
 
 
@@ -871,11 +914,12 @@ def int8_product_times(dev, rows: int = 8) -> dict:
     return out
 
 
-def phase_int8_weights(params, dev, card, bf16_graph_ms, cfg=tfm.LLAMA2_7B,
+def phase_int8_weights(params, dev, card, bf16_graph_ms, tmp: str, cfg=tfm.LLAMA2_7B,
                        model="llama2-7b") -> dict:
     """The train -> serve seam at full width with int8 weights: the params
-    in memory saved by ``save_checkpoint`` as a bare tree into a
-    temporary directory (its free space checked first) and restored by
+    in memory saved by ``save_checkpoint`` as a bare tree into ``tmp``, a
+    temporary directory the caller removes (its free space checked first),
+    and restored by
     ``load_serving_params`` (every leaf equal to the saved one byte for
     byte); ``q`` and ``scale`` made on the card equal those made on the
     CPU from the same leaf (lm_head, the first and last layers'
@@ -889,12 +933,10 @@ def phase_int8_weights(params, dev, card, bf16_graph_ms, cfg=tfm.LLAMA2_7B,
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
     dense_bytes = tree_bytes(params)
-    tmp = tempfile.mkdtemp(prefix="int8-weights-")
     free = shutil.disk_usage(tmp).free
     line = {"phase": "int8_weights", "model": model, "card": card,
             "disk": {"free_gb": free / 1e9, "checkpoint_gb": dense_bytes / 1e9}}
     if free < 1.05 * dense_bytes:
-        shutil.rmtree(tmp, ignore_errors=True)
         raise RuntimeError(f"{tmp}: {free / 1e9:.2f} GB free, the checkpoint needs "
                            f"{dense_bytes / 1e9:.2f} GB")
     engines = []
@@ -976,7 +1018,6 @@ def phase_int8_weights(params, dev, card, bf16_graph_ms, cfg=tfm.LLAMA2_7B,
     finally:
         for engine in engines:
             engine.stop()
-        shutil.rmtree(tmp, ignore_errors=True)
     return line
 
 
@@ -2235,7 +2276,7 @@ def logit_path_gaps(t_params, cfg, seqs, dev, rel: float = LOGIT_PATH_REL,
     return gaps
 
 
-def near_tie(t_params, prompt, a, b, bound) -> Optional[dict]:
+def near_tie(t_params, prompt, a, b, bound, cfg=PAIR_TARGET) -> Optional[dict]:
     """None for two equal greedy streams. Where they part: the target's
     logits at the first differing position, recomputed by one
     full-sequence forward over the common prefix; both candidates must
@@ -2246,7 +2287,7 @@ def near_tie(t_params, prompt, a, b, bound) -> Optional[dict]:
     pos = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
     toks = torch.tensor([prompt + a[:pos]], device=t_params["embed"].device)
     with torch.no_grad():
-        logits = tfm.forward(t_params, toks, PAIR_TARGET)[0, -1]
+        logits = tfm.forward(t_params, toks, cfg)[0, -1]
     top = logits.max().item()
     gap = top - min(logits[a[pos]].item(), logits[b[pos]].item())
     assert gap <= bound, (f"streams part at {pos}: tokens {a[pos]} / {b[pos]} lie {gap} below "
@@ -2409,6 +2450,361 @@ def phase_spec_engine(t_params, d_params, pair_dir, dev, card) -> dict:
     return line
 
 
+# -- the fleet: Llama-2-7B torch replicas behind the port's gateway -------------
+# two replicas of the int8_weights phase's checkpoint share the card, each
+# with the server's 8 slots at the model's 4096-token max_len (17.2 GB of
+# bf16 pool beside 13.5 GB of weights), so the 8 requests in flight never
+# queue inside a replica and the load term never outweighs a context's
+# prefix; the gateway routes by prefix (its shadow index at the engine's
+# 64-token blocks); admission control is off, so no request of the burst
+# waits in the gateway's queue or is refused
+FLEET = {"replicas": 2, "max_slots": 8, "contexts": 3, "context_tokens": 512,
+         "question_tokens": [8, 32], "requests": 24, "new_tokens": 32, "in_flight": 8,
+         "ready_timeout_s": 600.0, "block_size": 64}
+# the fleet's TTFT objective: the server's default (1 s at p99) is for a
+# replica alone on its card, and two 7B replicas sharing one miss it on
+# the burst's cold 512-token contexts; a replica in breach weighs its load
+# up in the router (slo_pressure) and sheds its contexts, which the SLO
+# gate below shows apart
+FLEET_SLO_ENV = {"DEVSPACE_SLO_TTFT_P99_S": "10"}
+# the short-lived replica of the SLO gate: a TTFT objective no request
+# meets, a 3 s short window evaluated every 0.2 s
+SLO_GATE_ENV = {"DEVSPACE_SLO_TTFT_P99_S": "0.000001", "DEVSPACE_SLO_SHORT_WINDOW_S": "3",
+                "DEVSPACE_SLO_INTERVAL_S": "0.2", "MAX_SLOTS": "1", "PREWARM": "0"}
+REPO_ROOT = str(Path(__file__).resolve().parent)
+
+
+def replica_spec(ckpt_dir: str, model: str, **env):
+    """A torch replica: ``python -m devspace_tpu_torch.serve`` over the
+    checkpoint, every program built before its port opens."""
+    from devspace_tpu_torch.serving import ReplicaSpec
+
+    return ReplicaSpec(
+        module="devspace_tpu_torch.serve",
+        env={"MODEL": model, "CHECKPOINT": ckpt_dir, "PREWARM": "1",
+             "MAX_SLOTS": str(FLEET["max_slots"]), "PYTHONPATH": REPO_ROOT, **env},
+        ready_timeout_s=FLEET["ready_timeout_s"], probe_timeout_s=5.0, stop_grace_s=20.0)
+
+
+def fleet_traffic(vocab: int) -> list:
+    """Three 512-token contexts, each followed by a question of 8-32
+    tokens: the 24 prompts in turn over the contexts (seed 5)."""
+    rng = np.random.default_rng(5)
+    contexts = [rng.integers(1, vocab, FLEET["context_tokens"]).tolist()
+                for _ in range(FLEET["contexts"])]
+    lo, hi = FLEET["question_tokens"]
+    return [(i % FLEET["contexts"],
+             contexts[i % FLEET["contexts"]] + rng.integers(1, vocab, rng.integers(lo, hi + 1))
+             .tolist()) for i in range(FLEET["requests"])]
+
+
+def stream_generate(url: str, prompt: list, n: int) -> list:
+    """The tokens of one streamed greedy ``/generate``; the stream must
+    end with ``{"done": true}``."""
+    body = json.dumps({"prompt_ids": prompt, "max_new_tokens": n, "stream": True}).encode()
+    with urllib.request.urlopen(urllib.request.Request(url + "/generate", data=body),
+                                timeout=600) as resp:
+        lines = [json.loads(ln) for ln in resp.read().splitlines() if ln.strip()]
+    assert lines and lines[-1] == {"done": True}, lines[-3:]
+    return [m["token"] for m in lines[:-1]]
+
+
+def get_json(url: str, timeout: float = 60) -> tuple[int, dict]:
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def scrape(url: str) -> dict:
+    from devspace_tpu_torch.obs.fleet import parse_exposition
+
+    with urllib.request.urlopen(url + "/metrics", timeout=60) as resp:
+        return parse_exposition(resp.read().decode())
+
+
+def sample_value(snap: dict, name: str) -> float:
+    return float(snap[name]["samples"][0][1]) if snap.get(name) else 0.0
+
+
+def histogram_quantile(value: dict, q: float) -> Optional[float]:
+    """The upper edge of the bucket holding quantile ``q`` of a snapshot
+    histogram (bucket resolution, as the SLO evaluator reads it)."""
+    if not value["count"]:
+        return None
+    for le, cum in value["buckets"]:
+        if cum >= q * value["count"]:
+            return le
+    return math.inf
+
+
+def start_seconds(replica) -> dict:
+    """A stopped replica's own start report: the engine build (the
+    checkpoint's load) and prewarm seconds it printed."""
+    out = (replica.proc.stdout.read() or b"").decode(errors="replace")
+    times = {}
+    for key, pattern in (("load_s", r"engine built in ([0-9.]+)s"),
+                         ("prewarm_s", r"prewarmed \d+ programs in ([0-9.]+)s")):
+        m = re.search(pattern, out)
+        times[key] = float(m.group(1)) if m else None
+    return times
+
+
+def run_concurrent(fn, items: list, workers: int) -> list:
+    """``fn`` over ``items`` with at most ``workers`` in flight, in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        return list(pool.map(fn, items))
+
+
+def phase_fleet(ckpt_dir: str, card: str, tie_bound: float, dev, model: str = "llama2-7b",
+                cfg=tfm.LLAMA2_7B) -> dict:
+    """Two Llama-2-7B torch replicas (``ReplicaFleet``, each ``python -m
+    devspace_tpu_torch.serve`` with ``CHECKPOINT`` and ``PREWARM=1``) on
+    the one card behind the port's ``RoutingGateway`` (policy prefix) and
+    ``TelemetryCollector``. A greedy burst of 24 requests over three
+    512-token contexts, 8 in flight, after each context's first request:
+    every stream equals the prompt served directly by one replica up to
+    a near tie; each context's later requests land on its first replica,
+    whose engine counts the prefix hits; the collector's federated token
+    count equals the tokens the clients received; each replica that
+    served ran the paged-decode kernel and captured no graph after
+    prewarm. Then one replica is SIGKILLed: a request routed to it is
+    rerouted before its first byte, and the fleet restarts it within its
+    ready timeout. Last, a short-lived third replica's ``/readyz`` flips
+    to 503 under an injected TTFT breach and comes back."""
+    from devspace_tpu_torch.obs.collector import TelemetryCollector
+    from devspace_tpu_torch.serving import ReplicaFleet
+    from devspace_tpu_torch.serving.gateway import RoutingGateway
+    from devspace_tpu_torch.serving.router import PrefixRouter, RouterConfig, loads_from_collector
+
+    line = {"phase": "fleet", "model": model, "card": card, **FLEET,
+            "note": "two replicas share one card: their tok/s is not a scaling figure"}
+    traffic = fleet_traffic(cfg.vocab_size)
+    n_new = FLEET["new_tokens"]
+    fleet = ReplicaFleet(spec=replica_spec(ckpt_dir, model, **FLEET_SLO_ENV),
+                         replicas=FLEET["replicas"], poll_interval=1.0)
+    gw = collector = None
+    stopped = []
+    try:
+        t0 = time.monotonic()
+        fleet.start()
+        line["fleet_start_s"] = time.monotonic() - t0
+        names = fleet.names()
+        urls = fleet.targets()
+        assert sorted(urls) == sorted(names) and len(set(urls.values())) == len(names)
+        health0 = {n: get_json(urls[n] + "/healthz")[1] for n in names}
+        # the collector scrapes every replica each second; the router
+        # reads its load signals (slots, queue, occupancy) from it
+        collector = TelemetryCollector(sorted(urls.items()), interval_s=1.0, timeout_s=30)
+        collector.scrape_once()
+        collector.start()
+        router = PrefixRouter(replicas_fn=fleet.targets,
+                              loads_fn=lambda: loads_from_collector(collector),
+                              config=RouterConfig(policy="prefix", admission=False,
+                                                  block_size=FLEET["block_size"]))
+        # the context of each routing decision, in routing order
+        routes = []
+        contexts = {tuple(traffic[c][1][:16]): c for c in range(FLEET["contexts"])}
+        route = router.route
+
+        def recorded_route(prompt_ids, *args, **kwargs):
+            d = route(prompt_ids, *args, **kwargs)
+            routes.append((contexts[tuple(prompt_ids[:16])], d))
+            return d
+
+        router.route = recorded_route
+        gw = RoutingGateway(router, port=0, request_timeout_s=600)
+        gw.start()
+        before = {n: scrape(urls[n]) for n in names}
+
+        # each context's first request, the three at once, then the rest
+        firsts = list(range(FLEET["contexts"]))
+        t0 = time.monotonic()
+        got = dict(zip(firsts, run_concurrent(
+            lambda i: stream_generate(gw.base_url, traffic[i][1], n_new), firsts, len(firsts))))
+        # the router's load view is a scrape behind the replicas: take one
+        # after the firsts, so the replica that served none is not seen
+        # as idle beside the ones that did (the dispatch window's
+        # occupancy is a lifetime mean, 0 until a replica decodes)
+        collector.scrape_once()
+        rest = list(range(FLEET["contexts"], FLEET["requests"]))
+        got.update(zip(rest, run_concurrent(
+            lambda i: stream_generate(gw.base_url, traffic[i][1], n_new), rest,
+            FLEET["in_flight"])))
+        burst_s = time.monotonic() - t0
+        after = {n: scrape(urls[n]) for n in names}
+        health = {n: get_json(urls[n] + "/healthz")[1] for n in names}
+        received = sum(len(got[i]) for i in range(FLEET["requests"]))
+        assert received == FLEET["requests"] * n_new
+
+        # prefix affinity: each context's later requests follow its first
+        home = {}
+        for ctx, d in routes:
+            home.setdefault(ctx, d.replica)
+        later = routes[FLEET["contexts"]:]
+        assert sorted(home) == firsts and len(routes) == FLEET["requests"]
+        moved = [(ctx, d.replica, d.scores, d.overlap_tokens, d.reason) for ctx, d in later
+                 if d.replica != home[ctx]]
+        assert not moved, ("a context left its first replica", home, moved)
+        assert all(d.overlap_tokens >= FLEET["context_tokens"] for _, d in later), \
+            [d.overlap_tokens for _, d in later]
+        hits = {n: sample_value(after[n], "engine_prefix_hit_tokens_total")
+                - sample_value(before[n], "engine_prefix_hit_tokens_total") for n in names}
+        # the engine caches whole blocks of its own size
+        cached = FLEET["context_tokens"] // serve.BLOCK_SIZE * serve.BLOCK_SIZE
+        for n in set(home.values()):
+            assert hits[n] >= cached > 0, (n, hits)
+
+        # federation: the collector's sum over the replicas
+        collector.stop()
+        collector.scrape_once()
+        fed = collector.fleet_snapshot()
+        assert all(t.up for t in collector.targets)
+        fed_tokens = sample_value(fed, "engine_tokens_generated_total")
+        assert fed_tokens == received, (fed_tokens, received)
+
+        # the kernel ran on every replica that served (a replay counts its
+        # launches on the card only); no graph after prewarm
+        served = {n for n in names if sample_value(after[n], "engine_tokens_generated_total")}
+        launches = {n: health[n]["paged_decode_launches"] - health0[n]["paged_decode_launches"]
+                    for n in names}
+        for n in served:
+            assert launches[n] > 0 or dev.type != "cuda", (n, health[n])
+        for n in names:
+            assert health[n]["graph_captures"] == health0[n]["graph_captures"] > 0, n
+            assert health[n]["requests_failed"] == 0
+
+        # every stream equals the prompt served directly by one replica
+        direct_url = urls[names[-1]]
+        direct = run_concurrent(lambda i: stream_generate(direct_url, traffic[i][1], n_new),
+                                list(range(FLEET["requests"])), FLEET["max_slots"])
+        mismatched = [i for i in range(FLEET["requests"]) if got[i] != direct[i]]
+
+        per_replica = {}
+        for n in names:
+            (_, ttft), = after[n]["ttft_seconds"]["samples"]
+            tokens = (sample_value(after[n], "engine_tokens_generated_total")
+                      - sample_value(before[n], "engine_tokens_generated_total"))
+            per_replica[n] = {
+                "requests": sum(1 for _, d in routes if d.replica == n),
+                "tokens": tokens, "tok_per_s": tokens / burst_s,
+                "ttft_s_median": histogram_quantile(ttft, 0.5),
+                "ttft_s_p99": histogram_quantile(ttft, 0.99), "ttft_count": ttft["count"],
+                "prefix_hit_tokens": hits[n],
+                "paged_decode_launches": launches[n],
+                "graph_captures": health[n]["graph_captures"],
+            }
+        router_counters = {name: fam["samples"][0][1] if len(fam["samples"]) == 1
+                           else [[lb, v] for lb, v in fam["samples"]]
+                           for name, fam in router.registry.snapshot().items()
+                           if name.startswith("serving_router_") and fam["kind"] == "counter"}
+
+        # SIGKILL one replica that holds a context, and route a request of
+        # that context at once: the gateway meets the dead port before any
+        # byte and reroutes
+        victim = home[0]
+        old = fleet.replica(victim)
+        retries0 = sample_value(router.registry.snapshot(), "serving_router_retries_total")
+        assert home[0] in urls
+        fleet.kill(victim)
+        t_kill = time.monotonic()
+        old.proc.wait(timeout=60)
+        rerouted = stream_generate(gw.base_url, traffic[0][1], n_new)
+        retries = sample_value(router.registry.snapshot(), "serving_router_retries_total")
+        assert retries == retries0 + 1, (retries0, retries)
+        assert len(rerouted) == n_new
+        stopped.append(old)
+        deadline = t_kill + FLEET["ready_timeout_s"]
+        while time.monotonic() < deadline:
+            cur = fleet.replica(victim)
+            if cur is not None and cur.pid != old.pid and fleet.all_healthy():
+                break
+            time.sleep(0.5)
+        else:
+            raise AssertionError(f"{victim} not restarted within {FLEET['ready_timeout_s']} s")
+        restart_s = time.monotonic() - t_kill
+        restarted = fleet.replica(victim)
+        again = stream_generate(restarted.base_url, traffic[0][1], n_new)
+        restarted_health = get_json(restarted.base_url + "/healthz")[1]
+        assert restarted_health["paged_decode_launches"] > 0 or dev.type != "cuda"
+        kill = {"victim": victim, "rerouted_tokens": len(rerouted),
+                "gateway_retries": retries - retries0, "restart_s": restart_s,
+                "restarted_stream_equals_direct": again == direct[0],
+                "rerouted_stream_equals_direct": rerouted == direct[0]}
+        for tokens in (rerouted, again):
+            if tokens != direct[0]:
+                mismatched.append(("kill", tokens))
+        line.update({
+            "replica_starts": {}, "burst_s": burst_s, "tokens_received": received,
+            "paged_decode_launches": sum(launches.values()),
+            "federated_tokens": fed_tokens, "per_replica": per_replica,
+            "context_home": {str(k): v for k, v in home.items()},
+            "router_counters": router_counters, "kill_restart": kill,
+            "streams_equal_direct": not mismatched,
+        })
+    finally:
+        if collector is not None:
+            collector.stop()
+        if gw is not None:
+            gw.stop()
+        fleet.stop()
+    for replica in stopped + fleet.handles():
+        line["replica_starts"].setdefault(f"{replica.name}:{replica.pid}", start_seconds(replica))
+
+    # the SLO gate on a third, short-lived replica
+    slo_fleet = ReplicaFleet(spec=replica_spec(ckpt_dir, model, **SLO_GATE_ENV), replicas=1,
+                             name_prefix="slo", poll_interval=1.0)
+    try:
+        t0 = time.monotonic()
+        slo_fleet.start()
+        slo_start_s = time.monotonic() - t0
+        url = next(iter(slo_fleet.targets().values()))
+        code, ready = get_json(url + "/readyz")
+        assert code == 200, ready  # no data is not a breach
+        deadline = time.monotonic() + 30
+        while not get_json(url + "/readyz")[1]["slo"].get("evaluated_at"):
+            assert time.monotonic() < deadline, "the SLO evaluator never ran"
+            time.sleep(0.1)
+        time.sleep(0.3)  # an observation before the first evaluation is its baseline
+        stream_generate(url, traffic[1][1][:64], 4)
+        t0 = time.monotonic()
+        while True:
+            code, ready = get_json(url + "/readyz")
+            if code == 503 and any(s["name"] == "ttft_p99" and s["status"] == "breach"
+                                   for s in ready["slo"]["slos"]):
+                break
+            assert time.monotonic() - t0 < 30, ("readyz never flipped", code, ready)
+            time.sleep(0.1)
+        flipped_s = time.monotonic() - t0
+        assert get_json(url + "/healthz")[0] == 200
+        while get_json(url + "/readyz")[0] != 200:
+            assert time.monotonic() - t0 < 60, "readyz never came back"
+            time.sleep(0.2)
+        line["slo_gate"] = {"start_s": slo_start_s, "flipped_after_s": flipped_s,
+                            "recovered_after_s": time.monotonic() - t0, **SLO_GATE_ENV}
+    finally:
+        slo_fleet.stop()
+    for replica in slo_fleet.handles():
+        line["replica_starts"][f"{replica.name}:{replica.pid}"] = start_seconds(replica)
+
+    # where a gateway stream and the direct one part, both tokens must be
+    # near ties of an eager forward over the restored params
+    ties = []
+    if mismatched:
+        params, _ = load_serving_params(ckpt_dir, cfg, device=dev)
+        for item in mismatched:
+            i, tokens = (0, item[1]) if isinstance(item, tuple) else (item, got[item])
+            ties.append(near_tie(params, traffic[i][1], direct[i], tokens, tie_bound, cfg))
+        del params
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    line.update({"near_ties": ties, "near_tie_bound": tie_bound})
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card", file=sys.stderr)
@@ -2527,9 +2923,21 @@ def main() -> int:
     emit(kv_line)
     gc.collect()
     torch.cuda.empty_cache()
-    int8w_line = phase_int8_weights(params, dev, card,
-                                    engine_line["decode_step_b8_ctx1024"]["graph_ms"])
-    emit(int8w_line)
+    # the 7B checkpoint int8_weights saves is the fleet's replicas' too
+    ckpt_dir = tempfile.mkdtemp(prefix="llama2-7b-")
+    try:
+        int8w_line = phase_int8_weights(params, dev, card,
+                                        engine_line["decode_step_b8_ctx1024"]["graph_ms"],
+                                        ckpt_dir)
+        emit(int8w_line)
+        # the replicas need the card: the parent holds no engine and no params
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        fleet_line = phase_fleet(ckpt_dir, card, engine_line["near_tie_bound"], dev)
+        emit(fleet_line)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
 
     kernels = []
     for variant, line in (("bf16", engine_line), ("int8", int8_line)):
@@ -2547,6 +2955,10 @@ def main() -> int:
             # int8 weights from a checkpoint, over a bf16 pool
             by_path["int8_weights"] = int8w_line["launches"]
             err_by_path["int8_weights"] = err_by_path["serving"]
+            # the fleet's replicas during the gateway burst, as each
+            # replica's /healthz counts its replays
+            by_path["fleet"] = fleet_line["paged_decode_launches"]
+            err_by_path["fleet"] = err_by_path["serving"]
         kernels.append({
             "name": f"paged_decode[{variant} pool]",
             "route": "cuda",

@@ -12,8 +12,11 @@ versions), ``models/`` (the Llama-family transformer, the Mixtral-style
 MoE, ResNet, ViT and the MLP), ``parallel/`` (the single-device MoE
 routing), ``inference/`` (the continuous-batching engine), ``training/``
 (synthetic data and the input pipeline, the classifier, LM and MoE train
-steps, checkpoints, the profiler) and ``serve.py`` (the HTTP server,
-``python -m devspace_tpu_torch.serve --port N``).
+steps, checkpoints, the profiler), ``obs/`` (metrics, traces, events,
+SLOs, the fleet collector), ``serving/`` (the replica fleet, the prefix
+router and its gateway), ``resilience/`` (retry policies, the
+supervisor) and ``serve.py`` (the HTTP server, ``python -m
+devspace_tpu_torch.serve --port N``).
 """
 
 __version__ = "0.1.0"

@@ -74,6 +74,9 @@ from typing import TYPE_CHECKING, Optional
 import numpy as np
 import torch
 
+from ..obs import events as _events
+from ..obs.tracing import TRACK_READBACK, device_decode_track
+
 if TYPE_CHECKING:  # pragma: no cover - types only
     from .engine import InferenceEngine
 
@@ -98,7 +101,7 @@ def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 class _InFlight:
     """One dispatched-but-unread decode chunk."""
 
-    __slots__ = ("event", "lane", "slots", "gens", "k_steps")
+    __slots__ = ("event", "lane", "slots", "gens", "k_steps", "t_dispatch")
 
     def __init__(self, event, lane: int, slots: list[int], gens: list[int], k_steps: int):
         self.event = event  # recorded after the readback copy (None on the CPU)
@@ -106,6 +109,9 @@ class _InFlight:
         self.slots = slots  # participating slot indices
         self.gens = gens  # slot.gen at dispatch (re-admission guard)
         self.k_steps = k_steps
+        # in a timeline capture: the host clock at dispatch, so the chunk's
+        # residency [dispatch, readback] is drawn on its lane's track
+        self.t_dispatch = 0.0
 
 
 def _toks_ready(entry: _InFlight) -> bool:
@@ -254,13 +260,17 @@ class DecodeDispatcher:
         if eng.device.type == "cuda":
             event = torch.cuda.Event()
             event.record()
-        self.window.append(
-            _InFlight(event, lane, list(plain), [eng.slots[i].gen for i in plain], k_steps))
+        entry = _InFlight(event, lane, list(plain), [eng.slots[i].gen for i in plain], k_steps)
+        if eng._timeline is not None:
+            entry.t_dispatch = time.monotonic()
+        self.window.append(entry)
         for i in plain:
             self.refs[i] += 1
             self.inflight_steps[i] += k_steps
         self.dispatches += 1
         self.occupancy_sum += len(self.window)
+        _events.emit("dispatch", "depth_change", level="debug", depth=len(self.window),
+                     direction="up", slots=len(plain))
 
     def drain(self, block: bool = False) -> int:
         """Retire in-flight chunks in dispatch order. ``block=True`` waits
@@ -290,8 +300,22 @@ class DecodeDispatcher:
                 entry.event.synchronize()
             toks = self._host[entry.lane][: entry.k_steps].tolist()
         finally:
-            self.readback_wait_s += time.monotonic() - t0
+            t1 = time.monotonic()
+            self.readback_wait_s += t1 - t0
         eng = self.engine
+        tl = eng._timeline
+        if tl is not None and entry.t_dispatch:
+            # the chunk on its window lane, the host's blocked wait apart
+            trace_ids = [
+                eng.slots[i].req._obs_trace.trace_id
+                for i, g in zip(entry.slots, entry.gens)
+                if eng.slots[i].req is not None and eng.slots[i].gen == g
+                and getattr(eng.slots[i].req, "_obs_trace", None) is not None
+            ]
+            tl.add(device_decode_track(entry.lane), f"decode x{entry.k_steps}",
+                   entry.t_dispatch, t1, slots=list(entry.slots), k_steps=entry.k_steps,
+                   trace_ids=trace_ids)
+            tl.add(TRACK_READBACK, "readback", t0, t1)
         for n, i in enumerate(entry.slots):
             self.refs[i] -= 1
             self.inflight_steps[i] -= entry.k_steps
@@ -304,12 +328,16 @@ class DecodeDispatcher:
             if self.refs[i] == 0 and i in self.pending_free:
                 self.pending_free.discard(i)
                 eng._free_slot_blocks(i)
+        _events.emit("dispatch", "depth_change", level="debug", depth=len(self.window),
+                     direction="down")
 
     def abandon(self) -> None:
         """Drop the whole window without reading it (the failure path:
         ``_fail_outstanding`` calls this before failing slot-resident
         requests); zombie blocks are released and every carry row is
         marked dirty."""
+        if self.window:
+            _events.emit("dispatch", "window_abandoned", level="warn", dropped=len(self.window))
         self.window.clear()
         B = self.engine.max_slots
         self.refs = [0] * B

@@ -4,9 +4,12 @@ Counterpart of ``devspace_tpu/inference/engine.py`` at that engine's
 serving defaults: the radix prefix cache on, the overlapped dispatch
 window at depth 2, every decode chunk and speculative round one program
 built ahead of traffic by ``prewarm()``; and with its host KV tier
-(``kv_tier``, off by default), KV chain migration between replicas. The
-telemetry views (``metrics``: the registry, request traces, the
-timeline) wait for a later slice, as does the tensor-parallel ``mesh``.
+(``kv_tier``, off by default), KV chain migration between replicas;
+and with the reference's telemetry (``metrics``, on by default): request
+traces and latency histograms (``obs/request_trace.py``), the serving
+counters as the ``engine_*`` metric families, flight-recorder events
+and the timeline profiler (``start_timeline``). The tensor-parallel
+``mesh`` waits for the port of ``parallel/``.
 
 - **Paged KV cache** (vLLM-style): K/V live in a block pool
   ``[layers, n_blocks, kv_heads, block_size, head_dim]`` with per-slot
@@ -94,6 +97,16 @@ import torch
 
 from ..device import resolve_device
 from ..models import transformer as tfm
+from ..obs import events as _events
+from ..obs.metrics import Registry, WindowedRate, metrics_enabled
+from ..obs.request_trace import ServingTelemetry
+from ..obs.tracing import (
+    TRACK_HOST_SCHED,
+    TRACK_PREFILL,
+    TRACK_SPEC,
+    TRACK_TIER_RESTORE,
+    TimelineRecorder,
+)
 from ..ops.paged_attention import dequantize_kv, quantize_kv
 from .dispatch import DecodeDispatcher, resolve_dispatch_depth, upload
 from .graphs import ProgramTable
@@ -126,6 +139,129 @@ def sampling_mode(sampling: bool, filters: bool) -> str:
     return "greedy" if not sampling else "filters" if filters else "sampled"
 
 
+# Metric families the engine registers over its serving counters
+# (pull-style: each callback reads the same value stats() reports — ONE
+# mutation site, two views), the reference engine's families exactly, so
+# a fleet routes and merges JAX and torch replicas alike. Format: (name,
+# kind, help, stats_key, fleet aggregation hint). Counters of the port
+# alone (graph_captures, paged_decode_launches, spec_launch_s, ...) stay
+# in stats().
+ENGINE_METRIC_FAMILIES = (
+    ("engine_requests_completed_total", "counter",
+     "Requests that finished successfully", "requests_completed", "sum"),
+    ("engine_requests_failed_total", "counter",
+     "Requests that failed (dispatch faults, bad admissions, stop())",
+     "requests_failed", "sum"),
+    ("engine_requests_preempted_total", "counter",
+     "Preemption events (a request may be preempted more than once)",
+     "requests_preempted", "sum"),
+    ("engine_tokens_generated_total", "counter",
+     "Generated tokens emitted across all requests", "tokens_generated", "sum"),
+    ("engine_prefix_hit_blocks_total", "counter",
+     "Prompt blocks served from the radix prefix cache at admission",
+     "prefix_hit_blocks", "sum"),
+    ("engine_prefix_hit_tokens_total", "counter",
+     "Prompt tokens whose prefill was skipped at admission (resident "
+     "radix hits plus host-tier restores)", "prefix_hit_tokens", "sum"),
+    ("engine_recompute_tokens_saved_total", "counter",
+     "Prompt tokens restored from the host KV tier instead of "
+     "recompute-prefilled (the tier-attributable subset of prefix hits)",
+     "recompute_tokens_saved", "sum"),
+    ("engine_kv_spill_bytes_total", "counter",
+     "Bytes of evicted KV copied device->host into the tier (packed, "
+     "int8-quantized)", "kv_spill_bytes", "sum"),
+    ("engine_kv_spill_blocks_total", "counter",
+     "Evicted KV blocks spilled to the host tier", "kv_spill_blocks", "sum"),
+    ("engine_kv_restore_hits_total", "counter",
+     "Spilled blocks restored host->device on a radix match",
+     "kv_restore_hits", "sum"),
+    ("engine_kv_restore_fallbacks_total", "counter",
+     "Restore attempts that fell back to recompute-prefill (tier miss, "
+     "corrupt payload, or restore error)", "kv_restore_fallbacks", "sum"),
+    ("engine_kv_tier_resident_bytes", "gauge",
+     "Host RAM currently held by the KV tier", "kv_tier_resident_bytes", "sum"),
+    # histogram families carry no stats_key: _register_metric_families
+    # creates a real instrument (observed per restore event) instead of
+    # a pull callback
+    ("engine_kv_restore_seconds", "histogram",
+     "Latency of one spilled-chain restore (tier reads + scatter "
+     "dispatches; async device work excluded)", None, "sum"),
+    # KV migration (disaggregated prefill/decode): chains
+    # pulled from a peer replica's /kv/chain endpoint into the local
+    # tier, and chain envelopes this replica served to peers
+    ("engine_kv_migrate_chains_total", "counter",
+     "KV chains fetched from a peer replica and imported into the "
+     "local tier", "kv_migrate_chains", "sum"),
+    ("engine_kv_migrate_blocks_total", "counter",
+     "KV blocks promoted remote->spilled from imported migration "
+     "envelopes", "kv_migrate_blocks", "sum"),
+    ("engine_kv_migrate_bytes_total", "counter",
+     "Envelope bytes fetched in successful KV migrations",
+     "kv_migrate_bytes", "sum"),
+    ("engine_kv_migrate_failures_total", "counter",
+     "KV migration attempts that failed (fetch error or wire-format "
+     "rejection) and degraded to recompute-prefill",
+     "kv_migrate_failures", "sum"),
+    ("engine_kv_export_chains_total", "counter",
+     "KV chain envelopes served to peer replicas via /kv/chain",
+     "kv_export_chains", "sum"),
+    ("engine_kv_migrate_seconds", "histogram",
+     "Latency of one KV chain migration (fetch + import + promote; "
+     "the host->device scatter is counted by the restore path)",
+     None, "sum"),
+    ("engine_decode_dispatches_total", "counter",
+     "Decode chunks dispatched by the overlapped serving loop",
+     "decode_dispatches", "sum"),
+    ("engine_readback_wait_seconds_total", "counter",
+     "Host time blocked on decode token readback", "readback_wait_s", "sum"),
+    ("engine_spec_rounds_total", "counter",
+     "Speculative draft/verify rounds replayed by the host commit loop",
+     "spec_rounds", "sum"),
+    ("engine_spec_proposed_total", "counter",
+     "Draft tokens proposed in replayed speculative rounds",
+     "spec_proposed", "sum"),
+    ("engine_spec_accepted_total", "counter",
+     "Draft tokens accepted by target verification", "spec_accepted", "sum"),
+    ("engine_spec_committed_total", "counter",
+     "Tokens committed from speculative rounds", "spec_committed", "sum"),
+    ("engine_active_slots", "gauge",
+     "Slots currently decoding (prefill complete)", "active_slots", "sum"),
+    ("engine_prefilling_slots", "gauge",
+     "Slots currently in chunked prefill", "prefilling_slots", "sum"),
+    ("engine_max_slots", "gauge",
+     "Configured concurrent-sequence capacity", "max_slots", "sum"),
+    ("engine_queued_requests", "gauge",
+     "Requests waiting for a slot (pending queue + preempted resume list)",
+     "queued", "sum"),
+    ("engine_free_kv_blocks", "gauge",
+     "Unallocated KV pool blocks", "free_blocks", "sum"),
+    ("engine_kv_blocks", "gauge",
+     "Allocatable KV pool blocks (excludes the scratch block)",
+     "total_blocks", "sum"),
+    ("engine_prefix_cached_blocks", "gauge",
+     "Blocks currently published in the radix prefix cache",
+     "prefix_cached_blocks", "sum"),
+    ("engine_dispatch_depth", "gauge",
+     "Configured dispatch-ahead window depth", "dispatch_depth", "max"),
+    ("engine_dispatch_depth_occupancy", "gauge",
+     "Mean in-flight window depth observed at dispatch",
+     "dispatch_depth_occupancy", "avg"),
+    ("engine_uptime_seconds", "gauge",
+     "Seconds since the scheduler thread started", "uptime_s", "max"),
+    ("engine_tokens_per_sec_10s", "gauge",
+     "Generated tokens per second over the last ~10s window",
+     "tokens_per_sec_10s", "sum"),
+)
+
+
+def _req_trace_id(req) -> Optional[str]:
+    """The request's distributed trace id, when telemetry minted one.
+    Events stamp it explicitly: the scheduler thread never sees the
+    submitting thread's thread-local tracer context."""
+    trace = getattr(req, "_obs_trace", None)
+    return trace.trace_id if trace is not None else None
+
+
 @dataclass
 class Request:
     prompt_ids: list[int]
@@ -154,6 +290,9 @@ class Request:
     # restore path pulls their envelope from there (any failure falls back
     # to recompute-prefill). Ignored without a host KV tier.
     kv_source: Optional[str] = None
+    # inbound W3C traceparent header: the request's serving spans join the
+    # caller's distributed trace (telemetry mints a fresh trace without it)
+    traceparent: Optional[str] = None
     # filled by the engine
     tokens: list[int] = field(default_factory=list)
     done: threading.Event = field(default_factory=threading.Event)
@@ -261,7 +400,18 @@ class InferenceEngine:
     ``draft_params``) must already live there (see
     ``models.transformer.init_params``,
     ``models.convert.params_from_numpy`` and :meth:`from_checkpoint`);
-    their matmul weights may be int8 ``QuantizedLinear`` leaves."""
+    their matmul weights may be int8 ``QuantizedLinear`` leaves.
+
+    ``metrics`` turns the telemetry (``obs/``) on or off: on by default,
+    ``DEVSPACE_ENGINE_METRICS=off`` turns it off. When on,
+    ``self.telemetry`` records per-request lifecycle traces and latency
+    histograms (TTFT, TPOT, queue wait, prefill, e2e) and the serving
+    counters are registered as ``ENGINE_METRIC_FAMILIES`` in
+    ``self.metrics_registry`` (a private registry unless
+    ``metrics_registry`` shares one). ``stats()`` is the same either way:
+    the registry and ``stats()`` are two views over the same counters.
+    Every hook is host code between dispatches, outside the captured
+    graphs, and reads nothing back from the card."""
 
     def __init__(
         self,
@@ -285,6 +435,8 @@ class InferenceEngine:
         kv_tier: Optional[str] = None,
         kv_tier_bytes: int = 256 << 20,
         kv_tier_dir: Optional[str] = None,
+        metrics: Optional[bool] = None,
+        metrics_registry: Optional[Registry] = None,
     ):
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
@@ -417,6 +569,21 @@ class InferenceEngine:
         self.requests_preempted = 0
         self.tokens_generated = 0
         self.decode_steps = 0
+        # tokens/s over a 10 s window (tokens_per_sec is a lifetime mean
+        # that goes stale after idle periods): one clock read per token
+        self._tok_rate = WindowedRate(10.0)
+        # the kv restore/migration latency histograms, set by
+        # _register_metric_families
+        self._kv_restore_hist = None
+        self._kv_migrate_hist = None
+        # telemetry: None when off, and every hook site is one None check
+        self.telemetry: Optional[ServingTelemetry] = None
+        if metrics_enabled(metrics):
+            self.telemetry = ServingTelemetry(metrics_registry)
+            self._register_metric_families()
+        # the timeline profiler: None except inside a capture window
+        # (start_timeline / /debug/trace)
+        self._timeline: Optional[TimelineRecorder] = None
         self._stop = threading.Event()
         # serializes submit's check+put against stop's set+drain
         self._submit_lock = threading.Lock()
@@ -493,6 +660,7 @@ class InferenceEngine:
         min_new_tokens: int = 0,
         logit_bias: Optional[dict[int, float]] = None,
         kv_source: Optional[str] = None,
+        traceparent: Optional[str] = None,
     ) -> Request:
         if not prompt_ids:
             raise ValueError("empty prompt")
@@ -533,12 +701,22 @@ class InferenceEngine:
             min_new_tokens=int(min_new_tokens),
             logit_bias=logit_bias,
             kv_source=kv_source,
+            traceparent=traceparent,
             submitted_at=time.monotonic(),
         )
-        with self._submit_lock:
-            if self._stop.is_set():
-                raise RuntimeError("engine is stopped")
-            self.pending.put(req)
+        # trace BEFORE the queue put: the scheduler may admit the request
+        # the instant it lands, and on_admit is a no-op without the trace
+        if self.telemetry is not None:
+            self.telemetry.on_submit(req)
+        try:
+            with self._submit_lock:
+                if self._stop.is_set():
+                    raise RuntimeError("engine is stopped")
+                self.pending.put(req)
+        except BaseException:
+            if self.telemetry is not None:
+                self.telemetry.on_finish(req, "failed")
+            raise
         return req
 
     def start(self) -> "InferenceEngine":
@@ -657,6 +835,7 @@ class InferenceEngine:
             "queued": self.pending.qsize() + len(self._resume),
             "uptime_s": round(uptime, 1),
             "tokens_per_sec": round(self.tokens_generated / uptime, 2) if uptime > 0 else 0.0,
+            "tokens_per_sec_10s": round(self._tok_rate.rate(), 2),
             **d.stats(),
             "decode_steps": self.decode_steps,
             "graph_captures": self._programs.captures,
@@ -673,6 +852,72 @@ class InferenceEngine:
             "spec_readback_s": round(self.spec_readback_s, 4),
             "draft_prefills": self.draft_prefills,
         }
+
+    # -- metrics (obs/) ----------------------------------------------------
+    @property
+    def metrics_registry(self) -> Optional[Registry]:
+        """The engine's metric registry (None with metrics off)."""
+        return self.telemetry.registry if self.telemetry is not None else None
+
+    def metrics_text(self) -> str:
+        """Prometheus text exposition of this engine's registry (serving
+        counters and request-latency histograms); "" with metrics off."""
+        reg = self.metrics_registry
+        return reg.render() if reg is not None else ""
+
+    def _register_metric_families(self) -> None:
+        """Register ENGINE_METRIC_FAMILIES as pull callbacks over
+        ``stats()``: the counters keep their one mutation site and the
+        registry reads them at scrape time. Weakly referenced, so a
+        registry that outlives the engine reports 0 instead of keeping
+        the engine (and its device buffers) alive."""
+        import weakref
+
+        reg = self.telemetry.registry
+        ref = weakref.ref(self)
+
+        def reader(key):
+            def fn():
+                eng = ref()
+                if eng is None:
+                    return 0.0
+                return float(eng.stats().get(key, 0) or 0)
+
+            return fn
+
+        for name, kind, help_, key, _agg in ENGINE_METRIC_FAMILIES:
+            if kind == "histogram":
+                # observed per event, not pulled from stats()
+                if name == "engine_kv_restore_seconds":
+                    self._kv_restore_hist = reg.histogram(name, help_)
+                elif name == "engine_kv_migrate_seconds":
+                    self._kv_migrate_hist = reg.histogram(name, help_)
+                continue
+            reg.register_callback(name, kind, help_, reader(key))
+
+    # -- timeline profiler (obs/tracing.py) --------------------------------
+    def start_timeline(self, max_events: int = 100_000) -> TimelineRecorder:
+        """Attach a timeline recorder: the scheduler loop, the decode
+        dispatcher, speculative rounds and the KV tier's restores stream
+        events onto named Chrome-trace lanes until :meth:`stop_timeline`.
+        Starting over an active capture replaces it."""
+        tl = TimelineRecorder(max_events=max_events)
+        self._timeline = tl
+        return tl
+
+    def stop_timeline(self) -> Optional[TimelineRecorder]:
+        """Detach and return the active recorder (None if none)."""
+        tl = self._timeline
+        self._timeline = None
+        return tl
+
+    def capture_timeline(self, seconds: float, max_events: int = 100_000) -> dict:
+        """``/debug/trace?seconds=N``: record for ``seconds`` of wall time,
+        then render Chrome-trace JSON. Runs on the caller's thread."""
+        self.start_timeline(max_events=max_events)
+        time.sleep(max(0.0, float(seconds)))
+        tl = self.stop_timeline()
+        return tl.chrome() if tl is not None else {"traceEvents": []}
 
     # -- block allocator ---------------------------------------------------
     def _blocks_needed(self, slot_idx: int, upto: int) -> int:
@@ -874,6 +1119,7 @@ class InferenceEngine:
                 spilled += len(payload)
         self.kv_spill_s += time.monotonic() - t0
         log.debug("kv tier: spilled %d blocks, %d bytes", len(items), spilled)
+        _events.emit("kv_tier", "spill", blocks=len(items), bytes=spilled)
 
     def _on_tier_evict(self, digest: str) -> None:
         """The tier aged out or lost a payload: prune the matching spilled
@@ -952,6 +1198,12 @@ class InferenceEngine:
                     self._kv_tier.discard(d)
                 log.warning("kv tier: restore fell back to recompute at digest %s "
                             "(slot %d, %d nodes pruned)", digest[:16], slot_idx, len(dropped))
+                slot_req = self.slots[slot_idx].req
+                _events.emit(
+                    "kv_tier", "restore_fallback", level="warn",
+                    trace_id=_req_trace_id(slot_req) if slot_req is not None else None,
+                    slot=slot_idx, digest=digest[:16], pruned=len(dropped),
+                )
                 break
             chain.append(parsed)
         if not chain:
@@ -978,10 +1230,28 @@ class InferenceEngine:
             got = cur.publish(tuple(prompt[i * bs: (i + 1) * bs]), blk, 1)
             assert got == blk, "restore revived a node another block holds"
             self.kv_restore_hits += 1
-        self._dispatcher.note_restores(len(blks), overlapped)
+        restored = len(blks)
+        self._dispatcher.note_restores(restored, overlapped)
         self._dispatcher.invalidate_table(slot_idx)
-        self.kv_restore_s += time.monotonic() - t0
-        return len(blks)
+        now = time.monotonic()
+        self.kv_restore_s += now - t0
+        if self._kv_restore_hist is not None:
+            self._kv_restore_hist.observe(now - t0)
+        # the restore belongs to the slot's request
+        req = self.slots[slot_idx].req
+        trace = getattr(req, "_obs_trace", None) if req is not None else None
+        if trace is not None:
+            trace.event(f"kv_restore:{restored}", now)
+        tl = self._timeline
+        if tl is not None:
+            tl.add(TRACK_TIER_RESTORE, f"restore x{restored}", t0, now, slot=slot_idx,
+                   blocks=restored, overlapped=overlapped,
+                   trace_id=trace.trace_id if trace is not None else None)
+        _events.emit(
+            "kv_tier", "restore", trace_id=trace.trace_id if trace is not None else None,
+            slot=slot_idx, blocks=restored, overlapped=overlapped, seconds=round(now - t0, 6),
+        )
+        return restored
 
     # -- KV migration -------------------------------------------------------
     def _mark_remote_chain(self, prompt: list[int], source: str) -> None:
@@ -1004,6 +1274,9 @@ class InferenceEngine:
         nodes remote -> spilled. A failure leaves them remote, so the
         caller's reads miss and recompute. Never raises."""
         source = self._prefix_cache.remote_source(remote[0])
+        req = self.slots[slot_idx].req
+        trace = getattr(req, "_obs_trace", None) if req is not None else None
+        trace_id = trace.trace_id if trace is not None else None
         t0 = time.monotonic()
         try:
             envelope = self._migrate_client().fetch(source, remote[-1])
@@ -1013,6 +1286,11 @@ class InferenceEngine:
             self.kv_migrate_failures += 1
             log.warning("kv migration from %s failed (slot %d, %d blocks): %s",
                         source, slot_idx, len(remote), type(e).__name__)
+            _events.emit(
+                "kv_tier", "migrate_failed", level="warn", trace_id=trace_id, slot=slot_idx,
+                source=source, digest=remote[-1][:16], blocks=len(remote),
+                reason=type(e).__name__,
+            )
             return
         promoted = 0
         for d in remote:
@@ -1021,10 +1299,24 @@ class InferenceEngine:
                 promoted += 1
             else:
                 break
-        self.kv_migrate_s += time.monotonic() - t0
+        now = time.monotonic()
+        self.kv_migrate_s += now - t0
         self.kv_migrate_chains += 1
         self.kv_migrate_blocks += promoted
         self.kv_migrate_bytes += len(envelope)
+        if self._kv_migrate_hist is not None:
+            self._kv_migrate_hist.observe(now - t0)
+        if trace is not None:
+            trace.event(f"kv_migrate:{promoted}", now)
+        tl = self._timeline
+        if tl is not None:
+            tl.add(TRACK_TIER_RESTORE, f"migrate x{promoted}", t0, now, slot=slot_idx,
+                   source=source, blocks=promoted, trace_id=trace_id)
+        _events.emit(
+            "kv_tier", "migrate", trace_id=trace_id, slot=slot_idx, source=source,
+            blocks=promoted, requested=len(remote), bytes=len(envelope),
+            seconds=round(now - t0, 6),
+        )
 
     def export_kv_chain(self, digest: str, timeout: float = 5.0) -> Optional[bytes]:
         """The KVM1 envelope of the root->leaf chain ``digest`` names, for a
@@ -1081,6 +1373,7 @@ class InferenceEngine:
         if not blocks:
             return None
         self.kv_export_chains += 1
+        _events.emit("kv_tier", "migrate_export", digest=digest[:16], blocks=len(blocks))
         return pack_chain_envelope(blocks)
 
     def _reset_pool(self) -> None:
@@ -1107,10 +1400,18 @@ class InferenceEngine:
         req.done.set()
         req._notify()
 
-    def _fail(self, req: Request, reason: str) -> None:
+    def _fail(self, req: Request, reason: str, stage: str, slot: Optional[int] = None) -> None:
+        """Fail ``req`` at ``stage`` (admit, prefill, decode, resume,
+        queued): count it, close its trace, emit the event, then wake its
+        waiters."""
         req.error = reason
         self.requests_failed += 1
-        self._finish(req)
+        if self.telemetry is not None:
+            self.telemetry.on_finish(req, "failed")
+        fields = {"slot": slot} if slot is not None else {}
+        _events.emit("engine", "request_failed", level="error", trace_id=_req_trace_id(req),
+                     reason=reason, stage=stage, **fields)
+        self._finish(req)  # done LAST: waiters see settled counters
 
     def _fail_outstanding(self, reason: str, drain_queue: bool = True) -> None:
         """Fail slot-resident requests (their K/V lives in the pool),
@@ -1118,6 +1419,8 @@ class InferenceEngine:
         after this). ``drain_queue=False`` spares queued requests that
         were never admitted — a rebuilt pool can still serve them; only
         stop() drains the queue."""
+        _events.emit("engine", "fail_outstanding", level="error", reason=reason,
+                     drain_queue=drain_queue)
         self._dispatcher.abandon()
         for i, slot in enumerate(self.slots):
             req = slot.req
@@ -1127,18 +1430,18 @@ class InferenceEngine:
             slot.ready = False
             self._free_slot_blocks(i)
             if not req.done.is_set():
-                self._fail(req, reason)
+                self._fail(req, reason, "decode", slot=i)
         if not drain_queue:
             return
         for req in self._resume:
-            self._fail(req, reason)
+            self._fail(req, reason, "resume")
         self._resume.clear()
         while True:
             try:
                 req = self.pending.get_nowait()
             except queue.Empty:
                 break
-            self._fail(req, reason)
+            self._fail(req, reason, "queued")
 
     @staticmethod
     def _pow2_buckets(limit: int, include_limit: bool = True) -> list[int]:
@@ -1215,6 +1518,10 @@ class InferenceEngine:
         slot.remaining = req.max_new_tokens - len(req.tokens)
         slot.admitted_at = time.monotonic()
         self._sync_sampling_extras(slot_idx, req)
+        if self.telemetry is not None:
+            self.telemetry.on_admit(req)
+        _events.emit("engine", "admit", trace_id=_req_trace_id(req), slot=slot_idx,
+                     prompt_tokens=len(prompt), cached_blocks=hit)
         return True
 
     def _sync_sampling_extras(self, slot_idx: int, req: Request) -> None:
@@ -1267,12 +1574,21 @@ class InferenceEngine:
         packed[: self.max_blocks] = self._tables[slot_idx]
         packed[self.max_blocks: self.max_blocks + real] = slot.prompt[offset: offset + real]
         packed = upload(packed, self.device)
+        tl = self._timeline
+        t_pf = time.monotonic() if tl is not None else 0.0
         logits, _ = tfm.prefill_chunk_paged(
             self.params, self.pool, packed[: self.max_blocks], packed[self.max_blocks:], offset,
             self.cfg,
         )
+        if tl is not None:
+            # host time to queue the chunk (the card runs it asynchronously)
+            tl.add(TRACK_PREFILL, f"prefill slot {slot_idx} @{offset}+{real}", t_pf,
+                   time.monotonic(), slot=slot_idx, offset=offset, tokens=real,
+                   trace_id=_req_trace_id(req))
         slot.prefill_pos = offset + real
         self._publish_prefix_blocks(slot_idx)
+        if self.telemetry is not None:
+            self.telemetry.on_prefill_chunk(req, slot.prefill_pos)
         if slot.prefill_pos < t:
             return
         # prefill complete: the first token samples from the last REAL
@@ -1302,6 +1618,8 @@ class InferenceEngine:
             self.draft_prefills += 1
             slot.draft_ready = True
         slot.ready = True
+        if self.telemetry is not None:
+            self.telemetry.on_prefill_done(req)
         self._emit(slot_idx, int(first[0]))
         # the host is authoritative for this slot's carry row until its
         # first dispatch uploads it
@@ -1445,6 +1763,7 @@ class InferenceEngine:
         sampling = any(r.temperature > 0 for r in reqs)
         filters = any(r.temperature > 0 and (r.top_k > 0 or r.top_p < 1.0) for r in reqs)
         d = self._dispatcher
+        tl = self._timeline
         try:
             t0 = time.monotonic()
             d.sync_carry(spec_idx)
@@ -1459,7 +1778,14 @@ class InferenceEngine:
             self._fail_outstanding(f"speculative round failed: {e}", drain_queue=False)
             self._reset_pool()
             return
-        waited = time.monotonic() - t1
+        t2 = time.monotonic()
+        waited = t2 - t1
+        if tl is not None:
+            # one bar per draft/verify dispatch: with speculation on, this
+            # is the decode work of these slots
+            tl.add(TRACK_SPEC, f"spec round x{len(spec_idx)}", t0, t2, slots=list(spec_idx),
+                   spec_k=self.spec_k, spec_depth=self.spec_depth,
+                   trace_ids=[t for t in map(_req_trace_id, reqs) if t is not None])
         self.spec_launch_s += t1 - t0
         self.spec_readback_s += waited
         d.readback_wait_s += waited
@@ -1507,6 +1833,10 @@ class InferenceEngine:
         self._free_slot_blocks(i)
         self._resume.append(req)
         self.requests_preempted += 1
+        if self.telemetry is not None:
+            self.telemetry.on_preempt(req)
+        _events.emit("engine", "preempt", level="warn", trace_id=_req_trace_id(req), slot=i,
+                     generated=len(req.tokens))
 
     def _publish_preempt_chain(self, i: int) -> None:
         """With a tier: publish the preempted slot's fully written blocks
@@ -1534,6 +1864,9 @@ class InferenceEngine:
             req.first_token_at = time.monotonic()
         req._notify()
         self.tokens_generated += 1
+        self._tok_rate.add(1)
+        if self.telemetry is not None:
+            self.telemetry.on_emit(req)
         slot.last_token = token
         slot.length += 1
         slot.remaining -= 1
@@ -1560,6 +1893,8 @@ class InferenceEngine:
             slot.ready = False
             self._retire_slot(slot_idx)
             self.requests_completed += 1
+            if self.telemetry is not None:
+                self.telemetry.on_finish(req, "completed")
             self._finish(req)  # done LAST: waiters see settled counters
 
     def _retire_slot(self, slot_idx: int) -> None:
@@ -1598,7 +1933,7 @@ class InferenceEngine:
                 log.exception("admission failed")
                 self._free_slot_blocks(i)
                 self.slots[i].req = None
-                self._fail(req, str(e))
+                self._fail(req, str(e), "admit", slot=i)
 
     def _live(self, group: list[int]) -> list[int]:
         return [i for i in group if self.slots[i].req is not None and self.slots[i].ready]
@@ -1617,6 +1952,8 @@ class InferenceEngine:
         (every chunk chains off the pool) and every resident request, zero
         the pool and keep serving queued requests."""
         log.error("decode dispatch failed: %s", e, exc_info=e)
+        _events.emit("engine", "poisoned_window", level="error", error=str(e),
+                     in_flight=self._dispatcher.in_flight)
         self._fail_outstanding(f"decode failed: {e}", drain_queue=False)
         self._reset_pool()
 
@@ -1660,6 +1997,15 @@ class InferenceEngine:
                 ready.remove(i)
         return False
 
+    def _note_iter(self, t_iter: float) -> None:
+        """Close one scheduler iteration: account its busy time and, in a
+        timeline capture, put it on the host-sched lane."""
+        now = time.monotonic()
+        self._dispatcher.loop_busy_s += now - t_iter
+        tl = self._timeline
+        if tl is not None:
+            tl.add(TRACK_HOST_SCHED, "iteration", t_iter, now)
+
     def _run(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
@@ -1688,7 +2034,7 @@ class InferenceEngine:
                         d.drain(block=True)
                     except Exception as e:  # noqa: BLE001
                         self._dispatch_failed(e)
-                    d.loop_busy_s += time.monotonic() - t_iter
+                    self._note_iter(t_iter)
                     continue
                 try:
                     req = self.pending.get(timeout=0.05)
@@ -1707,7 +2053,7 @@ class InferenceEngine:
                     self.slots[i].ready = False
                     self._free_slot_blocks(i)
                     if req is not None and not req.done.is_set():
-                        self._fail(req, str(e))
+                        self._fail(req, str(e), "prefill", slot=i)
                     self._reset_draft_cache()  # the draft prefill may have died
                 if not ready:
                     # nothing to decode yet, but finished in-flight chunks
@@ -1716,7 +2062,7 @@ class InferenceEngine:
                         d.drain(block=False)
                     except Exception as e:  # noqa: BLE001
                         self._dispatch_failed(e)
-                    d.loop_busy_s += time.monotonic() - t_iter
+                    self._note_iter(t_iter)
                     continue
             # split the ready slots into the SPECULATIVE group and the
             # PLAIN decode group; both dispatch in this iteration, so
@@ -1732,7 +2078,7 @@ class InferenceEngine:
                     d.drain_all()
                 except Exception as e:  # noqa: BLE001
                     self._dispatch_failed(e)
-                    d.loop_busy_s += time.monotonic() - t_iter
+                    self._note_iter(t_iter)
                     continue
                 ready = self._live(ready)
                 spec_idx = self._spec_eligible(ready)
@@ -1765,7 +2111,7 @@ class InferenceEngine:
                 self._dispatch_failed(e)
                 restart = True
             if restart:
-                d.loop_busy_s += time.monotonic() - t_iter
+                self._note_iter(t_iter)
                 continue
             # liveness re-filter for BOTH groups: a preemption victim is
             # picked by admission time, not index order, so one whose own
@@ -1789,4 +2135,4 @@ class InferenceEngine:
                 d.drain(block=d.full or not plain)
             except Exception as e:  # noqa: BLE001 — device errors (OOM, …)
                 self._dispatch_failed(e)
-            d.loop_busy_s += time.monotonic() - t_iter
+            self._note_iter(t_iter)

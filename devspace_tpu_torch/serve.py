@@ -21,10 +21,24 @@ Speaks the contract of the reference server
   names (``application/octet-stream``), for a peer's ``kv_source`` pull;
   404 for an unknown digest or with the tier off.
 - ``GET /healthz`` — liveness plus the engine's ``stats()`` (its
-  ``kv_tier`` is the tier's mode).
-- ``GET /readyz`` — 200, or 503 while draining.
+  ``kv_tier`` is the tier's mode) and an ``slo`` block: each objective's
+  multi-window burn-rate status.
+- ``GET /readyz`` — 200, or 503 while any SLO is in breach or while
+  draining (the load-shed signal; liveness stays ``/healthz``).
 - ``POST /drain`` — enter drain mode (``{"off": true}`` leaves it):
   ``/readyz`` answers 503 while ``/healthz`` stays 200.
+- ``GET /metrics`` — Prometheus text: the engine's registry (the
+  ``engine_*`` families and the request-latency histograms) plus the
+  process-wide one; OpenMetrics, with trace-id exemplars on the TTFT and
+  e2e buckets, when the client accepts ``application/openmetrics-text``.
+- ``GET /debug/events`` — the flight recorder's recent events
+  (``?subsystem=engine``, ``?limit=N``); ``GET /debug/config`` — the
+  effective serving configuration; ``GET /debug/requests`` — recent
+  request traces (``?limit=N``, ``?outcome=completed|failed|in-flight``);
+  ``GET /debug/spans`` — this process's request-phase and tracer spans
+  (``?trace_id=``, ``?limit=``), the fleet collector's feed;
+  ``GET /debug/trace?seconds=N`` — the engine's timeline for N seconds
+  (0 < N <= 60) as Chrome-trace JSON.
 - ``POST /generate_speculative`` — greedy only, through the engine's
   speculative path: ``{"prompt_ids": [...], "max_new_tokens": N}`` plus
   an optional ``k`` that must equal the engine's. Replies ``{"tokens":
@@ -33,6 +47,10 @@ Speaks the contract of the reference server
   temperature 0. A sampling, EOS or stream field is a 400 whatever its
   value; 501 when the engine has no draft model.
 - anything else — 404.
+
+An inbound W3C ``traceparent`` header on ``/generate``,
+``/generate_speculative`` or ``/prefill`` joins the request's serving
+spans to the caller's distributed trace.
 
 Weights: ``CHECKPOINT=<dir>`` restores trained ones (a training root of
 ``step_NNNNNNNN`` dirs, whose latest step is served, or one checkpoint
@@ -53,6 +71,15 @@ builds every program (``InferenceEngine.prewarm``) before the port
 opens. ``--kv-tier`` turns on the host KV tier (``DEVSPACE_KV_TIER`` when
 the flag is omitted; default off), which the KV chain endpoints need.
 ``--device`` defaults to cuda, and no CUDA is an error.
+
+Telemetry, as the reference server's: ``DEVSPACE_ENGINE_METRICS=off``
+turns the engine's metrics off, ``DEVSPACE_ENGINE_EVENTS=off`` the
+flight recorder (``DEVSPACE_EVENT_RING`` events per subsystem, default
+256). The SLOs behind ``/readyz`` read ``DEVSPACE_SLO_TTFT_P99_S``
+(default 1.0), ``DEVSPACE_SLO_TOK_S_FLOOR`` (0.5),
+``DEVSPACE_SLO_SHORT_WINDOW_S`` (300), ``DEVSPACE_SLO_LONG_WINDOW_S``
+(3600) and are evaluated every ``DEVSPACE_SLO_INTERVAL_S`` (5) seconds;
+``DEVSPACE_DRAIN=1`` starts the server draining.
 """
 
 from __future__ import annotations
@@ -63,8 +90,11 @@ import json
 import logging
 import math
 import os
+import threading
 import time
+import weakref
 from typing import Optional
+from urllib.parse import parse_qs
 
 import torch
 
@@ -73,6 +103,10 @@ from .inference import InferenceEngine, load_serving_params
 from .inference.kv_tier import kv_payload_bytes
 from .inference.quantization import quantize_params
 from .models import transformer as tfm
+from .obs import events as obs_events
+from .obs import slo as obs_slo
+from .obs.metrics import get_registry
+from .obs.tracing import get_tracer
 
 CONFIGS = {"tiny": tfm.TINY, "llama2-7b": tfm.LLAMA2_7B, "llama2-13b": tfm.LLAMA2_13B}
 BLOCK_SIZE = 64  # the engine's paged-KV block, in tokens
@@ -90,15 +124,86 @@ class SpecDisabled(RuntimeError):
     """The engine has no draft model (SPEC=0, or no DRAFT_MODEL)."""
 
 
+def _slo_loop(ref, interval: float, stopped: threading.Event) -> None:
+    """Evaluate the server's SLOs every ``interval`` seconds while it
+    lives (a weak reference: the thread does not keep it, or its engine,
+    alive) and until :meth:`Server.close`."""
+    while not stopped.wait(interval):
+        server = ref()
+        if server is None:
+            return
+        try:
+            server.slo.evaluate()
+        except Exception:  # noqa: BLE001 — evaluation must not die
+            log.exception("slo evaluation failed")
+        del server
+
+
 class Server:
-    """The engine plus the server's own state (drain mode)."""
+    """The engine plus the server's own state: drain mode, the flight
+    recorder of recent events, and the SLO evaluator that gates
+    ``/readyz``, evaluated on a background thread every
+    ``DEVSPACE_SLO_INTERVAL_S`` seconds. ``close()`` stops the thread and
+    detaches the recorder."""
 
     def __init__(self, engine: InferenceEngine, model: str):
         self.engine = engine
         self.model = model
-        self.draining = False
+        # DEVSPACE_DRAIN=1 starts the server draining (spawn, then admit)
+        self.draining = os.environ.get("DEVSPACE_DRAIN", "0") == "1"
+        self.flight = None
+        if obs_events.events_enabled():
+            self.flight = obs_events.add_sink(obs_events.FlightRecorder(
+                per_subsystem=int(os.environ.get("DEVSPACE_EVENT_RING", 256))))
+        specs = obs_slo.default_serving_slos(
+            ttft_threshold_s=float(os.environ.get("DEVSPACE_SLO_TTFT_P99_S", 1.0)),
+            tok_s_floor=float(os.environ.get("DEVSPACE_SLO_TOK_S_FLOOR", 0.5)),
+            short_window_s=float(os.environ.get("DEVSPACE_SLO_SHORT_WINDOW_S", 300.0)),
+            long_window_s=float(os.environ.get("DEVSPACE_SLO_LONG_WINDOW_S", 3600.0)),
+        )
+        sources = []
+        if engine.metrics_registry is not None:
+            sources.append(engine.metrics_registry.snapshot)
+        sources.append(get_registry().snapshot)
+        self.slo = obs_slo.SLOEvaluator(specs, sources)
+        self.slo.register_metrics(get_registry())
+        self.slo_interval = float(os.environ.get("DEVSPACE_SLO_INTERVAL_S", 5.0))
+        self._stopped = threading.Event()
+        threading.Thread(target=_slo_loop, args=(weakref.ref(self), self.slo_interval,
+                                                 self._stopped),
+                         daemon=True, name="slo-eval").start()
 
-    def generate_speculative(self, prompt_ids, max_new_tokens: int, k: Optional[int] = None):
+    def close(self) -> None:
+        """Stop the SLO thread and detach the flight recorder."""
+        self._stopped.set()
+        if self.flight is not None:
+            obs_events.remove_sink(self.flight)
+            self.flight = None
+
+    def config(self) -> dict:
+        """The effective serving configuration (``/debug/config``)."""
+        cfg = self.engine.cfg
+        return {
+            "model": self.model,
+            "layers": cfg.n_layers,
+            "max_seq_len": cfg.max_seq_len,
+            "vocab_size": cfg.vocab_size,
+            "max_slots": self.engine.max_slots,
+            "chunk_max": self.engine.chunk_max,
+            "spec_k": self.engine.spec_k,
+            "speculative": self.engine.draft_params is not None,
+            "kv_tier": self.engine.kv_tier_mode,
+            "checkpoint": os.environ.get("CHECKPOINT"),
+            "quantize": os.environ.get("QUANTIZE"),
+            "device": str(self.engine.device),
+            "events_enabled": self.flight is not None,
+            "draining": self.draining,
+            "slo_interval_s": self.slo_interval,
+            "slos": [s.to_dict() for s in self.slo.specs],
+        }
+
+    def generate_speculative(self, prompt_ids, max_new_tokens: int, k: Optional[int] = None,
+                             traceparent: Optional[str] = None):
         """Greedy generation through the engine's speculative path ->
         (tokens, engine-cumulative speculation stats)."""
         if self.engine.draft_params is None:
@@ -116,7 +221,8 @@ class Server:
                 )
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        tokens = self.engine.submit(prompt_ids, max_new_tokens).result(timeout=600)
+        tokens = self.engine.submit(prompt_ids, max_new_tokens,
+                                    traceparent=traceparent).result(timeout=600)
         st = self.engine.stats()
         return tokens, {
             # engine-cumulative: slots interleave, so per-request numbers
@@ -167,19 +273,97 @@ def make_handler(server: Server):
                 raise ValueError("body must be a JSON object")
             return body
 
+        def _int_arg(self, qs: dict, name: str, default: int) -> Optional[int]:
+            try:
+                return int(qs.get(name, [str(default)])[0])
+            except ValueError:
+                self._json(400, {"error": f"{name} must be an integer"})
+                return None
+
         def do_GET(self):
-            path = self.path.partition("?")[0]
+            path, _, query = self.path.partition("?")
+            qs = parse_qs(query)
             if path == "/healthz":
                 self._json(200, {
                     "ok": True,
                     "model": server.model,
                     "device": str(server.engine.device),
                     "draining": server.draining,
+                    "slo": server.slo.to_dict(),
                     **server.engine.stats(),
                 })
             elif path == "/readyz":
-                ready = not server.draining
-                self._json(200 if ready else 503, {"ready": ready, "draining": server.draining})
+                slo = server.slo.to_dict()
+                ready = slo["ready"] and not server.draining
+                self._json(200 if ready else 503,
+                           {"ready": ready, "draining": server.draining, "slo": slo})
+            elif path == "/metrics":
+                # the engine's registry and the process-wide one: their
+                # name prefixes are disjoint, so the concatenation is one
+                # document (OpenMetrics: the engine part's "# EOF" dropped)
+                eng = server.engine
+                if "application/openmetrics-text" in (self.headers.get("Accept") or ""):
+                    reg = eng.metrics_registry
+                    part = reg.render_openmetrics().rsplit("# EOF", 1)[0] if reg else ""
+                    body = part + get_registry().render_openmetrics()
+                    ctype = "application/openmetrics-text; version=1.0.0; charset=utf-8"
+                else:
+                    body = eng.metrics_text() + get_registry().render()
+                    ctype = "text/plain; version=0.0.4; charset=utf-8"
+                data = body.encode()
+                self.send_response(200)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+            elif path == "/debug/events":
+                limit = self._int_arg(qs, "limit", 200)
+                if limit is None:
+                    return
+                fr = server.flight
+                self._json(200, {
+                    "events_enabled": fr is not None,
+                    "subsystems": fr.subsystems() if fr is not None else [],
+                    "events": (fr.dump_dicts(qs.get("subsystem", [None])[0], limit)
+                               if fr is not None else []),
+                })
+            elif path == "/debug/config":
+                self._json(200, server.config())
+            elif path == "/debug/spans":
+                limit = self._int_arg(qs, "limit", 512)
+                if limit is None:
+                    return
+                trace_id = qs.get("trace_id", [None])[0]
+                tracer = get_tracer()
+                found = tracer.find(trace_id) if trace_id else tracer.recent(max(0, limit))
+                spans = [sp.to_dict() for sp in found]
+                tel = server.engine.telemetry
+                if tel is not None:
+                    spans.extend(tel.recent_spans(limit=max(0, limit), trace_id=trace_id))
+                self._json(200, {"process": f"serve:{os.getpid()}",
+                                 "spans": spans[-max(0, limit):]})
+            elif path == "/debug/requests":
+                limit = self._int_arg(qs, "limit", 50)
+                if limit is None:
+                    return
+                tel = server.engine.telemetry
+                outcome = qs.get("outcome", [None])[0]
+                # filter the whole ring, then keep the newest ``limit``
+                rows = tel.recent(4096) if tel is not None else []
+                if outcome is not None:
+                    rows = [r for r in rows if (r.get("outcome") or "in-flight") == outcome]
+                self._json(200, {"metrics_enabled": tel is not None,
+                                 "requests": rows[-max(0, limit):] if limit else []})
+            elif path == "/debug/trace":
+                try:
+                    seconds = float(qs.get("seconds", ["2"])[0])
+                except ValueError:
+                    self._json(400, {"error": "seconds must be a number"})
+                    return
+                if not 0 < seconds <= 60:
+                    self._json(400, {"error": "seconds must be in (0, 60]"})
+                    return
+                self._json(200, server.engine.capture_timeline(seconds))
             elif path.startswith("/kv/chain/"):
                 try:
                     envelope = server.engine.export_kv_chain(path[len("/kv/chain/"):])
@@ -204,9 +388,15 @@ def make_handler(server: Server):
                 except ValueError:  # json.JSONDecodeError is a ValueError
                     self._json(400, {"error": "body must be JSON"})
                     return
-                server.draining = not bool(body.get("off"))
+                off = bool(body.get("off"))
+                changed = server.draining == off
+                server.draining = not off
+                if changed:
+                    obs_events.emit("serving", "drain_cleared" if off else "drain_started",
+                                    level="info" if off else "warn", pid=os.getpid())
                 self._json(200, {"draining": server.draining})
                 return
+            traceparent = self.headers.get("traceparent")
             if self.path == "/generate_speculative":
                 try:
                     body = self._body()
@@ -219,7 +409,7 @@ def make_handler(server: Server):
                         return
                     tokens, stats = server.generate_speculative(
                         body["prompt_ids"], int(body.get("max_new_tokens", 16)),
-                        k=int(body["k"]) if "k" in body else None,
+                        k=int(body["k"]) if "k" in body else None, traceparent=traceparent,
                     )
                     self._json(200, {"tokens": tokens, "speculative": stats})
                 except SpecDisabled as e:
@@ -235,7 +425,7 @@ def make_handler(server: Server):
                 # in the prefix cache, for a decode replica to pull
                 try:
                     prompt = [int(t) for t in self._body()["prompt_ids"]]
-                    server.engine.submit(prompt, 1).result(timeout=600)
+                    server.engine.submit(prompt, 1, traceparent=traceparent).result(timeout=600)
                     self._json(200, {"prefilled_tokens": len(prompt)})
                 except (ValueError, KeyError, TypeError) as e:  # client input
                     self._json(400, {"error": str(e)})
@@ -250,7 +440,8 @@ def make_handler(server: Server):
                 body = self._body()
                 prompt = body["prompt_ids"]
                 n = int(body.get("max_new_tokens", 16))
-                handle = server.engine.submit(prompt, n, **_generate_kwargs(body))
+                handle = server.engine.submit(prompt, n, traceparent=traceparent,
+                                              **_generate_kwargs(body))
             except (ValueError, KeyError, TypeError, AttributeError) as e:
                 self._json(400, {"error": str(e)})
                 return
@@ -395,6 +586,7 @@ def main(argv=None) -> None:
     if quantize and quantize != "int8":
         raise SystemExit(f"QUANTIZE={quantize!r} (only int8 exists)")
     draft_model = draft_model_from_env(model)
+    t0 = time.monotonic()
     engine = build_engine(
         model,
         device=args.device,
@@ -412,18 +604,21 @@ def main(argv=None) -> None:
         # the reference server
         draft_checkpoint=(os.environ.get("DRAFT_CHECKPOINT") or None) if draft_model else None,
     )
+    print(f"engine built in {time.monotonic() - t0:.2f}s", flush=True)
     if os.environ.get("PREWARM", "0") == "1":
         t0 = time.monotonic()
         timings = engine.prewarm()
-        print(f"prewarmed {len(timings)} programs in {time.monotonic() - t0:.1f}s", flush=True)
+        print(f"prewarmed {len(timings)} programs in {time.monotonic() - t0:.2f}s", flush=True)
     engine.start()
-    httpd = make_http_server(Server(engine, model), args.host, args.port)
+    server = Server(engine, model)
+    httpd = make_http_server(server, args.host, args.port)
     print(f"serving {model} on {engine.device} at :{httpd.server_address[1]} "
           f"(kv tier {engine.kv_tier_mode})", flush=True)
     try:
         httpd.serve_forever()
     finally:
         httpd.server_close()
+        server.close()
         engine.stop()
 
 

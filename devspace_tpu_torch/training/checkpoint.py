@@ -13,10 +13,24 @@ A checkpoint is one directory:
   the file instead of reading it into memory. Every dtype, bf16 too, is
   kept bit for bit;
 - ``opt_state.pt``, only for a train state: the optimizer's
-  ``state_dict()``. A restore of the params alone never opens it;
+  ``state_dict()``, which keys each parameter's moments by its position
+  in the optimizer, plus ``param_names``: the parameter's name at each
+  position. A restore of the params alone never opens it;
 - ``meta.json``: the format and its version, the kind (``params`` for a
   bare tree, ``train_state`` for ``{"params", "opt_state", "step"}``),
-  the step, the tree's structure and every leaf's shape and dtype.
+  the step, the tree's structure, every leaf's shape and dtype, and for
+  a train state ``opt_names``, the same names in optimizer order.
+
+A ``torch.nn.Module`` in the tree (the classifiers' train state is
+``{"params": <module>, ...}``) is written through its ``state_dict()``:
+its parameters and BatchNorm running statistics under their flax names
+(``Dense_0.kernel``, ``bn_init.mean``), and restored in place.
+
+Moments are bound by name: a restore into an optimizer matches each
+saved name to the template's parameter of that name, remapping where
+the order differs and raising where the names differ. Version 1 wrote
+no names, so its train states' moments are refused (their params still
+restore, ``partial=True``); a version 1 bare params tree loads as ever.
 
 A save writes a temporary sibling (``step_00000010.tmp-...``) and
 renames it into place, so a reader never sees half a checkpoint and
@@ -41,7 +55,9 @@ from typing import Any, Optional
 import torch
 
 FORMAT = "devspace-torch-checkpoint"
-VERSION = 1
+VERSION = 2
+# versions read_meta accepts: 1 wrote no optimizer names
+READABLE_VERSIONS = (1, 2)
 PARAMS_FILE, OPT_FILE, META_FILE = "params.pt", "opt_state.pt", "meta.json"
 _TRAIN_KEYS = ("params", "opt_state", "step")
 
@@ -50,9 +66,17 @@ def is_train_state(state: Any) -> bool:
     return isinstance(state, dict) and "params" in state and "opt_state" in state
 
 
+# a module's skeleton: {MODULE_KEY: {state_dict key: leaf name}}
+MODULE_KEY = "$module"
+
+
 def _flatten(tree: Any, prefix: str, flat: dict) -> Any:
     """The JSON skeleton of ``tree`` (each leaf replaced by its name),
-    filling ``flat`` with name -> tensor."""
+    filling ``flat`` with name -> tensor. A module's leaves are its
+    ``state_dict`` entries, the parameters themselves (``keep_vars``)."""
+    if isinstance(tree, torch.nn.Module):
+        return {MODULE_KEY: {k: _flatten(v, f"{prefix}{k}.", flat)
+                             for k, v in tree.state_dict(keep_vars=True).items()}}
     if isinstance(tree, dict):
         return {k: _flatten(v, f"{prefix}{k}.", flat) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -65,6 +89,9 @@ def _flatten(tree: Any, prefix: str, flat: dict) -> Any:
 
 
 def _unflatten(skeleton: Any, flat: dict) -> Any:
+    """The saved tree; a module comes back as its state dict."""
+    if isinstance(skeleton, dict) and set(skeleton) == {MODULE_KEY}:
+        return {k: flat[name] for k, name in skeleton[MODULE_KEY].items()}
     if isinstance(skeleton, dict):
         return {k: _unflatten(v, flat) for k, v in skeleton.items()}
     if isinstance(skeleton, list):
@@ -93,9 +120,25 @@ def _host_tree(x: Any) -> Any:
     return x
 
 
+def param_names(params: Any, optimizer: torch.optim.Optimizer) -> list[str]:
+    """The names (checkpoint leaf names) of ``optimizer``'s parameters, in
+    its order across its param groups: the order its ``state_dict`` keys
+    moments by. ``ValueError`` for a parameter outside ``params``."""
+    flat: dict = {}
+    _flatten(params, "", flat)
+    by_id = {id(t): name for name, t in flat.items()}
+    names = [by_id.get(id(p)) for g in optimizer.param_groups for p in g["params"]]
+    if None in names:
+        raise ValueError("the optimizer holds a tensor that is not in the params tree: "
+                         "its moments cannot be bound to a name")
+    return names
+
+
 def snapshot(state: Any) -> dict:
     """What a save writes, copied to the host: ``{"meta", "params",
-    "opt_state"}`` (``opt_state`` None for a bare params tree)."""
+    "opt_state"}`` (``opt_state`` None for a bare params tree). A train
+    state's optimizer state carries ``param_names`` (an optimizer's are
+    read off it; a state dict must already hold them)."""
     train = is_train_state(state)
     params = state["params"] if train else state
     flat: dict = {}
@@ -103,9 +146,18 @@ def snapshot(state: Any) -> dict:
     flat = {name: _host_copy(t) for name, t in flat.items()}
     opt = None
     step = None
+    names = None
     if train:
         opt = state["opt_state"]
-        opt = _host_tree(opt.state_dict() if isinstance(opt, torch.optim.Optimizer) else opt)
+        if isinstance(opt, torch.optim.Optimizer):
+            names = param_names(params, opt)
+            opt = {**opt.state_dict(), "param_names": names}
+        elif "param_names" not in opt:
+            raise ValueError("an optimizer state dict without param_names cannot be "
+                             "bound to the params by name")
+        else:
+            names = list(opt["param_names"])
+        opt = _host_tree(opt)
         step = int(state.get("step", 0))
     meta = {
         "format": FORMAT, "version": VERSION,
@@ -113,6 +165,8 @@ def snapshot(state: Any) -> dict:
         "leaves": {n: {"shape": list(t.shape), "dtype": str(t.dtype).removeprefix("torch.")}
                    for n, t in flat.items()},
     }
+    if train:
+        meta["opt_names"] = names
     return {"meta": meta, "params": flat, "opt_state": opt}
 
 
@@ -165,7 +219,7 @@ def read_meta(path: str) -> dict:
             f"{path} holds no {META_FILE}: not a checkpoint of the port's format "
             f"(an Orbax checkpoint converts with scripts/convert_checkpoint.py)"
         ) from None
-    if meta.get("format") != FORMAT or meta.get("version") != VERSION:
+    if meta.get("format") != FORMAT or meta.get("version") not in READABLE_VERSIONS:
         raise ValueError(f"{path}: unknown checkpoint format {meta.get('format')!r} "
                          f"version {meta.get('version')!r}")
     return meta
@@ -176,6 +230,14 @@ def _fill(saved: Any, template: Any, where: str) -> Any:
     becomes the saved tensor in the template's dtype (still mapped from
     the file where the dtype is the saved one); a tensor leaf anywhere
     else is filled in place."""
+    if isinstance(template, torch.nn.Module):
+        want = template.state_dict(keep_vars=True)
+        if not isinstance(saved, dict) or set(saved) != set(want):
+            raise ValueError(f"{where or 'module'}: the saved entries differ from the "
+                             f"module's state_dict {sorted(want)}")
+        for k, t in want.items():
+            _fill(saved[k], t, f"{where}.{k}".lstrip("."))
+        return template
     if isinstance(template, dict):
         if not isinstance(saved, dict) or set(saved) != set(template):
             raise ValueError(f"{where or 'tree'}: the saved keys differ from the template's "
@@ -199,6 +261,49 @@ def _fill(saved: Any, template: Any, where: str) -> Any:
     return template
 
 
+def _bind_moments(path: str, meta: dict, saved: dict, optimizer: torch.optim.Optimizer,
+                  params: Any) -> None:
+    """Load ``saved`` (an optimizer state dict written with its names)
+    into ``optimizer``, each parameter's moments going to the template's
+    parameter of the same name, wherever the optimizer holds it."""
+    if meta["version"] < 2 or "param_names" not in saved:
+        raise ValueError(
+            f"{path}: a version {meta['version']} train state keys its optimizer moments "
+            f"by position, with no parameter names, so they cannot be bound safely; "
+            f"restore its params alone (partial=True) and start the optimizer afresh")
+    if params is None:
+        raise ValueError(f"{path}: binding the optimizer's moments by name needs the "
+                         f"template's params")
+    saved_names = list(saved["param_names"])
+    names = param_names(params, optimizer)
+    if sorted(saved_names) != sorted(names) or len(set(names)) != len(names):
+        raise ValueError(f"{path}: the saved optimizer's parameters "
+                         f"{sorted(set(saved_names) ^ set(names))} differ from the template's")
+    pos = {n: i for i, n in enumerate(saved_names)}
+    groups = optimizer.state_dict()["param_groups"]
+    if len(groups) != len(saved["param_groups"]):
+        raise ValueError(f"{path}: {len(saved['param_groups'])} saved param groups, "
+                         f"the optimizer has {len(groups)}")
+    tensors = [p for g in optimizer.param_groups for p in g["params"]]
+    state, new_groups = {}, []
+    for sg, tg in zip(saved["param_groups"], groups):
+        if {saved_names[i] for i in sg["params"]} != {names[j] for j in tg["params"]}:
+            raise ValueError(f"{path}: a saved param group holds other parameters than "
+                             f"the optimizer's")
+        for j in tg["params"]:
+            entry = saved["state"].get(pos[names[j]])
+            if entry is None:
+                continue
+            for key, value in entry.items():
+                if value.dim() and tuple(value.shape) != tuple(tensors[j].shape):
+                    raise ValueError(f"{path}: moment {key!r} of {names[j]!r} has shape "
+                                     f"{tuple(value.shape)}, the parameter "
+                                     f"{tuple(tensors[j].shape)}")
+            state[j] = entry
+        new_groups.append({**sg, "params": list(tg["params"])})
+    optimizer.load_state_dict({"state": state, "param_groups": new_groups})
+
+
 def restore_checkpoint(path: str, template: Optional[Any] = None, partial: bool = False) -> Any:
     """Restore the checkpoint ``path``.
 
@@ -211,7 +316,10 @@ def restore_checkpoint(path: str, template: Optional[Any] = None, partial: bool 
     otherwise): a template tensor on the meta device becomes the saved
     tensor in the template's dtype on the CPU, any other template
     tensor is filled in place; an optimizer loads the saved state, and
-    ``step`` is the saved step. ``partial=True`` (needs a template)
+    ``step`` is the saved step; the optimizer's moments are bound by
+    parameter name (remapped where the order differs, ``ValueError``
+    where the names differ or the checkpoint is a version 1 train state,
+    which named none). ``partial=True`` (needs a template)
     restores only the parts of a train state the template names:
     ``{"params": ...}`` reads the params and never opens
     ``opt_state.pt``."""
@@ -247,7 +355,7 @@ def restore_checkpoint(path: str, template: Optional[Any] = None, partial: bool 
         opt = torch.load(os.path.join(path, OPT_FILE), weights_only=True, map_location="cpu")
         target = template["opt_state"]
         if isinstance(target, torch.optim.Optimizer):
-            target.load_state_dict(opt)
+            _bind_moments(path, meta, opt, target, template.get("params"))
             opt = target
         out["opt_state"] = opt
     if "step" in template:

@@ -69,7 +69,13 @@ def param_leaves(params) -> list:
 
 def tree_like(params, leaves: list):
     """The tree of ``params``' shape holding ``leaves`` (param_leaves
-    order); dicts and lists are new, ``params`` is left as it is."""
+    order); dicts and lists are new, ``params`` is left as it is. For a
+    module: ``{name: leaf}`` in ``named_parameters()`` order."""
+    if isinstance(params, torch.nn.Module):
+        names = [name for name, _ in params.named_parameters()]
+        if len(names) != len(leaves):
+            raise ValueError(f"{len(leaves)} leaves for a module of {len(names)} parameters")
+        return dict(zip(names, leaves))
     it = iter(leaves)
 
     def build(node):
@@ -221,7 +227,8 @@ def accumulate_gradients(loss_fn: Callable, n_accum: int) -> Callable:
     """Gradient accumulation over microbatches. ``loss_fn(params, batch)``
     -> scalar; returns ``grad_fn(params, batches) -> (loss, grads)`` where
     ``batches`` has a leading dim of ``n_accum`` microbatches and both
-    results are means over them (grads in the params' tree shape)."""
+    results are means over them (grads in the params' tree shape; for a
+    module, ``{name: grad}`` by ``named_parameters()``)."""
 
     def grad_fn(params, batches):
         leaves = param_leaves(params)

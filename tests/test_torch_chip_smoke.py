@@ -1,7 +1,7 @@
 """chip_smoke.py's bookkeeping, on the CPU: which kind each profiled
 kernel counts under, the flash kernels' work and rates, and that it
-builds every CUDA source of the port; and rehearsals of the kv_tier
-and int8_weights phases' control flow at TINY. The script itself runs on the card
+builds every CUDA source of the port; and rehearsals of the kv_tier,
+int8_weights and fleet phases' control flow at TINY. The script itself runs on the card
 (``python3 chip_smoke.py``); these are the parts a reader takes on trust
 from its output."""
 
@@ -166,7 +166,7 @@ def tiny_serving_requests(cfg):
     ]
 
 
-def test_int8_weights_phase_rehearsed_on_the_cpu(monkeypatch, counting_launches):
+def test_int8_weights_phase_rehearsed_on_the_cpu(monkeypatch, counting_launches, tmp_path):
     """The int8_weights phase's control flow and checks at TINY on the
     CPU: the save, the byte-equal restore, q and scale made twice,
     ``build_engine(checkpoint=, quantize="int8")`` serving the smoke
@@ -191,8 +191,8 @@ def test_int8_weights_phase_rehearsed_on_the_cpu(monkeypatch, counting_launches)
 
     monkeypatch.setattr(cs, "drive_engine", drive)
     params = tfm.init_params(tfm.TINY, torch.Generator().manual_seed(0))
-    line = cs.phase_int8_weights(params, torch.device("cpu"), "cpu", 1.0, cfg=tfm.TINY,
-                                 model="tiny")
+    line = cs.phase_int8_weights(params, torch.device("cpu"), "cpu", 1.0, str(tmp_path),
+                                 cfg=tfm.TINY, model="tiny")
     assert line["phase"] == "int8_weights" and line["dense_params_byte_equal"]
     assert line["q_scale_card_equals_cpu"] == ["layers.0.w_down", "layers.1.w_down", "lm_head"]
     assert line["launches"] == tfm.TINY.n_layers * line["decode_steps"] > 0
@@ -386,3 +386,47 @@ def test_zoo_phases_rehearsed_on_the_cpu(monkeypatch, cpu_card, few_torch_thread
                                 "cross_entropy": 2}
     assert len(line["ce"]) == len(line["aux"]) == 2
     json.dumps(line)
+
+
+# -- a CPU rehearsal of the fleet phase -----------------------------------------
+def test_fleet_phase_rehearsed_on_the_cpu(monkeypatch, tmp_path):
+    """The fleet phase's control flow and checks at TINY on the CPU: two
+    replicas of a saved TINY checkpoint (``--device cpu``) behind the
+    gateway, the burst scaled to TINY's 128 positions (three 80-token
+    contexts, one engine block each, on 16-token shadow blocks, 8-16-token
+    questions, 16 new tokens), the kill and restart, the SLO gate on a
+    third replica."""
+    import dataclasses
+
+    from devspace_tpu_torch.models import transformer as tfm
+    from devspace_tpu_torch.serving import ReplicaSpec
+    from devspace_tpu_torch.training.checkpoint import save_checkpoint
+
+    @dataclasses.dataclass
+    class CpuSpec(ReplicaSpec):
+        def command(self, port):
+            return super().command(port) + ["--device", "cpu"]
+
+    real_spec = cs.replica_spec
+
+    def cpu_spec(ckpt_dir, model, **env):
+        spec = real_spec(ckpt_dir, model, SPEC="0", **env)  # tiny drafts for itself
+        return CpuSpec(**{f.name: getattr(spec, f.name) for f in dataclasses.fields(spec)})
+
+    monkeypatch.setattr(cs, "replica_spec", cpu_spec)
+    monkeypatch.setattr(cs, "FLEET", {**cs.FLEET, "context_tokens": 80,
+                                      "question_tokens": [8, 16], "new_tokens": 16,
+                                      "ready_timeout_s": 120.0, "block_size": 16})
+    ckpt = str(tmp_path / "tiny")
+    save_checkpoint(ckpt, tfm.init_params(tfm.TINY, torch.Generator().manual_seed(0)))
+    line = cs.phase_fleet(ckpt, "cpu", 1.0, torch.device("cpu"), model="tiny", cfg=tfm.TINY)
+    assert line["phase"] == "fleet" and line["tokens_received"] == 24 * 16
+    assert line["federated_tokens"] == line["tokens_received"]
+    assert line["kill_restart"]["gateway_retries"] == 1
+    assert line["slo_gate"]["flipped_after_s"] < 30
+    assert len(line["replica_starts"]) == 4  # two, the restarted one, the SLO gate's
+    assert all(v["prewarm_s"] is not None for k, v in line["replica_starts"].items()
+               if not k.startswith("slo"))
+    for row in line["per_replica"].values():
+        assert row["graph_captures"] > 0
+    json.dumps(line)  # one JSON line

@@ -46,6 +46,11 @@ def test_every_module_imports_with_jax_blocked():
                  "models.convert", "parallel.expert_parallel", "training.data",
                  "training.profiler", "training.trainer"):
         assert f"devspace_tpu_torch.{name}" in MODULES
+    for name in ("obs", "obs.metrics", "obs.tracing", "obs.events", "obs.request_trace",
+                 "obs.slo", "obs.fleet", "obs.collector", "serving", "serving.router",
+                 "serving.gateway", "serving.fleet", "serving.stub", "serving.autoscale",
+                 "resilience.supervisor", "serve"):
+        assert f"devspace_tpu_torch.{name}" in MODULES
 
 
 def imported_names(path: Path) -> list[str]:
