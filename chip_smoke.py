@@ -81,6 +81,21 @@ the loss kernel, each with its launch counts.
 The RMSNorm kernel lies on no model's path (as in the JAX package); it is
 built, held against its plain version and timed.
 
+Last, parallel/ over torch.distributed, inside a world of one NCCL rank
+(``parallel`` phase; NCCL refuses two ranks on one card): (a) the bench LM at 8 x 2048 through the mesh
+step (``{"data": 1, "model": 1}``, the tensor-parallel spec) and (b)
+through FSDP, 3 AdamW steps each, against the step without a mesh
+(losses and updates within 1e-3, the flash and loss kernels launched as
+the step count predicts); (c) the long-context example's widths (dim
+2048, 16 layers, 16 heads, 8 KV heads, ffn 5504, vocab 32000, bf16)
+through its script's ``build`` (ring attention, the vocab-parallel loss,
+remat) on one sequence of 4096 tokens, the 32768 of the example over
+its 8-ring; (d) ring attention (eight 512-key sub-blocks) and Ulysses
+against the flash kernel on bf16 ``[1, 4096, 16, 128]``; (e) the MoE at
+Mixtral-8x7B's widths, 2 layers, with ``moe_ffn`` as its expert layer,
+3 AdamW steps at 2 x 2049 tokens, ``moe_ffn`` held to
+``moe_ffn_reference``.
+
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The line before the last lists the kernels; the last is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
@@ -128,6 +143,11 @@ from devspace_tpu_torch.ops import flash_attention as fa
 from devspace_tpu_torch.ops import losses as xl
 from devspace_tpu_torch.ops import normalization as rn
 from devspace_tpu_torch.parallel import expert_parallel as eparallel
+from devspace_tpu_torch.parallel import fsdp as pfsdp
+from devspace_tpu_torch.parallel import mesh as pmesh
+from devspace_tpu_torch.parallel.data_parallel import shard_batch
+from devspace_tpu_torch.parallel.ring_attention import ring_attention
+from devspace_tpu_torch.parallel.sequence_parallel import ulysses_attention
 from devspace_tpu_torch.ops import paged_attention as pa
 from devspace_tpu_torch.training import data as tdata
 from devspace_tpu_torch.training import trainer as ttrainer
@@ -135,6 +155,7 @@ from devspace_tpu_torch.training.checkpoint import save_checkpoint
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
 import train_draft_pair_torch as pair_script  # noqa: E402
+import train_long_context_torch as long_script  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, dense bf16
 # on the tensor cores, float32 outside them
@@ -2805,6 +2826,337 @@ def phase_fleet(ckpt_dir: str, card: str, tie_bound: float, dev, model: str = "l
     return line
 
 
+# -- parallel/ over torch.distributed ------------------------------------------
+# examples/long-context/train.py's widths; its sequence of 32768 tokens is
+# cut to the 4096 one rank of its 8-ring holds
+LONG_CTX = tfm.TransformerConfig(vocab_size=32000, dim=2048, n_layers=16, n_heads=16,
+                                 n_kv_heads=8, ffn_dim=5504, max_seq_len=32768)
+PARALLEL = {"steps": 3, "long_seq": 4096, "ring_shape": (1, 4096, 16, 128), "ring_block": 512,
+            "moe_batch": 2, "moe_seq": 2048}
+# the mesh steps against the steps without a mesh: the same operations
+# on the same values at one rank, so equal up to the loss's reduction order
+PARALLEL_REL = 1e-3
+def _stderr_to_file(tmp: str, rank: int) -> None:
+    """Send this process's stderr to ``tmp``: an abort leaves no other trace."""
+    os.dup2(os.open(os.path.join(tmp, f"stderr-{rank}"), os.O_WRONLY | os.O_CREAT | os.O_TRUNC),
+            2)
+
+
+def _run_pair(target, args: tuple, timeout: float) -> dict:
+    """``target(rank, tmp, *args, results)`` in two spawned processes ->
+    each rank's reported outcome; a rank that died reports its exit code
+    and the end of its stderr."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="pair-") as tmp:
+        results = ctx.Queue()
+        procs = [ctx.Process(target=target, args=(r, tmp, *args, results)) for r in range(2)]
+        for p in procs:
+            p.start()
+        got: dict = {}
+        deadline = time.monotonic() + timeout
+        while len(got) < 2 and time.monotonic() < deadline:
+            try:
+                rank, outcome = results.get(timeout=1.0)
+                got[rank] = outcome
+            except queue.Empty:
+                if all(not p.is_alive() for p in procs):
+                    break
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        for r, p in enumerate(procs):
+            if r not in got:
+                path = os.path.join(tmp, f"stderr-{r}")
+                text = Path(path).read_text(errors="replace") if os.path.exists(path) else ""
+                tail = [ln for ln in text.splitlines() if ln.strip()][-4:]
+                got[r] = f"died (exit code {p.exitcode}): " + " | ".join(tail)[-800:]
+    return {str(r): got[r] for r in range(2)}
+
+
+def rel_update_err(before: dict, after_a: dict, after_b: dict) -> float:
+    """Largest difference of two updates of the same params, per leaf over
+    the first update's largest change."""
+    worst = 0.0
+    for p0, a, b in zip(ttrainer.param_leaves(before), ttrainer.param_leaves(after_a),
+                        ttrainer.param_leaves(after_b)):
+        da, db = a.detach().float() - p0.float(), b.detach().float() - p0.float()
+        worst = max(worst, ((db - da).abs().max() / da.abs().max().clamp_min(1e-30)).item())
+    return worst
+
+
+def rel_loss_err(a: list, b: list) -> float:
+    return max(abs(x - y) / abs(x) for x, y in zip(a, b))
+
+
+def _lm_runs(cfg, dev, base, batches, mesh) -> dict:
+    """The bench LM's steps without a mesh, through the mesh step
+    (``{"data": 1, "model": 1}``, the TP spec) and through FSDP, each from
+    ``base``: losses, ms per step after the first, the params after, and
+    each mesh run's flash and loss launches."""
+    opt = ttrainer.adamw(TRAIN_LR)
+    spec = tfm.param_partition_spec(cfg)
+    runs = {}
+    for name in ("plain", "mesh", "fsdp"):
+        params = trainable(base, dev)
+        reset_train_counts()
+        if name == "fsdp":
+            fstep, shards, fopt = pfsdp.make_fsdp_train_step(
+                ttrainer.lm_loss(tfm.forward, cfg), opt, mesh, params)
+            del params
+            state = {"params": shards, "opt_state": fopt}
+
+            def step(state, batch):
+                shards, fopt, loss = fstep(state["params"], state["opt_state"], batch)
+                return {"params": shards, "opt_state": fopt}, loss
+        else:
+            if name == "mesh":
+                params = pmesh.shard_tree(params, spec, mesh)
+                step = ttrainer.make_lm_train_step(tfm.forward, cfg, opt, mesh=mesh,
+                                                   param_spec=spec)
+            else:
+                step = ttrainer.make_lm_train_step(tfm.forward, cfg, opt)
+            state = ttrainer.init_train_state(params, opt)
+        rows = [shard_batch(b, mesh) for b in batches] if name != "plain" else batches
+        state, losses, step_ms, _ = timed_steps(step, state, rows, 1)
+        runs[name] = {"losses": scalar_losses(losses), "step_ms": step_ms,
+                      "launches": train_counts(), "params": state["params"]}
+        if name == "fsdp":  # gathered back at one rank: the shards are the leaves
+            runs[name]["params"] = pmesh.gather_tree(state["params"],
+                                                     pfsdp.fsdp_spec(base, mesh), mesh)
+        del state
+    return runs
+
+
+def parallel_lm(dev) -> dict:
+    """(a) the bench LM at 8 x 2048 through ``make_lm_train_step(mesh=
+    {"data": 1, "model": 1}, param_spec=param_partition_spec(cfg))`` and
+    (b) through ``make_fsdp_train_step``, 3 AdamW steps each, against the
+    step without a mesh on the same params and tokens."""
+    cfg = BENCH_LM
+    mesh = pmesh.create_mesh({"data": 1, "model": 1}, dev)
+    base = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    sample = tdata.markov_sampler(device=dev)
+    batches = [sample(TRAIN_BATCH, TRAIN_SEQ + 1, seed=s)
+               for s in range(1, PARALLEL["steps"] + 1)]
+    runs = _lm_runs(cfg, dev, base, batches, mesh)
+    expect = {name: (1 if key is None else cfg.n_layers) * PARALLEL["steps"]
+              for name, (key, _, _) in TRAIN_KERNELS.items()}
+    out = {}
+    for name in ("mesh", "fsdp"):
+        r = runs[name]
+        assert r["launches"] == expect, (name, r["launches"], expect)
+        loss_err = rel_loss_err(runs["plain"]["losses"], r["losses"])
+        update_err = rel_update_err(base, runs["plain"]["params"], r["params"])
+        assert loss_err <= PARALLEL_REL and update_err <= PARALLEL_REL, (name, loss_err,
+                                                                         update_err)
+        out[name] = {"losses": r["losses"], "loss_rel_err": loss_err,
+                     "update_rel_err": update_err, "launches": r["launches"],
+                     "step_ms": statistics.median(r["step_ms"])}
+    out["plain"] = {"losses": runs["plain"]["losses"],
+                    "step_ms": statistics.median(runs["plain"]["step_ms"])}
+    return out
+
+
+def parallel_long_context(dev) -> dict:
+    """(c) the long-context example's step (scripts/train_long_context_torch.py
+    ``build``: ring attention over ``seq`` with the batch over ``data``,
+    the vocab-parallel loss, remat, AdamW) at its widths on one sequence
+    of 4096 tokens: every loss finite."""
+    step, state, mesh, batch = long_script.build(LONG_CTX, dev)
+    n_params = sum(p.numel() for p in ttrainer.param_leaves(state["params"]))
+    tokens = tdata.synthetic_tokens(batch, PARALLEL["long_seq"] + 1, LONG_CTX.vocab_size,
+                                    device=dev)
+    rows = [shard_batch(next(tokens), mesh) for _ in range(PARALLEL["steps"])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_train_counts()
+    state, losses, step_ms, _ = timed_steps(step, state, rows, 1)
+    counts = train_counts()
+    # ring attention and the vocab-parallel loss are plain torch
+    assert counts == dict.fromkeys(TRAIN_KERNELS, 0), counts
+    out = {"mesh": mesh.shape, "params_m": n_params / 1e6, "seq": PARALLEL["long_seq"],
+           "reduced_from_seq": 32768, "losses": scalar_losses(losses),
+           "step_ms": statistics.median(step_ms),
+           "tok_per_s": PARALLEL["long_seq"] * 1e3 / statistics.median(step_ms),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del state, step
+    return out
+
+
+def parallel_ring_vs_flash(dev) -> dict:
+    """(d) ``ring_attention`` (one rank, eight 512-key sub-blocks, causal)
+    and ``ulysses_attention`` against the flash kernel on the same bf16
+    ``[1, 4096, 16, 128]`` q/k/v: outputs, and ring's gradients against
+    the flash backward's, within 1e-2 of each head's largest value."""
+    mesh = pmesh.create_mesh({"seq": 1}, dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, do = (torch.randn(PARALLEL["ring_shape"], generator=gen, device=dev,
+                               dtype=torch.bfloat16) for _ in range(4))
+    ring = ring_attention(mesh, "seq", causal=True, block_size=PARALLEL["ring_block"])
+    ulysses = ulysses_attention(mesh, "seq", causal=True)
+
+    def run(fn):
+        qq, kk, vv = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        out = fn(qq, kk, vv)
+        out.backward(do)
+        return out.detach(), qq.grad, kk.grad, vv.grad
+
+    def heads_first(x):  # [B*H, T, D]: kernel_err's rows are heads
+        b, t, h, d = x.shape
+        return x.transpose(1, 2).reshape(b * h, t, d)
+
+    flash = run(tfm.default_attention)
+    got = {}
+    for name, fn in (("ring", ring), ("ulysses", ulysses)):
+        res = run(fn)
+        parts = ("o", "dq", "dk", "dv") if name == "ring" else ("o",)
+        got[name] = {part: kernel_err(heads_first(res[i]), heads_first(flash[i]),
+                                      f"{name} {part}")
+                     for i, part in enumerate(parts)}
+    times = {}
+    for name, fn in (("flash", tfm.default_attention), ("ring", ring), ("ulysses", ulysses)):
+        times[name] = device_ms(lambda fn=fn: fn(q, k, v), 5, warmup=1)[0]
+    return {"shape": list(PARALLEL["ring_shape"]), "block": PARALLEL["ring_block"],
+            "errors": got, "forward_ms": times}
+
+
+def parallel_moe(dev) -> dict:
+    """(e) the MoE at MIXTRAL_8X7B's widths, 2 layers, with ``moe_ffn``
+    over ``data`` (one rank) as its expert layer: 3 AdamW steps at 2 x
+    2049 tokens, ce and aux finite; ``moe_ffn`` against
+    ``moe_ffn_reference`` on the same tokens and layer-0 params."""
+    cfg = MOE_CFG
+    mesh = pmesh.create_mesh({"data": 1}, dev)
+    spec = moe.param_partition_spec(cfg, model_axis=None, expert_axis="data")
+    params = moe.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    for p in ttrainer.param_leaves(params):
+        p.requires_grad_()
+    params = pmesh.shard_tree(params, spec, mesh)
+    moe_fn = eparallel.moe_ffn(mesh, "data", k=cfg.experts_per_token,
+                               capacity_factor=cfg.capacity_factor, activation=eparallel.swiglu)
+    opt = ttrainer.adamw(MOE["lr"])
+    step = ttrainer.make_moe_lm_train_step(moe.forward, cfg, opt, mesh=mesh, param_spec=spec,
+                                           moe_fn=moe_fn)
+    batches = list(itertools.islice(tdata.markov_tokens(
+        PARALLEL["moe_batch"], PARALLEL["moe_seq"] + 1, seed=0, device=dev), PARALLEL["steps"]))
+    reset_train_counts()
+    state, metrics, step_ms, _ = timed_steps(
+        step, ttrainer.init_train_state(params, opt), [shard_batch(b, mesh) for b in batches], 1)
+    counts = train_counts()
+    expect = {name: (1 if key is None else cfg.n_layers) * PARALLEL["steps"]
+              for name, (key, _, _) in TRAIN_KERNELS.items()}
+    assert counts == expect, (counts, expect)
+    losses = scalar_losses(metrics)
+    aux = [m["aux"].item() for m in metrics]
+    assert all(math.isfinite(a) for a in aux), aux
+    layer0 = {k: t.detach() for k, t in state["params"]["layers"][0]["moe"].items()}
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((PARALLEL["moe_batch"] * PARALLEL["moe_seq"], cfg.dim), generator=gen,
+                    device=dev).to(cfg.dtype)
+    with torch.no_grad():
+        y, a = moe_fn(x, layer0)
+        y_ref, a_ref = eparallel.moe_ffn_reference(
+            x, layer0, k=cfg.experts_per_token, capacity_factor=cfg.capacity_factor,
+            activation=eparallel.swiglu)
+    err = (y.float() - y_ref.float()).abs().max().item()
+    bound = 2.0 ** -8 * y_ref.float().abs().max().item()  # one bf16 rounding
+    assert err <= bound and abs(a.item() - a_ref.item()) <= 1e-6, (err, bound, a, a_ref)
+    del state, params, step, metrics
+    return {"model": "mixtral-8x7b widths, 2 layers, bf16", "mesh": mesh.shape,
+            "tokens": PARALLEL["moe_batch"] * PARALLEL["moe_seq"], "losses": losses, "aux": aux,
+            "step_ms": statistics.median(step_ms), "launches": counts,
+            "moe_ffn_max_abs_err": err, "moe_ffn_bound": bound}
+
+
+def _two_rank_lm(rank: int, tmp: str, device_type: str, cfg, batch: int, seq: int,
+                 results) -> None:
+    """One of two processes on card 0 (or the CPU, rehearsed) in a gloo
+    group: the LM's mesh step at ``{"data": 2, "model": 1}`` from (a)'s
+    params and batches, this rank's half of the rows; reports the losses
+    (the global means) and its ms per step."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    _stderr_to_file(tmp, rank)
+    dev = torch.device(device_type, 0) if device_type == "cuda" else torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), 2),
+                            rank=rank, world_size=2, timeout=datetime.timedelta(seconds=120))
+    try:
+        # gloo on the card is built here by hand: create_mesh takes NCCL
+        mesh = pmesh.Mesh(init_device_mesh(dev.type, (2, 1), mesh_dim_names=("data", "model")),
+                          dev)
+        spec = tfm.param_partition_spec(cfg)
+        base = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+        sample = tdata.markov_sampler(device=dev)
+        opt = ttrainer.adamw(TRAIN_LR)
+        step = ttrainer.make_lm_train_step(tfm.forward, cfg, opt, mesh=mesh, param_spec=spec)
+        state = ttrainer.init_train_state(pmesh.shard_tree(trainable(base, dev), spec, mesh),
+                                          opt)
+        losses, ms = [], []
+        for s in range(1, PARALLEL["steps"] + 1):
+            rows = shard_batch(sample(batch, seq + 1, seed=s), mesh)
+            t0 = time.perf_counter()
+            state, loss = step(state, rows)
+            losses.append(loss.item())
+            ms.append((time.perf_counter() - t0) * 1e3)
+        results.put((rank, {"losses": losses, "step_ms": ms[1:]}))
+    except Exception:  # reported to the parent, which fails the phase
+        results.put((rank, {"error": traceback.format_exc()[-1500:]}))
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_two_ranks(world1_losses: list, dev) -> dict:
+    """(a) at ``data = 2``: two processes on the one card over gloo (NCCL
+    refuses them), each with 4 of the 8 rows, the gradients all-reduced
+    through the host; the global losses within 1e-3 of (a)'s at one
+    rank (the bf16 gradients summed in another order)."""
+    got = _run_pair(_two_rank_lm, (dev.type, BENCH_LM, TRAIN_BATCH, TRAIN_SEQ), 600)
+    for r in ("0", "1"):
+        assert isinstance(got[r], dict) and "losses" in got[r], got
+    losses = got["0"]["losses"]
+    assert got["1"]["losses"] == losses, got
+    err = rel_loss_err(world1_losses, losses)
+    assert err <= PARALLEL_REL, (world1_losses, losses)
+    return {"mesh": {"data": 2, "model": 1}, "backend": "gloo", "losses": losses,
+            "loss_rel_err_vs_world1": err,
+            "step_ms_host": statistics.median(got["0"]["step_ms"])}
+
+
+def phase_parallel(dev, card) -> dict:
+    """parallel/ on the card inside one world-of-one process group
+    (NCCL on the card; gloo when rehearsed on the CPU): (a)-(e) above."""
+    with pmesh.distributed(dev):
+        out = {"phase": "parallel", "card": card,
+               "backend": torch.distributed.get_backend(),
+               "world": torch.distributed.get_world_size()}
+        t0 = time.monotonic()
+        out["lm_mesh"] = parallel_lm(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["lm_mesh"]["data2_gloo"] = parallel_two_ranks(out["lm_mesh"]["mesh"]["losses"], dev)
+        out["long_context"] = parallel_long_context(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["ring_vs_flash"] = parallel_ring_vs_flash(dev)
+        out["expert_parallel"] = parallel_moe(dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["seconds"] = time.monotonic() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card", file=sys.stderr)
@@ -2938,6 +3290,16 @@ def main() -> int:
         emit(fleet_line)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parallel_line = phase_parallel(dev, card)
+    emit(parallel_line)
+    parallel_launches = {
+        name: sum(parallel_line[part][sub]["launches"][name] if sub else
+                  parallel_line[part]["launches"][name]
+                  for part, sub in (("lm_mesh", "mesh"), ("lm_mesh", "fsdp"),
+                                    ("expert_parallel", None)))
+        for name in TRAIN_KERNELS}
 
     kernels = []
     for variant, line in (("bf16", engine_line), ("int8", int8_line)):
@@ -3010,7 +3372,8 @@ def main() -> int:
                                          "resnet50": resnet_line["xent_launches"],
                                          "mnist": mnist_line["xent_launches"],
                                          "vit": vit_line["xent_launches"],
-                                         "moe": moe_line["launches"][name]}
+                                         "moe": moe_line["launches"][name],
+                                         "parallel": parallel_launches[name]}
             # the classifiers' and the MoE LM's logits
             entry["other_shapes"] = {
                 f"{b}x{v}": {**zoo_timing[f"xent/{b}x{v}"],
@@ -3018,7 +3381,8 @@ def main() -> int:
                 for b, v in ZOO_XENT_SHAPES.values()}
         else:
             entry["launches_by_path"] = {"train": entry["launches"],
-                                         "moe": moe_line["launches"][name]}
+                                         "moe": moe_line["launches"][name],
+                                         "parallel": parallel_launches[name]}
             part = {"fwd": "o", "bwd_dq": "dq", "bwd_dkv": "dk"}[key]
             d128 = zoo_parity["flash/bfloat16/causal/" + "x".join(map(str, ZOO_FLASH_SHAPE))]
             t128 = zoo_timing["flash_d128"][key]

@@ -9,7 +9,8 @@ checks every shape against the serving config, places them on one
 device leaf by leaf from the mapped file (host memory never holds the
 tree a second time), and optionally quantizes each matmul weight to
 int8 as it lands. The reference's tensor-parallel placement (``mesh``,
-``model_axis``) waits for the port of ``parallel/``.
+``model_axis``) comes with the second part of the port of
+``parallel/``.
 """
 
 from __future__ import annotations

@@ -9,7 +9,8 @@ and with the reference's telemetry (``metrics``, on by default): request
 traces and latency histograms (``obs/request_trace.py``), the serving
 counters as the ``engine_*`` metric families, flight-recorder events
 and the timeline profiler (``start_timeline``). The tensor-parallel
-``mesh`` waits for the port of ``parallel/``.
+``mesh`` (the engine's ``tp=``) comes with the second part of the port
+of ``parallel/`` (the pipeline and the serving mesh).
 
 - **Paged KV cache** (vLLM-style): K/V live in a block pool
   ``[layers, n_blocks, kv_heads, block_size, head_dim]`` with per-slot

@@ -41,6 +41,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.collectives import psum
+
 Padding = Union[str, Sequence[Sequence[int]]]
 
 # flax's lecun_normal: a normal truncated at two standard deviations,
@@ -158,7 +160,16 @@ class BatchNorm(nn.Module):
     The batch statistics come from one ``_native_batch_norm_legit`` pass
     (float32 mean and inverse std for any input type): its variance is
     the biased two-pass one, flax's fast ``E[x^2] - E[x]^2`` to float32
-    rounding, and its gradient is the same function's."""
+    rounding, and its gradient is the same function's.
+
+    ``group``: the process group of a data axis of more than one rank
+    (set by ``trainer.make_classifier_train_step(mesh=...)``). Then the
+    statistics are the global batch's, as the reference's ``jit`` over a
+    sharded batch takes them: float32 sums of ``x`` and ``x^2`` and the
+    count summed over the group (``parallel.collectives.psum``, whose
+    backward sums too), flax's ``max(0, E[x^2] - E[x]^2)``."""
+
+    group = None
 
     def __init__(self, features: int, dtype: torch.dtype = torch.float32,
                  momentum: float = 0.9, epsilon: float = 1e-5,
@@ -182,14 +193,31 @@ class BatchNorm(nn.Module):
             y = F.batch_norm(x, self.mean, self.var, self.scale, self.bias, False, 0.0,
                              self.epsilon)
             return y.to(self.dtype)
-        y, mean, invstd = torch.ops.aten._native_batch_norm_legit(
-            x, self.scale, self.bias, True, 0.0, self.epsilon)
+        if self.group is not None:
+            y, mean, var = self._global_batch_norm(x)
+        else:
+            y, mean, invstd = torch.ops.aten._native_batch_norm_legit(
+                x, self.scale, self.bias, True, 0.0, self.epsilon)
+            var = invstd.detach().float().pow(-2) - self.epsilon
         with torch.no_grad():
-            var = invstd.float().pow(-2) - self.epsilon
             m = self.momentum
             self.mean.copy_(m * self.mean + (1 - m) * mean.float())
             self.var.copy_(m * self.var + (1 - m) * var)
         return y.to(self.dtype)
+
+    def _global_batch_norm(self, x: torch.Tensor):
+        x32 = x.float()
+        dims = [d for d in range(x.dim()) if d != 1]
+        count = torch.tensor([x.numel() // x.shape[1]], dtype=torch.float32, device=x.device)
+        sums = psum(torch.cat([x32.sum(dims), (x32 * x32).sum(dims), count]), self.group)
+        c = x.shape[1]
+        n = sums[-1]
+        mean = sums[:c] / n
+        var = torch.clamp(sums[c:2 * c] / n - mean * mean, min=0.0)
+        shape = [1, c] + [1] * (x.dim() - 2)
+        y = (x32 - mean.view(shape)) * torch.rsqrt(var + self.epsilon).view(shape)
+        y = y * self.scale.view(shape) + self.bias.view(shape)
+        return y, mean.detach(), var.detach()
 
 
 class LayerNorm(nn.Module):

@@ -10,8 +10,9 @@ D]``, routed densely on one device
 (``parallel/expert_parallel.moe_ffn_reference``). Parameters are a plain
 dict in the reference's tree layout, linear weights ``[in, out]``.
 
-``param_partition_spec`` and the expert-parallel ``moe_fn`` wait for the
-port of ``parallel/``.
+``param_partition_spec`` lays the params out over a mesh; the
+expert-parallel layer is ``moe_fn=parallel.expert_parallel.moe_ffn(mesh,
+axis=..., k=cfg.experts_per_token, activation=swiglu)``.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ from typing import Callable, Optional
 
 import torch
 
-from ..parallel.expert_parallel import moe_ffn_reference, swiglu
+from ..parallel.expert_parallel import moe_ffn_reference, moe_param_spec, swiglu
+from ..parallel.mesh import P
 from .transformer import apply_rope, default_attention, repeat_kv, rms_norm, rope_frequencies
 
 
@@ -94,6 +96,27 @@ def init_params(cfg: MoEConfig, generator: torch.Generator,
         "layers": layers,
         "final_norm": ones(),
         "lm_head": dense((cfg.dim, cfg.vocab_size)),
+    }
+
+
+def param_partition_spec(cfg: MoEConfig, model_axis: Optional[str] = "model",
+                         expert_axis: Optional[str] = "data") -> dict:
+    """Attention tensor-parallel over ``model_axis``; experts sharded over
+    ``expert_axis`` (ep-over-dp; ``None`` replicates either)."""
+    layer = {
+        "wq": P(None, model_axis),
+        "wk": P(None, model_axis),
+        "wv": P(None, model_axis),
+        "wo": P(model_axis, None),
+        "attn_norm": P(),
+        "ffn_norm": P(),
+        "moe": moe_param_spec(expert_axis),
+    }
+    return {
+        "embed": P(),
+        "layers": [dict(layer, moe=dict(layer["moe"])) for _ in range(cfg.n_layers)],
+        "final_norm": P(),
+        "lm_head": P(None, model_axis),
     }
 
 

@@ -1,7 +1,8 @@
 """Llama-family decoder-only transformer in PyTorch.
 
 Counterpart of ``devspace_tpu/models/transformer.py``: the config and its
-presets, parameter init, the building blocks, the training
+presets, parameter init, the tensor-parallel spec (``param_partition_spec``)
+and per-shard config (``shard_config``), the building blocks, the training
 and prefill forward (``layer_apply``, ``forward``; attention through
 ``ops/attention.py``), the dense KV cache with its decode functions
 (``decode_tokens``, ``decode_block``, ``decode_step``, ``generate``: the
@@ -25,6 +26,7 @@ caches for every position they write.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from functools import partial
@@ -36,6 +38,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import fused_attention
 from ..ops.paged_attention import dequantize_kv, paged_decode_attention, quantize_kv
+from ..parallel.mesh import P
+from ..parallel.ring_attention import full_attention
 
 
 @dataclass(frozen=True)
@@ -50,10 +54,13 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
+    # explicit head size: a per-shard config (``shard_config``) has
+    # n_heads/tp local heads, where dim // n_heads is no longer the head size
+    head_dim_override: Optional[int] = None
 
     @property
     def head_dim(self) -> int:
-        return self.dim // self.n_heads
+        return self.head_dim_override or self.dim // self.n_heads
 
 
 LLAMA2_7B = TransformerConfig()
@@ -107,6 +114,40 @@ def init_params(
     }
 
 
+def param_partition_spec(cfg: TransformerConfig, model_axis: Optional[str] = "model") -> dict:
+    """Tensor-parallel ``PartitionSpec`` tree: heads and FFN sharded over
+    ``model_axis``, norms and the embedding replicated, the LM head's
+    vocab sharded (``None``: everything replicated)."""
+    layer = {
+        "wq": P(None, model_axis),
+        "wk": P(None, model_axis),
+        "wv": P(None, model_axis),
+        "wo": P(model_axis, None),
+        "w_gate": P(None, model_axis),
+        "w_up": P(None, model_axis),
+        "w_down": P(model_axis, None),
+        "attn_norm": P(),
+        "ffn_norm": P(),
+    }
+    return {
+        "embed": P(),
+        "layers": [dict(layer) for _ in range(cfg.n_layers)],
+        "final_norm": P(),
+        "lm_head": P(None, model_axis),
+    }
+
+
+def shard_config(cfg: TransformerConfig, tp: int) -> TransformerConfig:
+    """The config one rank of a ``tp``-way model axis computes with: its
+    local heads, KV heads and FFN width, the head size kept. Raises
+    ``ValueError`` where a width does not divide by ``tp``."""
+    for name in ("n_heads", "n_kv_heads", "ffn_dim"):
+        if getattr(cfg, name) % tp:
+            raise ValueError(f"{name}={getattr(cfg, name)} not divisible by the model axis ({tp})")
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp,
+                               ffn_dim=cfg.ffn_dim // tp, head_dim_override=cfg.head_dim)
+
+
 # -- building blocks --------------------------------------------------------
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     x32 = x.float()
@@ -143,41 +184,54 @@ def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
     return x if n_rep == 1 else x.repeat_interleave(n_rep, dim=2)
 
 
-def _ffn(h: torch.Tensor, layer: dict, cfg: TransformerConfig) -> torch.Tensor:
-    x = rms_norm(h, layer["ffn_norm"], cfg.norm_eps)
+def _ffn(h: torch.Tensor, layer: dict, cfg: TransformerConfig, pre=None, post=None):
+    pre = pre or _identity
+    post = post or _identity
+    x = pre(rms_norm(h, layer["ffn_norm"], cfg.norm_eps))
     gated = F.silu(x @ layer["w_gate"]) * (x @ layer["w_up"])
-    return h + (gated @ layer["w_down"]).to(h.dtype)
+    return h + post(gated @ layer["w_down"]).to(h.dtype)
+
+
+def _identity(x):
+    return x
 
 
 # -- training forward -------------------------------------------------------
 def default_attention(q, k, v, causal: bool = True):
-    """[B, T, H, D] self-attention through ``fused_attention`` (flash for
-    long T). The reference's other branch, ring attention over a sequence
-    mesh for T_q != T_k, waits for the port of ``parallel/``."""
+    """[B, T, H, D] attention: self-attention (T_q == T_k) through
+    ``fused_attention`` (flash for long T), else the plain
+    ``full_attention``, as in the reference."""
     if q.shape[1] != k.shape[1]:
-        raise NotImplementedError("ring attention (T_q != T_k) waits for the port of parallel/")
+        return full_attention(q, k, v, causal=causal)
     out = fused_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal)
     return out.transpose(1, 2)
 
 
-def layer_apply(h, layer: dict, cfg: TransformerConfig, cos, sin, attention_fn=None):
+def layer_apply(h, layer: dict, cfg: TransformerConfig, cos, sin, attention_fn=None,
+                pre_block=None, post_block=None):
     """One transformer layer (attention + SwiGLU FFN with pre-RMSNorm
     residuals) -> (h', (k, v)), k and v roped, before the GQA repeat.
-    The reference's ``pre_block``/``post_block`` hooks belong to the
-    tensor-parallel pipeline and wait for ``parallel/``."""
+
+    ``pre_block``/``post_block`` wrap the entry and exit of each parallel
+    block (after the norm, before the residual add): the Megatron f/g
+    hooks of tensor parallelism (``parallel/tensor_parallel.block_hooks``).
+    With a per-shard config (``shard_config``) and the layer's weight
+    shards the same code computes one rank's part."""
     attn = attention_fn or partial(default_attention, causal=True)
+    pre = pre_block or _identity
+    post = post_block or _identity
     b, t, _ = h.shape
     hd = cfg.head_dim
     n_rep = cfg.n_heads // cfg.n_kv_heads
-    x = rms_norm(h, layer["attn_norm"], cfg.norm_eps)
+    x = pre(rms_norm(h, layer["attn_norm"], cfg.norm_eps))
     q = (x @ layer["wq"]).view(b, t, cfg.n_heads, hd)
     k = (x @ layer["wk"]).view(b, t, cfg.n_kv_heads, hd)
     v = (x @ layer["wv"]).view(b, t, cfg.n_kv_heads, hd)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     ctx = attn(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep))
-    h = h + (ctx.reshape(b, t, -1) @ layer["wo"]).to(h.dtype)
-    return _ffn(h, layer, cfg), (k, v)
+    h = h + post(ctx.reshape(b, t, -1) @ layer["wo"]).to(h.dtype)
+    return _ffn(h, layer, cfg, pre, post), (k, v)
 
 
 def forward(
@@ -188,9 +242,17 @@ def forward(
     positions: Optional[torch.Tensor] = None,
     remat: bool = False,
     return_kv: bool = False,
+    pre_block: Optional[Callable] = None,
+    post_block: Optional[Callable] = None,
 ):
     """Training/prefill forward: tokens [B, T] -> logits [B, T, vocab]
     (float32).
+
+    ``positions`` [T]: the tokens' global positions (RoPE), default
+    ``0..T-1``; a sequence shard passes its own offsets.
+    ``pre_block``/``post_block``: ``layer_apply``'s tensor-parallel
+    hooks; ``pre_block`` also marks the LM head's input (the head is
+    column-parallel: each rank computes its block of the vocab).
 
     ``attention_fn(q, k, v) -> ctx`` on [B, T, H, D] (K/V heads already
     repeated) defaults to causal ``default_attention``. ``remat=True``
@@ -212,7 +274,8 @@ def forward(
     kv_out = []
 
     def layer_fn(h, layer):
-        h, kv = layer_apply(h, layer, cfg, cos, sin, attention_fn=attn)
+        h, kv = layer_apply(h, layer, cfg, cos, sin, attention_fn=attn, pre_block=pre_block,
+                            post_block=post_block)
         if return_kv:
             kv_out.append(kv)
         return h
@@ -220,7 +283,7 @@ def forward(
     for layer in params["layers"]:
         h = checkpoint(layer_fn, h, layer, use_reentrant=False) if remat else layer_fn(h, layer)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    logits = (h @ params["lm_head"]).float()
+    logits = ((pre_block or _identity)(h) @ params["lm_head"]).float()
     if return_kv:
         return logits, (torch.stack([k for k, _ in kv_out]), torch.stack([v for _, v in kv_out]))
     return logits

@@ -9,8 +9,11 @@ with the one-hot replaced by a subtraction at the label (a one-hot of a
 ``[16384, 32000]`` batch would be another 2.1 GB of f32).
 
 Dispatch follows the tensors (``ops/dispatch.py``): CPU tensors take the
-plain version, CUDA tensors launch the kernel or raise. The
-vocab-parallel loss waits for the port of ``parallel/``.
+plain version, CUDA tensors launch the kernel or raise.
+
+``vocab_parallel_cross_entropy`` is the Megatron loss over vocab-sharded
+logits (plain torch and three all-reduces; the reference computes it in
+``jnp`` too).
 """
 
 from __future__ import annotations
@@ -18,7 +21,9 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.distributed as dist
 
+from ..parallel.collectives import all_reduce_
 from . import _build
 from .dispatch import on_cuda
 
@@ -135,3 +140,52 @@ def fused_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Ten
     """Per-example losses [B] f32, differentiable in the logits (take the
     mean outside; the caller keeps the choice of reduction)."""
     return _Xent.apply(logits.contiguous(), labels.long().contiguous())
+
+
+class _VocabParallelXent(torch.autograd.Function):
+    """Per-row loss over this rank's vocab block; the backward is the
+    softmax minus the one-hot on the block, with no collective: the
+    per-row cotangent is the same on every rank of the axis."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, group, lo):
+        f32 = logits.float()
+        v_local = f32.shape[-1]
+        # the max shift cancels in log(sum(exp(x - m))) + m: no gradient
+        # flows through it (the reference's stop_gradient)
+        gmax = all_reduce_(f32.amax(-1), group, op=dist.ReduceOp.MAX)
+        sumexp = all_reduce_(torch.exp(f32 - gmax[:, None]).sum(-1), group)
+        lse = torch.log(sumexp) + gmax
+        local = labels.long() - lo
+        in_shard = (local >= 0) & (local < v_local)
+        col = local.clamp(0, v_local - 1)
+        picked_here = f32.gather(-1, col[:, None])[:, 0]
+        picked = all_reduce_(torch.where(in_shard, picked_here, 0.0), group)
+        ctx.save_for_backward(logits, col, in_shard, lse)
+        return lse - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, col, in_shard, lse = ctx.saved_tensors
+        grad = torch.exp(logits.float() - lse[:, None])
+        grad[torch.arange(grad.shape[0], device=grad.device), col] -= in_shard.float()
+        return grad.mul_(g[:, None]).to(logits.dtype), None, None, None
+
+
+def vocab_parallel_cross_entropy(mesh, axis: str = "model"):
+    """Cross-entropy over VOCAB-SHARDED logits (the Megatron-LM trick):
+    with the LM head column-sharded over ``axis``, each rank computes its
+    local max, sum-exp and picked logit, and three small all-reduces (a
+    max and two sums) give the exact loss; the ``[B, V]`` logits are
+    never gathered. Returns ``loss_fn(logits, labels) -> [B] f32`` where
+    ``logits`` is this rank's vocab block ``[B, V/n]`` (block ``i`` of
+    rank ``i``) of its rows and ``labels`` ``[B]`` global vocab ids; the
+    losses are the same on every rank of ``axis``. Differentiable in the
+    logits."""
+    group = mesh.group(axis)
+
+    def loss_fn(logits, labels):
+        lo = mesh.index(axis) * logits.shape[-1]
+        return _VocabParallelXent.apply(logits.contiguous(), labels.contiguous(), group, lo)
+
+    return loss_fn

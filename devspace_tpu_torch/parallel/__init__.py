@@ -1,3 +1,5 @@
-"""Parallelism of the port: the single-device part of expert parallelism
-(the dense MoE routing). The mesh strategies wait for the port of the
-reference's ``parallel/`` over ``torch.distributed``."""
+"""Parallelism of the port over ``torch.distributed``, explicit SPMD:
+named meshes and partition specs (``mesh``), the collectives with their
+gradients (``collectives``), data, tensor, sequence (ring, Ulysses),
+expert and fully-sharded data parallelism. The pipeline schedules wait
+for a later part."""

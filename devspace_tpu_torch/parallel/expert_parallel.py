@@ -1,10 +1,11 @@
-"""Mixture-of-Experts routing on one device: capacity-based top-k with
-the experts applied densely.
+"""Expert parallelism: Mixture-of-Experts with all-to-all dispatch.
 
-Counterpart of the single-device part of
-``devspace_tpu/parallel/expert_parallel.py``: ``swiglu``,
-``init_moe_params``, ``expert_capacity``, ``_route`` and
-``moe_ffn_reference``. Capacity, drop order and the Switch
+Counterpart of ``devspace_tpu/parallel/expert_parallel.py``: ``swiglu``,
+``init_moe_params``, ``expert_capacity``, ``_route``,
+``moe_ffn_reference`` (the experts applied densely on one device), and
+the mesh part: ``moe_param_spec``, ``shard_moe_params`` and ``moe_ffn``
+(experts sharded over a mesh axis, conventionally ``data``; tokens
+moved to their expert's rank and back by two all-to-alls). Capacity, drop order and the Switch
 load-balancing loss follow the reference step for step: each of the k
 choices takes every token's best remaining expert; a token's slot in
 its expert's queue is its rank among the tokens before it (earlier
@@ -20,8 +21,9 @@ below float32: the up-projection gives a float32 result, the activation
 runs on it and rounds once (``_up_product``); the down-projection
 accumulates in float32 and rounds once.
 
-``moe_ffn`` (experts sharded over a mesh axis, tokens moved by
-all-to-all) and ``moe_param_spec`` wait for the port of ``parallel/``.
+Capacity is per rank, as the reference's: ``moe_ffn`` routes each
+rank's tokens alone with ``expert_capacity`` of its local count, so a
+token the reference drops is dropped here too.
 """
 
 from __future__ import annotations
@@ -32,6 +34,9 @@ from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+
+from .collectives import all_to_all, psum_mean
+from .mesh import Mesh, P, shard_tree
 
 gelu = partial(F.gelu, approximate="tanh")  # jax.nn.gelu's default
 
@@ -61,6 +66,17 @@ def init_moe_params(generator: torch.Generator, dim: int, ffn_dim: int, num_expe
         "w_up": normal((num_experts, dim, ffn_dim)).to(dtype),
         "w_down": normal((num_experts, ffn_dim, dim)).to(dtype),
     }
+
+
+def moe_param_spec(axis: Optional[str] = "data") -> dict:
+    """``PartitionSpec`` tree matching ``init_moe_params``: experts
+    sharded over ``axis``, the router replicated."""
+    return {"w_gate": P(), "w_up": P(axis, None, None), "w_down": P(axis, None, None)}
+
+
+def shard_moe_params(params: dict, mesh: Mesh, axis: str = "data") -> dict:
+    """This rank's experts (``E / n`` of them) and the whole router."""
+    return shard_tree(params, moe_param_spec(axis), mesh)
 
 
 def expert_capacity(tokens_per_device: int, num_experts: int, capacity_factor: float,
@@ -146,7 +162,50 @@ def moe_ffn_reference(x: torch.Tensor, params: dict, k: int = 1,
     probs = torch.softmax(x.float() @ params["w_gate"], dim=-1)
     dispatch, combine, aux = _route(probs, k, capacity)
     expert_in = torch.einsum("tec,td->ecd", dispatch.to(x.dtype), x)
-    h = activation(_up_product(expert_in, params["w_up"])).to(x.dtype)
-    expert_out = torch.einsum("ecf,efd->ecd", h, params["w_down"]).to(x.dtype)
+    expert_out = _expert_ffn(expert_in, params, activation, x.dtype)
     y = torch.einsum("tec,ecd->td", combine.to(x.dtype), expert_out)
     return y, aux
+
+
+def _expert_ffn(expert_in: torch.Tensor, params: dict, activation: Callable, dtype) -> torch.Tensor:
+    h = activation(_up_product(expert_in, params["w_up"])).to(dtype)
+    return torch.einsum("ecf,efd->ecd", h, params["w_down"]).to(dtype)
+
+
+def moe_ffn(mesh: Mesh, axis: str = "data", k: int = 1, capacity_factor: float = 1.25,
+            activation: Callable = gelu) -> Callable:
+    """The expert-parallel MoE FFN: ``f(x, params) -> (y, aux)`` with
+    ``x`` this rank's tokens ``[T/n, D]`` and ``params`` its shards
+    (``shard_moe_params``: ``E/n`` experts). On each rank:
+
+      route -> dispatch -> all_to_all (tokens to their expert's rank) ->
+      batched expert FFN -> all_to_all back -> combine
+
+    ``aux`` is the Switch load-balancing loss averaged over ``axis``
+    (``collectives.psum_mean``: each rank's own term takes ``1/n`` of the
+    gradient, the trainer sums the router's gradients over the axis).
+    The experts' gradients arrive on their rank through the all-to-alls'
+    backward."""
+    group = mesh.group(axis)
+    n = mesh.size(axis)
+
+    def layer(x, params):
+        t, d = x.shape
+        e_local = params["w_up"].shape[0]
+        e = params["w_gate"].shape[1]
+        if e != e_local * n:
+            raise ValueError(f"{e} experts over {n} ranks: each holds {e // n}, got {e_local}")
+        capacity = expert_capacity(t, e, capacity_factor, k)
+        probs = torch.softmax(x.float() @ params["w_gate"], dim=-1)
+        dispatch, combine, aux = _route(probs, k, capacity)
+        expert_in = torch.einsum("tec,td->ecd", dispatch.to(x.dtype), x)  # [E, C, D]
+        # to the experts' ranks: [n, E/n, C, D] -> from each source rank
+        got = all_to_all(expert_in.reshape(n, e_local, capacity, d), group)
+        expert_in = got.permute(1, 0, 2, 3).reshape(e_local, n * capacity, d)
+        expert_out = _expert_ffn(expert_in, params, activation, x.dtype)
+        back = expert_out.reshape(e_local, n, capacity, d).permute(1, 0, 2, 3)
+        expert_out = all_to_all(back, group).reshape(e, capacity, d)
+        y = torch.einsum("tec,ecd->td", combine.to(x.dtype), expert_out)
+        return y, psum_mean(aux, group)
+
+    return layer

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..parallel.mesh import shard_tensor
 
 Device = Optional[Union[str, torch.device]]
 
@@ -118,9 +119,15 @@ def _tree_leaves(tree: Any) -> list:
     return out
 
 
-def prefetch_to_device(iterator: Iterator, size: int = 2, device: Device = None) -> Iterator:
+def prefetch_to_device(iterator: Iterator, size: int = 2, device: Device = None,
+                       sharding=None) -> Iterator:
     """Keep ``size`` batches in flight on ``device`` ahead of the
     consumer, in order, with the same values.
+
+    ``sharding`` (``parallel.mesh.sharding(mesh, "data")``): each leaf is
+    a global batch and this rank keeps its block under the spec, on the
+    mesh's device (which ``device`` must then be, if given). A process
+    that loads only its own rows (``host_shard``) passes no sharding.
 
     On the card each host leaf is copied into pinned memory and from
     there to the device on a side CUDA stream, so the copy of batch N+1
@@ -132,6 +139,13 @@ def prefetch_to_device(iterator: Iterator, size: int = 2, device: Device = None)
     nothing more happens."""
     if size < 1:
         raise ValueError(f"size must be at least 1, got {size}")
+    if sharding is not None:
+        if device is not None and resolve_device(device) != sharding.mesh.device:
+            raise ValueError(f"device {device} is not the mesh's {sharding.mesh.device}")
+        device = sharding.mesh.device
+        iterator = (_tree_map(lambda x: shard_tensor(torch.as_tensor(x), sharding.spec,
+                                                     sharding.mesh), batch)
+                    for batch in iterator)
     dev = resolve_device(device)
     queue: collections.deque = collections.deque()
     if dev.type == "cuda":

@@ -1,15 +1,18 @@
 """MNIST-scale MLP training on one GPU with the PyTorch port
 (``devspace_tpu_torch``).
 
-The port of ``examples/jax-mnist/train.py`` on one device: the MLP
-``(512, 256, 10)`` on ``synthetic_mnist`` batches of 256 with Adam 1e-3,
-printing the example's ``step N loss X (R imgs/s)`` line every 100 steps
-and ``done``. The mesh part waits for the port of ``parallel/``. Runs on
-the card unless ``--device cpu`` is given; imports nothing of JAX.
+The port of ``examples/jax-mnist/train.py``: the MLP ``(512, 256, 10)``
+on ``synthetic_mnist`` batches of 256 with Adam 1e-3 over a ``data``
+mesh of every rank (each rank takes its rows of the batch, the
+gradients are averaged over the axis), rank 0 printing the example's
+``step N loss X (R imgs/s)`` line every 100 steps and ``done``. One
+process is a world of one; ``torchrun`` starts more. Runs on the card
+unless ``--device cpu`` is given; imports nothing of JAX.
 
 Usage::
 
     python scripts/train_mnist_torch.py [--device cpu] [--steps 1000]
+    torchrun --nproc-per-node N scripts/train_mnist_torch.py
 """
 
 import argparse
@@ -19,8 +22,13 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import torch
+import torch.distributed as dist
+
 from devspace_tpu_torch.device import resolve_device
 from devspace_tpu_torch.models.mlp import MLP
+from devspace_tpu_torch.parallel.data_parallel import shard_batch
+from devspace_tpu_torch.parallel.mesh import create_mesh, distributed
 from devspace_tpu_torch.training.data import synthetic_mnist
 from devspace_tpu_torch.training.trainer import adam, init_train_state, make_classifier_train_step
 
@@ -36,21 +44,31 @@ def main(argv=None) -> list:
     ap.add_argument("--steps", type=int, default=STEPS)
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    print(f"device: {dev}", flush=True)
-    model = MLP(features=(512, 256, 10), device=dev)
-    optimizer = adam(LEARNING_RATE)
-    state = init_train_state(model, optimizer)
-    step_fn = make_classifier_train_step(model, optimizer)
-    batch_iter = synthetic_mnist(BATCH_SIZE, device=dev)
+    if dev.type == "cuda":  # one card a rank (torchrun's LOCAL_RANK)
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(dev)
     losses = []
-    t0 = time.time()
-    for i in range(args.steps):
-        state, loss = step_fn(state, next(batch_iter))
-        if i % 100 == 0:
-            losses.append(loss.item())  # lint: allow(JIT502) — the log line's readback
-            print(f"step {i:4d} loss {losses[-1]:.4f} "
-                  f"({BATCH_SIZE * (i + 1) / (time.time() - t0):.0f} imgs/s)", flush=True)
-    print("done", flush=True)
+    with distributed(dev):
+        mesh = create_mesh({"data": -1}, dev)
+        lead = dist.get_rank() == 0
+        if lead:
+            print(f"device: {dev}, mesh {mesh.shape}", flush=True)
+        model = MLP(features=(512, 256, 10), device=dev)
+        optimizer = adam(LEARNING_RATE)
+        state = init_train_state(model, optimizer)
+        step_fn = make_classifier_train_step(model, optimizer, mesh=mesh)
+        batch_iter = synthetic_mnist(BATCH_SIZE, device=dev)
+        t0 = time.time()
+        for i in range(args.steps):
+            state, loss = step_fn(state, shard_batch(next(batch_iter), mesh))
+            if i % 100 == 0:
+                losses.append(loss.item())  # lint: allow(JIT502) — the log line's readback
+                if lead:
+                    print(f"step {i:4d} loss {losses[-1]:.4f} "
+                          f"({BATCH_SIZE * (i + 1) / (time.time() - t0):.0f} imgs/s)",
+                          flush=True)
+        if lead:
+            print("done", flush=True)
     return losses
 
 

@@ -430,3 +430,49 @@ def test_fleet_phase_rehearsed_on_the_cpu(monkeypatch, tmp_path):
     for row in line["per_replica"].values():
         assert row["graph_captures"] > 0
     json.dumps(line)  # one JSON line
+
+
+# -- a CPU rehearsal of the parallel phase --------------------------------------
+def test_parallel_phase_rehearsed_on_the_cpu(monkeypatch, cpu_card, few_torch_threads):
+    """The parallel phase's control flow and checks on the CPU, in a gloo
+    world of one formed and torn down by the phase: the bench LM as
+    float32 TINY at 2 x 1280 (the flash path) through the mesh step and
+    FSDP against the plain step, and at ``data = 2`` in two spawned
+    processes over gloo; the long-context build at TINY's widths
+    on 256 tokens; ring and Ulysses against the flash path at [1, 1280,
+    2, 16] (float32: the kernel tolerances' float32 branch); the MoE at
+    TINY_MOE's widths on 1 x 1280 tokens. Timings are host-clock
+    stand-ins."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from devspace_tpu_torch.models import moe, transformer as tfm
+
+    tiny = dataclasses.replace(tfm.TINY, dtype=torch.float32)
+    monkeypatch.setattr(cs, "BENCH_LM", tiny)
+    monkeypatch.setattr(cs, "TRAIN_BATCH", 2)
+    monkeypatch.setattr(cs, "TRAIN_SEQ", 1280)
+    monkeypatch.setattr(cs, "LONG_CTX", tiny)
+    monkeypatch.setattr(cs, "MOE_CFG", dataclasses.replace(moe.TINY_MOE, dtype=torch.float32))
+    monkeypatch.setattr(cs, "PARALLEL", {**cs.PARALLEL, "long_seq": 256,
+                                         "ring_shape": (1, 1280, 2, 16), "ring_block": 256,
+                                         "moe_batch": 1, "moe_seq": 1280})
+    monkeypatch.setattr(cs, "device_ms", lambda fn, reps, **kw: (fn() is None and 0.0, 0.0))
+    line = cs.phase_parallel(torch.device("cpu"), "cpu")
+    assert not dist.is_initialized()
+    assert (line["backend"], line["world"]) == ("gloo", 1)
+    n = tiny.n_layers * cs.PARALLEL["steps"]
+    flash = {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+             "cross_entropy": cs.PARALLEL["steps"]}
+    for name in ("mesh", "fsdp"):
+        r = line["lm_mesh"][name]
+        assert r["launches"] == flash
+        assert r["loss_rel_err"] <= cs.PARALLEL_REL and r["update_rel_err"] <= cs.PARALLEL_REL
+    two = line["lm_mesh"]["data2_gloo"]  # two spawned processes, half the rows each
+    assert two["loss_rel_err_vs_world1"] <= cs.PARALLEL_REL and len(two["losses"]) == 3
+    assert line["long_context"]["seq"] == 256 and len(line["long_context"]["losses"]) == 3
+    assert set(line["ring_vs_flash"]["errors"]["ring"]) == {"o", "dq", "dk", "dv"}
+    assert line["expert_parallel"]["launches"]["cross_entropy"] == 3
+    assert line["expert_parallel"]["moe_ffn_max_abs_err"] <= line["expert_parallel"]["moe_ffn_bound"]
+    json.dumps(line)

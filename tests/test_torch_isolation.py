@@ -44,7 +44,9 @@ def test_every_module_imports_with_jax_blocked():
     assert "devspace_tpu_torch.resilience.policy" in MODULES
     for name in ("models.resnet", "models.mlp", "models.vit", "models.moe", "models.layers",
                  "models.convert", "parallel.expert_parallel", "training.data",
-                 "training.profiler", "training.trainer"):
+                 "training.profiler", "training.trainer", "parallel.mesh",
+                 "parallel.collectives", "parallel.data_parallel", "parallel.tensor_parallel",
+                 "parallel.ring_attention", "parallel.sequence_parallel", "parallel.fsdp"):
         assert f"devspace_tpu_torch.{name}" in MODULES
     for name in ("obs", "obs.metrics", "obs.tracing", "obs.events", "obs.request_trace",
                  "obs.slo", "obs.fleet", "obs.collector", "serving", "serving.router",
@@ -64,10 +66,13 @@ def imported_names(path: Path) -> list[str]:
 
 
 def test_no_source_imports_jax_or_the_jax_package():
-    # the port's pair script runs on the card too; scripts/convert_checkpoint.py
-    # is the one script that imports both packages
+    # the port's scripts run on the card too; scripts/convert_checkpoint.py
+    # is the one script that imports both packages. The parallel tests'
+    # worker processes run the port alone
     files = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"] + [
-        REPO / "scripts" / f"train_{name}_torch.py" for name in ("draft_pair", "resnet", "mnist")]
+        REPO / "scripts" / f"train_{name}_torch.py"
+        for name in ("draft_pair", "resnet", "mnist", "long_context")] + [
+        REPO / "tests" / f"torch_parallel_{name}.py" for name in ("world", "workers")]
     bad = {
         str(f.relative_to(REPO)): name
         for f in files

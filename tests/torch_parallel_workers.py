@@ -1,0 +1,387 @@
+"""The port's side of the parallel parity tests, run on every rank of a
+gloo world (``torch_parallel_world.World``). Imports no JAX: arrays
+arrive and leave as numpy; each function builds its mesh on the CPU and
+returns what the pytest process compares with the JAX package."""
+
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from devspace_tpu_torch.models import moe as tmoe
+from devspace_tpu_torch.models import transformer as ttfm
+from devspace_tpu_torch.models.convert import params_from_numpy, params_to_numpy
+from devspace_tpu_torch.ops.losses import vocab_parallel_cross_entropy
+from devspace_tpu_torch.parallel import collectives, data_parallel, expert_parallel, fsdp
+from devspace_tpu_torch.parallel.mesh import (
+    P,
+    create_mesh,
+    gather_tensor,
+    gather_tree,
+    shard_tensor,
+    shard_tree,
+    sharding,
+)
+from devspace_tpu_torch.parallel.ring_attention import ring_attention
+from devspace_tpu_torch.parallel.sequence_parallel import ulysses_attention
+from devspace_tpu_torch.parallel.tensor_parallel import (
+    shard_columnwise,
+    shard_rowwise,
+    tp_attention_projections,
+    tp_mlp,
+)
+from devspace_tpu_torch.training import data as tdata
+from devspace_tpu_torch.training import trainer as ttrainer
+
+
+def t(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def cpu_mesh(axes: dict):
+    return create_mesh(axes, device="cpu")
+
+
+def tree_np(tree):
+    return params_to_numpy(tree)
+
+
+# -- mesh ---------------------------------------------------------------------
+def mesh_layout(axes: dict) -> dict:
+    """This rank's coordinates and each axis group's ranks and size."""
+    mesh = cpu_mesh(axes)
+    return {
+        "rank": dist.get_rank(),
+        "shape": mesh.shape,
+        "index": {a: mesh.index(a) for a in mesh.shape},
+        "group_ranks": {a: dist.get_process_group_ranks(mesh.group(a)) for a in mesh.shape},
+    }
+
+
+def mesh_backend_mismatch() -> str:
+    """A mesh on the card over this gloo world raises (the card itself is
+    stood in for: ``resolve_device`` answers ``cuda:0``)."""
+    from devspace_tpu_torch.parallel import mesh as mesh_mod
+
+    real = mesh_mod.resolve_device
+    mesh_mod.resolve_device = lambda device: torch.device("cuda", 0)
+    try:
+        create_mesh({"data": -1}, device="cuda")
+    except ValueError as e:
+        return str(e)
+    finally:
+        mesh_mod.resolve_device = real
+    return "no error"
+
+
+def shard_and_gather(axes: dict, spec: tuple, x) -> dict:
+    mesh = cpu_mesh(axes)
+    block = shard_tensor(t(x), P(*spec), mesh)
+    return {"block": block.numpy().copy(), "index": {a: mesh.index(a) for a in mesh.shape},
+            "full": gather_tensor(block.contiguous(), P(*spec), mesh).numpy()}
+
+
+# -- data parallelism -----------------------------------------------------------
+def _mse_loss(p, b):
+    return torch.mean((b["x"] @ p["w"] - b["y"]) ** 2)
+
+
+def dp_step(w, xs, ys, lr: float) -> dict:
+    mesh = cpu_mesh({"data": -1})
+    params = {"w": t(w).requires_grad_()}
+    opt = ttrainer.sgd(lr, momentum=0.0)(ttrainer.param_leaves(params))
+    step = data_parallel.make_train_step(_mse_loss, None, mesh)
+    batch = data_parallel.shard_batch({"x": t(xs), "y": t(ys)}, mesh)
+    params, opt, loss = step(params, opt, batch)
+    return {"w": params["w"].detach().numpy(), "loss": float(loss), "rows": batch["x"].shape[0]}
+
+
+def dp_psum_mean_grad(w, xs, ys) -> np.ndarray:
+    """The gradient of the averaged loss, summed over the axis."""
+    mesh = cpu_mesh({"data": -1})
+    wt = t(w).requires_grad_()
+    batch = data_parallel.shard_batch({"x": t(xs), "y": t(ys)}, mesh)
+    loss = data_parallel.psum_mean_loss(_mse_loss, mesh)({"w": wt}, batch)
+    loss.backward()
+    collectives.all_reduce_(wt.grad, mesh.group("data"))
+    return np.stack([wt.grad.numpy(), np.full_like(w, float(loss))])
+
+
+def dp_eval(w, xs) -> np.ndarray:
+    mesh = cpu_mesh({"data": -1})
+    ev = data_parallel.make_eval_step(lambda p, x: x @ p["w"], mesh)
+    out = ev({"w": t(w)}, data_parallel.shard_batch(t(xs), mesh))
+    return gather_tensor(out, P("data"), mesh).numpy()
+
+
+def prefetch_sharded(n_batches: int) -> list:
+    mesh = cpu_mesh({"data": -1})
+    batches = ({"x": np.full((8, 4), i, np.float32) + np.arange(8, dtype=np.float32)[:, None]}
+               for i in range(n_batches))
+    out = tdata.prefetch_to_device(batches, size=2, sharding=sharding(mesh, "data"))
+    return [b["x"].numpy() for b in out]
+
+
+def classifier_mesh_step(model_name: str, state_dict: dict, images, labels, lr: float) -> dict:
+    """One SGD step of an MLP or a small ResNet over a data mesh: the
+    params after it (equal on every rank), the loss, the running
+    statistics."""
+    from devspace_tpu_torch.models.mlp import MLP
+    from devspace_tpu_torch.models.resnet import ResNet
+
+    mesh = cpu_mesh({"data": -1})
+    if model_name == "mlp":
+        model = MLP(features=(32, 10), device="cpu")
+    else:
+        model = ResNet(stage_sizes=(1, 1), num_classes=10, num_filters=8,
+                       dtype=torch.float32, device="cpu")
+    model.load_state_dict({k: t(v) for k, v in state_dict.items()})
+    opt = ttrainer.sgd(lr, momentum=0.9)
+    state = ttrainer.init_train_state(model, opt)
+    step = ttrainer.make_classifier_train_step(model, opt, has_batch_stats=model_name != "mlp",
+                                               mesh=mesh)
+    batch = data_parallel.shard_batch({"image": t(images), "label": t(labels)}, mesh)
+    state, loss = step(state, batch)
+    return {"loss": float(loss),
+            "state": {k: v.detach().numpy() for k, v in model.state_dict().items()}}
+
+
+# -- tensor parallelism -------------------------------------------------------
+def tp_mlp_case(x, w_up, w_down, dy) -> dict:
+    mesh = cpu_mesh({"model": -1})
+    xt = t(x).requires_grad_()
+    up = shard_columnwise(t(w_up), mesh).requires_grad_()
+    down = shard_rowwise(t(w_down), mesh).requires_grad_()
+    y = tp_mlp(mesh)(xt, up, down)
+    y.backward(t(dy))
+    g = mesh.group("model")
+    return {"y": y.detach().numpy(), "dx": xt.grad.numpy(),
+            "dw_up": collectives.gather(up.grad, 1, g).numpy(),
+            "dw_down": collectives.gather(down.grad, 0, g).numpy()}
+
+
+def tp_attention_case(x, wq, wk, wv, wo, n_heads: int) -> np.ndarray:
+    """Head-parallel projections around full attention on the local heads."""
+    from devspace_tpu_torch.parallel.ring_attention import full_attention
+
+    mesh = cpu_mesh({"model": -1})
+    hd = wq.shape[1] // n_heads
+
+    def attn(q, k, v):
+        b, tt, _ = q.shape
+        split = lambda z: z.reshape(b, tt, -1, hd)
+        return full_attention(split(q), split(k), split(v), causal=True).reshape(b, tt, -1)
+
+    cols = [shard_columnwise(t(w), mesh) for w in (wq, wk, wv)]
+    y = tp_attention_projections(mesh)(t(x), *cols, shard_rowwise(t(wo), mesh), attn)
+    return y.numpy()
+
+
+def tp_layer_case(cfg_kwargs: dict, layer_np: dict, h, dh) -> dict:
+    """``layer_apply`` on the per-shard config and weight shards with the
+    f/g hooks: its output and every weight's gradient (gathered)."""
+    from devspace_tpu_torch.parallel.tensor_parallel import block_hooks
+
+    mesh = cpu_mesh({"model": -1})
+    cfg = ttfm.TransformerConfig(**cfg_kwargs, dtype=torch.float32)
+    spec = ttfm.param_partition_spec(cfg)["layers"][0]
+    layer = shard_tree({k: t(v).requires_grad_() for k, v in layer_np.items()}, spec, mesh)
+    ht = t(h).requires_grad_()
+    cos, sin = ttfm.rope_frequencies(cfg, torch.arange(h.shape[1]))
+    local = ttfm.shard_config(cfg, mesh.size("model"))
+    out, _ = ttfm.layer_apply(ht, layer, local, cos, sin, **block_hooks(mesh))
+    out.backward(t(dh))
+    grads = {k: v.grad for k, v in layer.items()}
+    return {"out": out.detach().numpy(), "dh": ht.grad.numpy(),
+            "grads": tree_np(gather_tree(grads, spec, mesh))}
+
+
+def vocab_parallel_case(axes: dict, logits, labels, g) -> dict:
+    mesh = cpu_mesh(axes)
+    spec = P("data", "model")
+    block = shard_tensor(t(logits), spec, mesh).clone().requires_grad_()
+    rows = shard_tensor(t(labels), P("data"), mesh)
+    losses = vocab_parallel_cross_entropy(mesh, "model")(block, rows)
+    losses.backward(shard_tensor(t(g), P("data"), mesh))
+    return {"loss": gather_tensor(losses.detach(), P("data"), mesh).numpy(),
+            "grad": gather_tensor(block.grad, spec, mesh).numpy()}
+
+
+def lm_mesh_step(axes: dict, params_np: dict, cfg_kwargs: dict, tokens, steps: int, lr: float,
+                 vocab_parallel: bool, attention: str = "default", momentum: float = 0.0,
+                 block_size=512, device: str = "cpu") -> dict:
+    """``steps`` SGD steps of ``make_lm_train_step`` over a mesh on
+    ``device`` (``cuda``: this rank's card, float32 with TF32 off):
+    losses, the full params after and the last step's gradients
+    (gathered)."""
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = create_mesh(axes, device=device)
+    cfg = ttfm.TransformerConfig(**cfg_kwargs, dtype=torch.float32)
+    model_axis = "model" if "model" in axes else None
+    spec = ttfm.param_partition_spec(cfg, model_axis=model_axis)
+    params = shard_tree(params_from_numpy(params_np, mesh.device, trainable=True), spec, mesh)
+    opt = ttrainer.sgd(lr, momentum=momentum)
+    state = ttrainer.init_train_state(params, opt)
+    attn = None
+    batch_axis = "data" if "data" in axes else None
+    if attention == "ring":
+        attn = ring_attention(mesh, "seq", causal=True, batch_axis=batch_axis,
+                              block_size=block_size)
+    elif attention == "ulysses":
+        attn = ulysses_attention(mesh, "seq", causal=True, batch_axis=batch_axis)
+    step = ttrainer.make_lm_train_step(
+        ttfm.forward, cfg, opt, mesh=mesh, data_axis="data", param_spec=spec,
+        attention_fn=attn, vocab_parallel_axis="model" if vocab_parallel else None)
+    rows = data_parallel.shard_batch(t(tokens), mesh)
+    losses = []
+    for _ in range(steps):
+        state, loss = step(state, rows)
+        losses.append(float(loss))
+    leaves = ttrainer.param_leaves(state["params"])
+    grads = ttrainer.tree_like(state["params"], [p.grad for p in leaves])  # the last step's
+    return {"losses": losses, "params": tree_np(gather_tree(state["params"], spec, mesh)),
+            "grads": tree_np(gather_tree(grads, spec, mesh)),
+            "opt_spec": ttrainer.opt_state_partition_spec(state["opt_state"], spec,
+                                                          state["params"])}
+
+
+# -- sequence parallelism -----------------------------------------------------
+def attention_case(kind: str, axes: dict, spec: tuple, q, k, v, dout, causal: bool,
+                   block_size=512) -> dict:
+    """Ring or Ulysses attention over ``axes``, each rank holding its block
+    of q/k/v under ``spec``: the full output and input gradients
+    (gathered) and any warnings."""
+    mesh = cpu_mesh(axes)
+    spec = P(*spec)
+    ql, kl, vl = (shard_tensor(t(a), spec, mesh).clone().requires_grad_() for a in (q, k, v))
+    batch_axis = spec[0]
+    head_axis = spec[2] if len(spec) > 2 else None
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if kind == "ring":
+            fn = ring_attention(mesh, "seq", causal=causal, batch_axis=batch_axis,
+                                head_axis=head_axis, block_size=block_size)
+        else:
+            fn = ulysses_attention(mesh, "seq", causal=causal, batch_axis=batch_axis)
+        out = fn(ql, kl, vl)
+    out.backward(shard_tensor(t(dout), spec, mesh))
+    full = lambda x: gather_tensor(x, spec, mesh).numpy()
+    return {"out": full(out.detach()), "dq": full(ql.grad), "dk": full(kl.grad),
+            "dv": full(vl.grad), "warnings": [str(w.message) for w in caught]}
+
+
+def ulysses_indivisible(q) -> str:
+    mesh = cpu_mesh({"seq": -1})
+    x = shard_tensor(t(q), P(None, "seq"), mesh)
+    try:
+        ulysses_attention(mesh)(x, x, x)
+    except ValueError as e:
+        return str(e)
+    return "no error"
+
+
+# -- expert parallelism -------------------------------------------------------
+def moe_ffn_case(params_np: dict, x, k: int, capacity_factor: float, activation: str,
+                 device: str = "cpu") -> dict:
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = create_mesh({"data": -1}, device=device)
+    params = shard_moe(params_np, mesh)
+    act = expert_parallel.swiglu if activation == "swiglu" else expert_parallel.gelu
+    layer = expert_parallel.moe_ffn(mesh, "data", k=k, capacity_factor=capacity_factor,
+                                    activation=act)
+    # the routing moe_ffn takes, read where it is made
+    routes, route = [], expert_parallel._route
+    expert_parallel._route = lambda *a: routes.append(route(*a)) or routes[-1]
+    try:
+        y, aux = layer(shard_tensor(t(x), P("data"), mesh).to(mesh.device), params)
+    finally:
+        expert_parallel._route = route
+    dispatch = routes[0][0].to(torch.uint8)
+    return {"y": gather_tensor(y, P("data"), mesh).cpu().numpy(), "aux": float(aux),
+            "dispatch": gather_tensor(dispatch, P("data"), mesh).cpu().numpy().astype(bool)}
+
+
+def shard_moe(params_np: dict, mesh):
+    return expert_parallel.shard_moe_params({k: t(v) for k, v in params_np.items()}, mesh)
+
+
+def moe_mesh_step(params_np: dict, cfg_kwargs: dict, tokens, lr: float) -> dict:
+    """One SGD step of the expert-parallel MoE LM over a data mesh."""
+    mesh = cpu_mesh({"data": -1})
+    cfg = tmoe.MoEConfig(**cfg_kwargs, dtype=torch.float32)
+    spec = tmoe.param_partition_spec(cfg, model_axis=None, expert_axis="data")
+    params = shard_tree(params_from_numpy(params_np, "cpu", trainable=True), spec, mesh)
+    opt = ttrainer.sgd(lr, momentum=0.0)
+    state = ttrainer.init_train_state(params, opt)
+    moe_fn = expert_parallel.moe_ffn(mesh, "data", k=cfg.experts_per_token,
+                                     capacity_factor=cfg.capacity_factor,
+                                     activation=expert_parallel.swiglu)
+    step = ttrainer.make_moe_lm_train_step(tmoe.forward, cfg, opt, mesh=mesh, param_spec=spec,
+                                           moe_fn=moe_fn)
+    state, metrics = step(state, data_parallel.shard_batch(t(tokens), mesh))
+    grads = ttrainer.tree_like(state["params"],
+                               [p.grad for p in ttrainer.param_leaves(state["params"])])
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "params": tree_np(gather_tree(state["params"], spec, mesh)),
+            "grads": tree_np(gather_tree(grads, spec, mesh))}
+
+
+def moe_dense_refused(cfg_kwargs: dict) -> str:
+    mesh = cpu_mesh({"data": -1})
+    cfg = tmoe.MoEConfig(**cfg_kwargs, dtype=torch.float32)
+    try:
+        ttrainer.make_moe_lm_train_step(tmoe.forward, cfg, None, mesh=mesh)
+    except ValueError as e:
+        return str(e)
+    return "no error"
+
+
+# -- FSDP -----------------------------------------------------------------------
+def _fsdp_loss(p, b):
+    pred = torch.tanh(b["x"] @ p["w1"]) @ p["w2"] + p["b"]
+    return torch.mean((pred - b["y"]) ** 2)
+
+
+def fsdp_case(params_np: dict, xs, ys, lr: float, min_size: int, steps: int,
+              device: str = "cpu") -> dict:
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = create_mesh({"data": -1}, device=device)
+    params = {k: t(v).to(mesh.device).requires_grad_() for k, v in params_np.items()}
+    spec = fsdp.fsdp_spec(params, mesh, min_size=min_size)
+    step, shards, opt = fsdp.make_fsdp_train_step(_fsdp_loss, ttrainer.adam(lr), mesh, params,
+                                                  min_size=min_size)
+    batch = data_parallel.shard_batch({"x": t(xs), "y": t(ys)}, mesh)
+    losses = []
+    for _ in range(steps):
+        shards, opt, loss = step(shards, opt, batch)
+        losses.append(float(loss))
+    return {"losses": losses, "spec": spec,
+            "shapes": {k: tuple(v.shape) for k, v in shards.items()},
+            "opt_spec": fsdp.opt_state_spec(opt, spec, shards),
+            "params": {k: v.cpu().numpy() for k, v in gather_tree(shards, spec, mesh).items()}}
+
+
+def fsdp_lm_step(params_np: dict, cfg_kwargs: dict, tokens, lr: float) -> dict:
+    """The TINY LM's loss through ``make_fsdp_train_step`` (SGD)."""
+    mesh = cpu_mesh({"data": -1})
+    cfg = ttfm.TransformerConfig(**cfg_kwargs, dtype=torch.float32)
+    params = params_from_numpy(params_np, "cpu", trainable=True)
+    loss_fn = ttrainer.lm_loss(ttfm.forward, cfg)
+    step, shards, opt = fsdp.make_fsdp_train_step(loss_fn, ttrainer.sgd(lr, momentum=0.0),
+                                                  mesh, params)
+    spec = fsdp.fsdp_spec(params, mesh)
+    shards, opt, loss = step(shards, opt, data_parallel.shard_batch(t(tokens), mesh))
+    grads = ttrainer.tree_like(shards, [p.grad for p in ttrainer.param_leaves(shards)])
+    return {"loss": float(loss), "params": tree_np(gather_tree(shards, spec, mesh)),
+            "grads": tree_np(gather_tree(grads, spec, mesh))}
+
+
+def noop() -> int:
+    return dist.get_rank()
+
