@@ -145,6 +145,7 @@ from devspace_tpu_torch.ops import normalization as rn
 from devspace_tpu_torch.parallel import expert_parallel as eparallel
 from devspace_tpu_torch.parallel import fsdp as pfsdp
 from devspace_tpu_torch.parallel import mesh as pmesh
+from devspace_tpu_torch.parallel import pipeline as ppipe
 from devspace_tpu_torch.parallel.data_parallel import shard_batch
 from devspace_tpu_torch.parallel.ring_attention import ring_attention
 from devspace_tpu_torch.parallel.sequence_parallel import ulysses_attention
@@ -865,7 +866,8 @@ def phase_engine_int8(params, dev, card) -> dict:
         rng = np.random.default_rng(1)
         requests = [(rng.integers(1, cfg.vocab_size, n).tolist(), 16, {}) for n in (7, 100, 300, 600)]
         run = drive_engine(engine, requests)
-        assert [len(r) for r in run.pop("results")] == [16] * 4
+        results = run.pop("results")
+        assert [len(r) for r in results] == [16] * 4
         assert engine.stats()["requests_failed"] == 0
     finally:
         engine.stop()
@@ -873,6 +875,8 @@ def phase_engine_int8(params, dev, card) -> dict:
         "phase": "engine", "model": "llama2-7b", "kv_pool": "int8", "card": card, "prewarm": warm,
         "ttft_s_median": statistics.median(run["ttft_s"]),
         **{k: v for k, v in run.items() if k != "ttft_s"},
+        # the tensor-parallel engine's int8 pool serves these again (parallel)
+        "reference": {"requests": requests, "results": results},
     }
 
 
@@ -2959,6 +2963,8 @@ def parallel_lm(dev) -> dict:
                      "step_ms": statistics.median(r["step_ms"])}
     out["plain"] = {"losses": runs["plain"]["losses"],
                     "step_ms": statistics.median(runs["plain"]["step_ms"])}
+    del runs["mesh"], runs["fsdp"]
+    out["pipeline"] = parallel_pipelines(dev, cfg, base, batches, runs["plain"])
     return out
 
 
@@ -3134,25 +3140,242 @@ def parallel_two_ranks(world1_losses: list, dev) -> dict:
             "step_ms_host": statistics.median(got["0"]["step_ms"])}
 
 
-def phase_parallel(dev, card) -> dict:
+# -- parallel part 2: pipelines, tensor-parallel serving, the seam on a mesh ------
+# (a) the bench LM's batches cut into M microbatches, through 1F1B and the
+# interleaved step (V chunks a rank) at pipe = 1
+PIPE = {"micro": 4, "chunks": 2}
+# first-step gradients against the plain step's, per leaf over its largest
+# value: bf16, M microbatches' gradients summed in float32 and rounded once
+# against the batch's gradient rounded once. The embedding's apart: the
+# plain step's autograd accumulates it in bf16 over the batch's 16384
+# positions (255 distinct Markov tokens, up to 147 rows each), 2.0% of the
+# leaf's largest value off a float32 accumulation of the same rows on the
+# CPU; the pipeline accumulates it in float32
+PIPE_GRAD_REL = 2e-2
+PIPE_EMBED_GRAD_REL = 5e-2
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """``param_leaves`` order's names (``layers.3.wq``)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree) for n in leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def pipeline_launches(cfg, steps: int) -> dict:
+    """The kernels' launches the schedule predicts: every microbatch and
+    layer runs the flash forward at its F tick and again at its B tick's
+    recompute, one flash backward, and the last stage one loss kernel a
+    microbatch."""
+    per_layer = PIPE["micro"] * cfg.n_layers * steps
+    return {"flash_fwd": 2 * per_layer, "flash_bwd_dq": per_layer, "flash_bwd_dkv": per_layer,
+            "cross_entropy": PIPE["micro"] * steps}
+
+
+def _pipeline_layout(kind: str, params, mesh):
+    """This rank's staged params and the inverse of the layout."""
+    if kind == "1f1b":
+        return (pmesh.shard_tree(ppipe.transformer_stage_params(params, 1),
+                                 ppipe.pipeline_param_specs(), mesh),
+                ppipe.transformer_unstage_params)
+    staged = ppipe.transformer_interleaved_stage_params(params, 1, PIPE["chunks"])
+    return (pmesh.shard_tree(staged, ppipe.interleaved_param_specs(), mesh),
+            ppipe.transformer_uninterleave_params)
+
+
+def _pipeline_step(kind: str, cfg, opt, mesh):
+    if kind == "1f1b":
+        return ppipe.make_pipeline_lm_train_step(mesh, cfg, opt, PIPE["micro"])
+    return ppipe.make_interleaved_pipeline_lm_train_step(mesh, cfg, opt, PIPE["micro"],
+                                                         PIPE["chunks"])
+
+
+def parallel_pipelines(dev, cfg, base, batches, plain) -> dict:
+    """(a) 1F1B and the interleaved step at ``pipe = 1`` on the plain
+    step's params and tokens (each batch as M microbatches): losses and
+    update differences against the plain step, ms a step after the
+    first, peak memory, and the flash and loss launches against the
+    schedule's prediction; the first step's gradients (through
+    ``pipeline_lm_loss_and_grads`` alone) against the plain step's; one
+    profiled 1F1B step, its device busy time and idle share."""
+    mesh = pmesh.create_mesh({"pipe": 1}, dev)
+    opt = ttrainer.adamw(TRAIN_LR)
+    m = PIPE["micro"]
+    micro = [b.view(m, -1, b.shape[-1]) for b in batches]
+    ref = trainable(base, dev)
+    ttrainer.lm_loss(tfm.forward, cfg)(ref, batches[0]).backward()
+    ref_grads = [p.grad for p in ttrainer.param_leaves(ref)]
+    names = leaf_names(ref)
+    del ref
+    out = {"mesh": {"pipe": 1}, "micro": m, "chunks": PIPE["chunks"], "grad_rel": PIPE_GRAD_REL,
+           "embed_grad_rel": PIPE_EMBED_GRAD_REL}
+    for kind in ("1f1b", "interleaved"):
+        local, unstage = _pipeline_layout(kind, trainable(base, dev), mesh)
+        if kind == "1f1b":
+            fn = ppipe.pipeline_lm_loss_and_grads(mesh, cfg, m)
+        else:
+            fn = ppipe.interleaved_pipeline_lm_loss_and_grads(mesh, cfg, m, PIPE["chunks"])
+        _, grads = fn(local, micro[0])
+        got = ttrainer.param_leaves(unstage(grads))
+        errs = {name: ((g - r.float()).abs().max() / r.float().abs().max()).item()
+                for name, g, r in zip(names, got, ref_grads, strict=True)}
+        embed_err = errs.pop("embed")
+        grad_err = max(errs.values())
+        worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+        del grads, got
+        state = ttrainer.init_train_state(local, opt)
+        step = _pipeline_step(kind, cfg, opt, mesh)
+        reset_train_counts()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        state, losses, step_ms, _ = timed_steps(step, state, micro, 1)
+        launches = train_counts()
+        expect = pipeline_launches(cfg, len(micro))
+        assert launches == expect, (kind, launches, expect)
+        losses = scalar_losses(losses)
+        loss_err = rel_loss_err(plain["losses"], losses)
+        after = unstage(state["params"])
+        assert loss_err <= PARALLEL_REL, (kind, loss_err)
+        assert grad_err <= PIPE_GRAD_REL and embed_err <= PIPE_EMBED_GRAD_REL, (
+            kind, worst, embed_err)
+        out[kind] = {"losses": losses, "loss_rel_err": loss_err, "grad_rel_err": grad_err,
+                     "grad_rel_err_worst_leaves": worst, "embed_grad_rel_err": embed_err,
+                     "update_l2_rel": update_l2_rel(base, plain["params"], after),
+                     "launches": launches, "predicted_launches": expect,
+                     "step_ms": statistics.median(step_ms), "step_ms_each": step_ms,
+                     "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9
+                     if dev.type == "cuda" else None}
+        if kind == "1f1b":
+            # one more step under the profiler (its launches are not
+            # counted above): the device's busy time against the step's
+            # wall time; the interleaved step does the same work
+            profiled = device_breakdown(lambda: step(state, micro[-1]))
+            profiled.pop("top_kernels", None)
+            out[kind]["profiled_step"] = profiled
+        del state, after, local
+        gc.collect()
+    out["plain_step_ms"] = statistics.median(plain["step_ms"])
+    return out
+
+
+def update_l2_rel(before: dict, after_a: dict, after_b: dict) -> float:
+    """The worst leaf's ``||du_b - du_a|| / ||du_a||``: unlike the largest
+    elementwise difference it is not set by elements whose gradient is
+    near zero, where AdamW's first steps move by +-lr on the sign alone."""
+    worst = 0.0
+    for p0, a, b in zip(ttrainer.param_leaves(before), ttrainer.param_leaves(after_a),
+                        ttrainer.param_leaves(after_b)):
+        da, db = a.detach().float() - p0.float(), b.detach().float() - p0.float()
+        worst = max(worst, (torch.linalg.norm(db - da) / torch.linalg.norm(da)
+                            .clamp_min(1e-30)).item())
+    return worst
+
+
+def _tp_serve(engine, requests, want, steady: bool) -> dict:
+    """A tensor-parallel engine after ``prewarm``: the requests' streams
+    equal ``want``, the paged kernel on local heads, nothing captured in
+    the run; with ``steady`` the steady burst too."""
+    warm = prewarm_engine(engine)
+    impl = "cuda" if engine.device.type == "cuda" else "reference"
+    assert pa.LAST_DISPATCH == {"impl": impl, "tp": True}, pa.LAST_DISPATCH
+    engine.start()
+    try:
+        run = drive_engine(engine, requests)
+        results = run.pop("results")
+        assert results == want, (results, want)
+        line = {"prewarm": warm, "streams_equal_plain": True,
+                "ttft_s_median": statistics.median(run.pop("ttft_s")), **run}
+        if steady:
+            line["steady"] = steady_burst(engine)
+        st = engine.stats()
+        assert st["requests_failed"] == 0
+        assert st["graph_captures"] == warm["captures"], "a graph was captured after prewarm"
+        line["graph_captures_after_prewarm"] = st["graph_captures"] - warm["captures"]
+    finally:
+        engine.stop()
+    return line
+
+
+def parallel_tp_engine(dev, serving: dict) -> dict:
+    """(b) and (c): Llama-2-7B over ``mesh={"model": 1}`` (NCCL at one
+    rank). The checkpoint the int8_weights phase wrote is restored
+    through ``load_serving_params(mesh=)`` (every leaf byte for byte the
+    params in memory) and served by ``InferenceEngine.from_checkpoint(mesh=)``
+    on a bf16 pool: the serving requests and the steady burst; the params
+    in memory by ``InferenceEngine(mesh=)`` on an int8 pool: the int8
+    pool's requests. Every stream equal to the plain engine's, token for
+    token."""
+    cfg, params, path = serving["cfg"], serving["params"], serving["checkpoint"]
+    mesh = pmesh.create_mesh({"model": 1}, dev)
+    max_len = min(2048, cfg.max_seq_len)
+    sync(dev)
+    t0 = time.monotonic()
+    restored, step = load_serving_params(path, cfg, mesh=mesh)
+    sync(dev)
+    load_s = time.monotonic() - t0
+    nbytes = assert_same_bytes(restored, params)
+    del restored
+    gc.collect()
+    out = {"mesh": {"model": 1},
+           "seam": {"step": step, "load_s": load_s, "load_gbps": nbytes / load_s / 1e9,
+                    "params_byte_equal": True}}
+    for pool in ("bf16", "int8"):
+        if pool == "bf16":
+            engine = InferenceEngine.from_checkpoint(path, cfg, mesh=mesh, max_slots=8,
+                                                     max_len=max_len)
+            requests, want = serving["requests"], serving["results"]
+        else:
+            engine = InferenceEngine(params, cfg, mesh=mesh, max_slots=8, max_len=max_len,
+                                     kv_dtype="int8")
+            requests, want = serving["int8_requests"], serving["int8_results"]
+        out[pool] = _tp_serve(engine, requests, want, steady=pool == "bf16")
+        del engine
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    out["bf16"]["built_by"] = "from_checkpoint(mesh=)"
+    out["int8"]["built_by"] = "InferenceEngine(params, mesh=)"
+    out["bf16"]["plain_steady_ms_per_step"] = serving["steady_ms"]
+    out["bf16"]["steady_over_plain"] = (out["bf16"]["steady"]["ms_per_step"]
+                                        / serving["steady_ms"])
+    return out
+
+
+def phase_parallel(dev, card, serving: dict) -> dict:
     """parallel/ on the card inside one world-of-one process group
-    (NCCL on the card; gloo when rehearsed on the CPU): (a)-(e) above."""
+    (NCCL on the card; gloo when rehearsed on the CPU): (a)-(e) above,
+    then part 2: ``pipeline`` (the 1F1B and interleaved steps beside (a)'s
+    plain step) and ``tp_engine`` over ``serving`` (the Llama-2-7B params,
+    the plain engines' requests and streams, their steady ms a step and
+    the int8_weights phase's checkpoint); ``part_seconds`` times each
+    part."""
     with pmesh.distributed(dev):
         out = {"phase": "parallel", "card": card,
                "backend": torch.distributed.get_backend(),
                "world": torch.distributed.get_world_size()}
         t0 = time.monotonic()
-        out["lm_mesh"] = parallel_lm(dev)
-        gc.collect()
-        torch.cuda.empty_cache()
-        out["lm_mesh"]["data2_gloo"] = parallel_two_ranks(out["lm_mesh"]["mesh"]["losses"], dev)
-        out["long_context"] = parallel_long_context(dev)
-        gc.collect()
-        torch.cuda.empty_cache()
-        out["ring_vs_flash"] = parallel_ring_vs_flash(dev)
-        out["expert_parallel"] = parallel_moe(dev)
-        gc.collect()
-        torch.cuda.empty_cache()
+        parts = {}
+
+        def part(name, fn, *args):
+            t = time.monotonic()
+            result = fn(*args)
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            parts[name] = time.monotonic() - t
+            return result
+
+        out["lm_mesh"] = part("lm_mesh_and_pipeline", parallel_lm, dev)
+        out["pipeline"] = out["lm_mesh"].pop("pipeline")
+        out["lm_mesh"]["data2_gloo"] = part("data2_gloo", parallel_two_ranks,
+                                            out["lm_mesh"]["mesh"]["losses"], dev)
+        out["long_context"] = part("long_context", parallel_long_context, dev)
+        out["ring_vs_flash"] = part("ring_vs_flash", parallel_ring_vs_flash, dev)
+        out["expert_parallel"] = part("expert_parallel", parallel_moe, dev)
+        out["tp_engine"] = part("tp_engine", parallel_tp_engine, dev, serving)
+        out["part_seconds"] = parts
         out["seconds"] = time.monotonic() - t0
     return out
 
@@ -3270,6 +3493,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit(phase_engine_variants(params, dev, card, results, prefix_results))
     int8_line = phase_engine_int8(params, dev, card)
+    int8_ref = int8_line.pop("reference")
     emit(int8_line)
     kv_line = phase_kv_tier(params, dev, card, engine_line["near_tie_bound"])
     emit(kv_line)
@@ -3288,18 +3512,29 @@ def main() -> int:
         torch.cuda.empty_cache()
         fleet_line = phase_fleet(ckpt_dir, card, engine_line["near_tie_bound"], dev)
         emit(fleet_line)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the same seed: the params the engines above served
+        params = tfm.init_params(tfm.LLAMA2_7B, torch.Generator(device=dev).manual_seed(0))
+        serving = {"cfg": tfm.LLAMA2_7B, "params": params,
+                   "requests": serving_requests(tfm.LLAMA2_7B), "results": results,
+                   "int8_requests": int8_ref["requests"], "int8_results": int8_ref["results"],
+                   "steady_ms": engine_line["steady"]["ms_per_step"], "checkpoint": ckpt_dir}
+        parallel_line = phase_parallel(dev, card, serving)
+        emit(parallel_line)
+        del params, serving
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    parallel_line = phase_parallel(dev, card)
-    emit(parallel_line)
     parallel_launches = {
         name: sum(parallel_line[part][sub]["launches"][name] if sub else
                   parallel_line[part]["launches"][name]
                   for part, sub in (("lm_mesh", "mesh"), ("lm_mesh", "fsdp"),
-                                    ("expert_parallel", None)))
+                                    ("expert_parallel", None), ("pipeline", "1f1b"),
+                                    ("pipeline", "interleaved")))
         for name in TRAIN_KERNELS}
+    tp_paths = {pool: parallel_line["tp_engine"][pool]["launches"] for pool in ("bf16", "int8")}
 
     kernels = []
     for variant, line in (("bf16", engine_line), ("int8", int8_line)):
@@ -3311,6 +3546,10 @@ def main() -> int:
         if variant == "int8":
             by_path["kv_migration"] = kv_line["migration"]["launches"]
         err_by_path = {"serving": max(errs[f"mha/bfloat16/{pool}"], errs[f"gqa/bfloat16/{pool}"])}
+        # the tensor-parallel engine at one NCCL rank (bf16: restored
+        # from the checkpoint on the mesh)
+        by_path["tp_engine"] = tp_paths[variant]
+        err_by_path["tp_engine"] = err_by_path["serving"]
         if variant == "bf16":
             by_path["speculative"] = spec_line["spec"]["paged_decode_launches"]
             err_by_path["speculative"] = errs["verify/bfloat16/float"]

@@ -8,9 +8,12 @@ params. ``load_serving_params`` restores them alone (a train state's
 checks every shape against the serving config, places them on one
 device leaf by leaf from the mapped file (host memory never holds the
 tree a second time), and optionally quantizes each matmul weight to
-int8 as it lands. The reference's tensor-parallel placement (``mesh``,
-``model_axis``) comes with the second part of the port of
-``parallel/``.
+int8 as it lands. Under a tensor-parallel ``mesh`` each rank keeps only
+its shards of the mapped logical arrays (``_params_template``: the
+training checkpoint's ``sharded_template`` by
+``param_partition_spec``), the placement the engine serves with
+(``quantization.shard_serving_params``); an int8 weight is quantized
+whole, then cut, so its scales are those of the whole weight.
 """
 
 from __future__ import annotations
@@ -22,8 +25,13 @@ import torch
 
 from ..device import resolve_device
 from ..models import transformer as tfm
-from ..training.checkpoint import list_step_dirs, read_meta, restore_checkpoint
-from .quantization import _is_matmul_leaf, quantize_weight
+from ..training.checkpoint import (
+    list_step_dirs,
+    read_meta,
+    restore_checkpoint,
+    sharded_template,
+)
+from .quantization import _is_matmul_leaf, quantize_weight, shard_serving_params
 
 
 def _resolve_step_dir(path: str, step: Optional[int]) -> tuple[str, Optional[int]]:
@@ -66,6 +74,17 @@ def _is_train_state(path: str) -> bool:
         return True
 
 
+def _params_template(cfg: tfm.TransformerConfig, mesh, model_axis: str, quantize: bool):
+    """The restore template of the serving params: the logical tree's
+    shapes and dtypes (on the meta device, nothing materialized); under a
+    ``mesh``, with each leaf's block by ``param_partition_spec`` (an int8
+    restore takes the whole weights and cuts them after quantizing)."""
+    shapes = tfm.init_params(cfg, torch.Generator(), device="meta")
+    if mesh is None or quantize:
+        return shapes
+    return sharded_template(shapes, mesh, tfm.param_partition_spec(cfg, model_axis))
+
+
 def _place(tree, device: torch.device, quantize: bool):
     """Each leaf of ``tree`` (mapped from the file) copied to ``device``,
     and a matmul weight quantized there, one leaf at a time."""
@@ -87,6 +106,8 @@ def load_serving_params(
     step: Optional[int] = None,
     device: Optional[Union[str, torch.device]] = None,
     quantize: Optional[str] = None,
+    mesh=None,
+    model_axis: str = "model",
 ) -> tuple[dict, Optional[int]]:
     """Restore serving params from a checkpoint.
 
@@ -97,13 +118,15 @@ def load_serving_params(
     in ``cfg.dtype`` (norms float32), after their shapes are checked
     against ``init_params(cfg)`` built on the meta device; a mismatch is
     a ``ValueError``. ``quantize="int8"`` applies weight-only int8
-    (``inference/quantization.py``). Returns ``(params, step)``, ``step``
-    None when the directory name carries no step number."""
+    (``inference/quantization.py``). ``mesh`` (``parallel.mesh``): this
+    rank's shards over ``model_axis`` instead, on ``mesh.device``, placed
+    as ``InferenceEngine(mesh=)`` serves them. Returns ``(params, step)``,
+    ``step`` None when the directory name carries no step number."""
     if quantize not in (None, "int8"):
         raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
-    dev = resolve_device(device)
+    dev = resolve_device(device if mesh is None else mesh.device)
     resolved, found_step = _resolve_step_dir(path, step)
-    template = tfm.init_params(cfg, torch.Generator(), device="meta")
+    template = _params_template(cfg, mesh, model_axis, quantize == "int8")
     try:
         if _is_train_state(resolved):
             params = restore_checkpoint(resolved, {"params": template}, partial=True)["params"]
@@ -116,4 +139,8 @@ def load_serving_params(
             f"checkpoint at {resolved} does not match the serving config "
             f"(wrong model config, or not a params/train-state checkpoint): {e}"
         ) from e
-    return _place(params, dev, quantize == "int8"), found_step
+    if mesh is None:
+        return _place(params, dev, quantize == "int8"), found_step
+    if quantize == "int8":
+        params = shard_serving_params(_place(params, dev, True), cfg, mesh, model_axis)
+    return params, found_step

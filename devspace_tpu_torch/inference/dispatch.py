@@ -32,7 +32,8 @@ loop is built around it:
   full. Emitting chunk N thus overlaps chunk N+1 on the card. On the CPU
   there is no event and an entry reports itself not ready, the
   reference's conservative fallback: the window fills and the blocking
-  drain runs. Depth 1 is the serial loop (``DEVSPACE_ENGINE_OVERLAP=off``)
+  drain runs. A tensor-parallel engine drains that way on the card too
+  (``opportunistic`` off), so every rank drains at the same point. Depth 1 is the serial loop (``DEVSPACE_ENGINE_OVERLAP=off``)
   and the reference the equivalence tests compare against.
 
 - **Overshoot and zombies**: a slot that finishes while later chunks
@@ -140,6 +141,10 @@ class DecodeDispatcher:
             raise ValueError(f"dispatch_depth must be in 1..8, got {depth}")
         self.engine = engine
         self.depth = int(depth)
+        # under a mesh every rank must drain at the same point, and whether
+        # a readback is ready is timing: there the window drains only when
+        # it is full or idle (engine module docstring)
+        self.opportunistic = engine._tp is None
         B, mb, dev = engine.max_slots, engine.max_blocks, engine.device
         self.window: deque[_InFlight] = deque()
         # per-slot count of in-flight chunks / in-flight decode steps
@@ -279,7 +284,7 @@ class DecodeDispatcher:
         on the host are consumed. Returns the number drained."""
         drained = 0
         while self.window:
-            if not block and not _toks_ready(self.window[0]):
+            if not block and not (self.opportunistic and _toks_ready(self.window[0])):
                 break
             self._consume_oldest()
             drained += 1

@@ -8,9 +8,8 @@ built ahead of traffic by ``prewarm()``; and with its host KV tier
 and with the reference's telemetry (``metrics``, on by default): request
 traces and latency histograms (``obs/request_trace.py``), the serving
 counters as the ``engine_*`` metric families, flight-recorder events
-and the timeline profiler (``start_timeline``). The tensor-parallel
-``mesh`` (the engine's ``tp=``) comes with the second part of the port
-of ``parallel/`` (the pipeline and the serving mesh).
+and the timeline profiler (``start_timeline``); and tensor-parallel over
+a ``mesh`` (below).
 
 - **Paged KV cache** (vLLM-style): K/V live in a block pool
   ``[layers, n_blocks, kv_heads, block_size, head_dim]`` with per-slot
@@ -74,6 +73,26 @@ of ``parallel/`` (the pipeline and the serving mesh).
   ``QuantizedLinear`` leaves, served wherever dense ones are, since
   every weight use is ``x @ w``).
 
+- **Tensor-parallel serving** (``mesh``, ``model_axis``): one process
+  per rank of the model axis, each with its shards of the params
+  (``quantization.shard_serving_params``), its KV heads of the pool and
+  of the draft's dense cache, and the model functions' ``tp=`` (one
+  all-reduce per block, the logits gathered before sampling, the
+  paged-decode kernel on local heads). The reference's engine is one
+  controller over every device; here each rank runs its own scheduler,
+  so every decision must be the same on every rank or the step's
+  collectives deadlock. The scheduler is a deterministic function of
+  the requests and of the tokens, which every rank samples alike from
+  the same gathered logits; the two inputs that are not, the arrival of
+  requests and the moment a readback happens to be ready, are pinned:
+  requests enter at rank 0 of the model axis, which at the top of every
+  scheduler iteration broadcasts the new ones and its stop flag over a
+  gloo group beside the collectives' (the other ranks submit nothing
+  and follow), and the window drains only when it is full, never on a
+  readback found ready. The decode chunk and spec round graphs hold the
+  NCCL all-reduces; the constructor runs one over the axis, so its
+  communicator exists before the first capture.
+
 Every decode step's and every verification block's attention runs
 through the paged-decode CUDA kernel when the engine lives on the card
 (``ops/paged_attention.py``), and the draft's prefill through the
@@ -95,6 +114,7 @@ from typing import Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..models import transformer as tfm
@@ -121,6 +141,7 @@ from .kv_tier import (
     unpack_kv_payload,
 )
 from .prefix_cache import RadixPrefixCache
+from .quantization import shard_serving_params
 from .sampling import sample_tokens
 from .speculative import _draft_propose, _draft_propose_sampled, spec_accept_commit
 
@@ -255,6 +276,27 @@ ENGINE_METRIC_FAMILIES = (
 )
 
 
+# what a plan carries of each request: everything submit() takes
+_PLAN_FIELDS = ("prompt_ids", "max_new_tokens", "temperature", "eos_id", "seed", "top_k",
+                "top_p", "stop", "min_new_tokens", "logit_bias", "kv_source", "traceparent")
+
+
+def _control_group(mesh, axis: str):
+    """This rank's gloo group over ``axis``: one group per line of the mesh
+    along the axis, created in the same order on every rank of the
+    default group (``new_group`` is collective over it)."""
+    grid = mesh.device_mesh.mesh
+    dim = mesh.axis_names.index(axis)
+    lines = grid.movedim(dim, -1).reshape(-1, grid.shape[dim]).tolist()
+    me = dist.get_rank()
+    mine = None
+    for ranks in lines:
+        group = dist.new_group(ranks, backend="gloo")
+        if me in ranks:
+            mine = group
+    return mine
+
+
 def _req_trace_id(req) -> Optional[str]:
     """The request's distributed trace id, when telemetry minted one.
     Events stamp it explicitly: the scheduler thread never sees the
@@ -341,7 +383,7 @@ class Request:
 
 class _Slot:
     __slots__ = ("req", "length", "remaining", "last_token", "ready",
-                 "prefill_pos", "prompt", "admitted_at", "draft_ready", "gen")
+                 "prefill_pos", "prompt", "admitted_at", "admit_seq", "draft_ready", "gen")
 
     def __init__(self):
         self.req: Optional[Request] = None
@@ -403,6 +445,18 @@ class InferenceEngine:
     ``models.convert.params_from_numpy`` and :meth:`from_checkpoint`);
     their matmul weights may be int8 ``QuantizedLinear`` leaves.
 
+    ``mesh`` (``parallel.mesh.create_mesh`` over the default process
+    group, e.g. ``{"model": 2}``) serves tensor-parallel over its
+    ``model_axis`` (module docstring): ``params`` and ``draft_params``
+    may arrive whole (on the CPU or the device) or as this rank's shards;
+    ``n_kv_heads`` (the draft's too) must divide by the axis
+    (``ValueError``); the engine runs on ``mesh.device`` (NCCL on the
+    card, gloo on the CPU). Every rank builds the engine and calls
+    ``prewarm``/``start``/``stop`` alike; ``submit`` belongs to rank 0 of
+    the axis (``RuntimeError`` elsewhere), whose requests every other
+    rank mirrors (``self.mirrored``). The host KV tier does not run under
+    a mesh (``ValueError``).
+
     ``metrics`` turns the telemetry (``obs/``) on or off: on by default,
     ``DEVSPACE_ENGINE_METRICS=off`` turns it off. When on,
     ``self.telemetry`` records per-request lifecycle traces and latency
@@ -438,14 +492,29 @@ class InferenceEngine:
         kv_tier_dir: Optional[str] = None,
         metrics: Optional[bool] = None,
         metrics_registry: Optional[Registry] = None,
+        mesh=None,
+        model_axis: str = "model",
     ):
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None else mesh.device)
+        if device is not None and mesh is not None and resolve_device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
+        self._tp = None  # (mesh, model_axis) under tensor parallelism
+        # the model functions' ``tp=`` and the draft prefill's block hook,
+        # passed only under a mesh (without one the calls are unchanged)
+        self._tp_kw: dict = {}
+        self._draft_hooks: dict = {}
+        self._leader = True  # rank 0 of the model axis, or no mesh
+        self._control = None  # the gloo group rank 0 of the axis broadcasts plans over
+        self._local_cfg, self._draft_local_cfg = cfg, draft_cfg
+        if mesh is not None:
+            params, draft_params = self._shard_for_mesh(params, cfg, draft_params, draft_cfg,
+                                                        mesh, model_axis)
         if params["embed"].device != self.device:
             raise ValueError(
                 f"params live on {params['embed'].device}, engine runs on {self.device}"
             )
-        if kv_dtype not in (None, "int8"):
-            raise ValueError(f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
         self.params = params
         self.cfg = cfg
         self.max_slots = int(max_slots)
@@ -464,7 +533,8 @@ class InferenceEngine:
         self.kv_dtype = kv_dtype
         # the pool and every buffer a program reads are allocated here,
         # once: a captured graph holds their addresses
-        self.pool = tfm.init_paged_pool(cfg, self.n_blocks, self.block_size, kv_dtype, self.device)
+        self.pool = tfm.init_paged_pool(self._local_cfg, self.n_blocks, self.block_size, kv_dtype,
+                                        self.device)
         # speculative decoding state (unused when there is no draft model)
         if draft_params is not None and draft_cfg is None:
             raise ValueError("draft_params requires draft_cfg")
@@ -501,7 +571,7 @@ class InferenceEngine:
         self._draft_cache = None
         if draft_params is not None:
             self._draft_cache = tfm.init_kv_cache(
-                draft_cfg, self.max_slots, self.max_len + self.spec_k + 1, self.device)
+                self._draft_local_cfg, self.max_slots, self.max_len + self.spec_k + 1, self.device)
         # host-side allocator state
         self._free_blocks: list[int] = list(range(1, self.n_blocks))
         self._tables = np.zeros((self.max_slots, self.max_blocks), np.int32)
@@ -510,6 +580,8 @@ class InferenceEngine:
         # the host KV tier (inference/kv_tier.py): None when off, and every
         # tier path below is gated on it
         self.kv_tier_mode = resolve_kv_tier(kv_tier)
+        if self.kv_tier_mode != "off" and mesh is not None:
+            raise ValueError("the host KV tier does not run under a mesh (kv_tier='off')")
         self._kv_tier: Optional[HostKVTier] = None
         # the tier's pinned staging (``_staging``) and the event of the last
         # restore's upload from it
@@ -588,6 +660,12 @@ class InferenceEngine:
         self._stop = threading.Event()
         # serializes submit's check+put against stop's set+drain
         self._submit_lock = threading.Lock()
+        self._admissions = 0
+        # under a multi-rank mesh, rank 0's submissions wait in the inbox
+        # for the next plan; the other ranks keep the requests they mirror
+        self._inbox: queue.Queue[Request] = queue.Queue()
+        self._inbox_head: list[Request] = []
+        self.mirrored: list[Request] = []
         self._thread: Optional[threading.Thread] = None
         self._prefill_cursor = -1  # rotating prefill pick (see _loop)
         self._prewarm_on_start = bool(prewarm)
@@ -619,6 +697,8 @@ class InferenceEngine:
         draft_checkpoint: Optional[str] = None,
         draft_cfg: Optional[tfm.TransformerConfig] = None,
         draft_step: Optional[int] = None,
+        mesh=None,
+        model_axis: str = "model",
         **engine_kwargs,
     ) -> "InferenceEngine":
         """The train -> serve seam in one call: restore params from a
@@ -629,11 +709,14 @@ class InferenceEngine:
         their final addresses. ``draft_checkpoint``/``draft_cfg`` restore
         a trained draft for speculative decoding the same way, dense.
         Other kwargs go to the constructor (call ``.start()`` as usual).
-        The reference's ``mesh``/``model_axis`` wait for ``parallel/``."""
+        ``mesh``/``model_axis``: each rank restores only its shards of the
+        weights (``load_serving_params(mesh=)``) and serves
+        tensor-parallel."""
         from .checkpoint import load_serving_params
 
         device = engine_kwargs.get("device")
-        params, _ = load_serving_params(path, cfg, step=step, device=device, quantize=quantize)
+        params, _ = load_serving_params(path, cfg, step=step, device=device, quantize=quantize,
+                                        mesh=mesh, model_axis=model_axis)
         draft_params = None
         if draft_checkpoint is None and draft_cfg is not None:
             raise ValueError(
@@ -644,9 +727,39 @@ class InferenceEngine:
             if draft_cfg is None:
                 raise ValueError("draft_checkpoint requires draft_cfg")
             draft_params, _ = load_serving_params(draft_checkpoint, draft_cfg, step=draft_step,
-                                                  device=device)
+                                                  device=device, mesh=mesh,
+                                                  model_axis=model_axis)
         return cls(params, cfg, draft_params=draft_params,
-                   draft_cfg=draft_cfg if draft_params is not None else None, **engine_kwargs)
+                   draft_cfg=draft_cfg if draft_params is not None else None, mesh=mesh,
+                   model_axis=model_axis, **engine_kwargs)
+
+    def _shard_for_mesh(self, params, cfg, draft_params, draft_cfg, mesh, model_axis):
+        """Tensor-parallel set-up: check that the KV heads divide by the
+        axis, place this rank's shards, open the axis's collectives (its
+        NCCL communicator must exist before a graph captures them) and,
+        for more than one rank, the gloo group plans go over."""
+        n = mesh.size(model_axis)
+        for name, c in (("n_kv_heads", cfg), ("draft n_kv_heads", draft_cfg)):
+            if c is not None and c.n_kv_heads % n:
+                raise ValueError(f"{name} {c.n_kv_heads} not divisible by mesh axis "
+                                 f"'{model_axis}' ({n})")
+        if draft_params is not None and draft_cfg is None:
+            raise ValueError("draft_params requires draft_cfg")
+        self._tp = (mesh, model_axis)
+        self._tp_kw = {"tp": self._tp}
+        self._draft_hooks = {"post_block": tfm.tp_parts(cfg, self._tp)[1]}
+        self._local_cfg = tfm.shard_config(cfg, n)
+        params = shard_serving_params(params, cfg, mesh, model_axis)
+        if draft_params is not None:
+            self._draft_local_cfg = tfm.shard_config(draft_cfg, n)
+            draft_params = shard_serving_params(draft_params, draft_cfg, mesh, model_axis)
+        group = mesh.group(model_axis)
+        dist.all_reduce(torch.zeros(1, device=mesh.device), group=group)
+        self._leader = mesh.index(model_axis) == 0
+        self._leader_rank = dist.get_global_rank(group, 0)
+        if n > 1:
+            self._control = _control_group(mesh, model_axis)
+        return params, draft_params
 
     def submit(
         self,
@@ -690,6 +803,9 @@ class InferenceEngine:
             logit_bias = {int(t): float(b) for t, b in logit_bias.items()}
             if any(not 0 <= t < vocab for t in logit_bias):
                 raise ValueError(f"logit_bias token ids must be in [0, {vocab})")
+        if self._tp is not None and not self._leader:
+            raise RuntimeError("under a mesh, requests enter at rank 0 of the model axis; "
+                               "this rank mirrors them")
         req = Request(
             prompt_ids,
             int(max_new_tokens),
@@ -713,7 +829,7 @@ class InferenceEngine:
             with self._submit_lock:
                 if self._stop.is_set():
                     raise RuntimeError("engine is stopped")
-                self.pending.put(req)
+                (self._inbox if self._control is not None else self.pending).put(req)
         except BaseException:
             if self.telemetry is not None:
                 self.telemetry.on_finish(req, "failed")
@@ -762,7 +878,7 @@ class InferenceEngine:
                     zeros = torch.zeros(c, dtype=torch.int64, device=dev)
                     timed(f"prefill_{c}", partial(
                         tfm.prefill_chunk_paged, self.params, self.pool, zero_table, zeros, 0,
-                        self.cfg))
+                        self.cfg, **self._tp_kw))
             if self.draft_params is not None:
                 for c in self._pow2_buckets(self.max_len):
                     timed(f"draft_prefill_{c}", partial(self._draft_forward, 0, [0] * c))
@@ -785,7 +901,9 @@ class InferenceEngine:
         with self._submit_lock:
             self._stop.set()
         if self._thread:
-            self._thread.join(timeout=30)
+            # a rank that follows rank 0's plans stops when rank 0 does
+            follower = self._control is not None and not self._leader
+            self._thread.join(timeout=None if follower else 30)
         self._fail_outstanding("engine stopped")
 
     def stats(self) -> dict:
@@ -833,7 +951,8 @@ class InferenceEngine:
             "kv_migrate_failures": self.kv_migrate_failures,
             "kv_migrate_s": round(self.kv_migrate_s, 4),
             "kv_export_chains": self.kv_export_chains,
-            "queued": self.pending.qsize() + len(self._resume),
+            "queued": (self.pending.qsize() + self._inbox.qsize() + len(self._inbox_head)
+                       + len(self._resume)),
             "uptime_s": round(uptime, 1),
             "tokens_per_sec": round(self.tokens_generated / uptime, 2) if uptime > 0 else 0.0,
             "tokens_per_sec_10s": round(self._tok_rate.rate(), 2),
@@ -1437,12 +1556,16 @@ class InferenceEngine:
         for req in self._resume:
             self._fail(req, reason, "resume")
         self._resume.clear()
-        while True:
-            try:
-                req = self.pending.get_nowait()
-            except queue.Empty:
-                break
+        for req in self._inbox_head:
             self._fail(req, reason, "queued")
+        self._inbox_head.clear()
+        for q in (self.pending, self._inbox):
+            while True:
+                try:
+                    req = q.get_nowait()
+                except queue.Empty:
+                    break
+                self._fail(req, reason, "queued")
 
     @staticmethod
     def _pow2_buckets(limit: int, include_limit: bool = True) -> list[int]:
@@ -1518,6 +1641,8 @@ class InferenceEngine:
         slot.length = len(prompt)
         slot.remaining = req.max_new_tokens - len(req.tokens)
         slot.admitted_at = time.monotonic()
+        self._admissions += 1
+        slot.admit_seq = self._admissions  # the preemption order, the same on every rank
         self._sync_sampling_extras(slot_idx, req)
         if self.telemetry is not None:
             self.telemetry.on_admit(req)
@@ -1579,7 +1704,7 @@ class InferenceEngine:
         t_pf = time.monotonic() if tl is not None else 0.0
         logits, _ = tfm.prefill_chunk_paged(
             self.params, self.pool, packed[: self.max_blocks], packed[self.max_blocks:], offset,
-            self.cfg,
+            self.cfg, **self._tp_kw,
         )
         if tl is not None:
             # host time to queue the chunk (the card runs it asynchronously)
@@ -1638,7 +1763,10 @@ class InferenceEngine:
             c *= 2
         c = min(c, self.max_len)
         toks = upload(np.array(tokens + [0] * (c - t), np.int64), self.device)
-        _, (dk, dv) = tfm.forward(self.draft_params, toks[None], self.draft_cfg, return_kv=True)
+        # under a mesh: this rank's KV heads, each block summed over the
+        # axis (the logits, vocab-sharded, are not used)
+        _, (dk, dv) = tfm.forward(self.draft_params, toks[None], self._draft_local_cfg,
+                                  return_kv=True, **self._draft_hooks)
         self._draft_cache["k"][:, slot_idx, :c] = dk[:, 0]
         self._draft_cache["v"][:, slot_idx, :c] = dv[:, 0]
 
@@ -1691,7 +1819,8 @@ class InferenceEngine:
         tok = c["tokens"]
         pos = torch.where(act, c["positions"], 0)
         for j in range(k_steps):
-            logits, _ = tfm.decode_tokens_paged(self.params, self.pool, tables, tok, pos, self.cfg)
+            logits, _ = tfm.decode_tokens_paged(self.params, self.pool, tables, tok, pos, self.cfg,
+                                                **self._tp_kw)
             # extras: additive bias, then EOS suppression for slots below
             # min_new_tokens (pos is the position being written)
             logits = logits + self._logit_bias
@@ -1733,14 +1862,16 @@ class InferenceEngine:
             if sampling:
                 props, d_probs, _ = _draft_propose_sampled(
                     self.draft_params, self._draft_cache, cur, pos_d, self.draft_cfg, k,
-                    c["seeds"], c["temps"])
+                    c["seeds"], c["temps"], **self._tp_kw)
             else:
                 d_probs = None
                 props, _ = _draft_propose(
-                    self.draft_params, self._draft_cache, cur, pos_d, self.draft_cfg, k)
+                    self.draft_params, self._draft_cache, cur, pos_d, self.draft_cfg, k,
+                    **self._tp_kw)
             block = torch.cat([cur[:, None], props], dim=1)
             logits, _ = tfm.decode_block_paged(
-                self.params, self.pool, tables, block, pos_v[:, None] + steps[None], self.cfg)
+                self.params, self.pool, tables, block, pos_v[:, None] + steps[None], self.cfg,
+                **self._tp_kw)
             commit, n_commit = spec_accept_commit(
                 props, d_probs, logits, c["temps"], c["seeds"], pos_v, c["top_ks"], c["top_ps"],
                 use_filters=filters)
@@ -1818,7 +1949,7 @@ class InferenceEngine:
         ]
         if not candidates:
             return False
-        i, _ = max(candidates, key=lambda c: c[1].admitted_at)
+        i, _ = max(candidates, key=lambda c: c[1].admit_seq)
         self._preempt(i)
         return True
 
@@ -1998,6 +2129,36 @@ class InferenceEngine:
                 ready.remove(i)
         return False
 
+    def _sync_plan(self) -> bool:
+        """One scheduler iteration's plan under a multi-rank mesh: rank 0
+        of the axis broadcasts the requests submitted since the last plan
+        (their arguments) and whether it stops; every rank queues the
+        same requests in the same order. True to stop."""
+        if self._leader:
+            new = self._inbox_head
+            self._inbox_head = []
+            while True:
+                try:
+                    new.append(self._inbox.get_nowait())
+                except queue.Empty:
+                    break
+            plan = [{"stop": self._stop.is_set(),
+                     "requests": [{f: getattr(r, f) for f in _PLAN_FIELDS} for r in new]}]
+        else:
+            plan = [None]
+        dist.broadcast_object_list(plan, src=self._leader_rank, group=self._control)
+        if not self._leader:
+            new = []
+            for args in plan[0]["requests"]:
+                req = Request(**args, submitted_at=time.monotonic())
+                if self.telemetry is not None:
+                    self.telemetry.on_submit(req)
+                new.append(req)
+            self.mirrored.extend(new)
+        for req in new:
+            self.pending.put(req)
+        return plan[0]["stop"]
+
     def _note_iter(self, t_iter: float) -> None:
         """Close one scheduler iteration: account its busy time and, in a
         timeline capture, put it on the host-sched lane."""
@@ -2020,7 +2181,12 @@ class InferenceEngine:
         oldest entry is drained (emitting its tokens) while the newest is
         on the card."""
         d = self._dispatcher
-        while not self._stop.is_set():
+        while True:
+            if self._control is not None:
+                if self._sync_plan():
+                    break
+            elif self._stop.is_set():
+                break
             t_iter = time.monotonic()
             if not self._kv_export_requests.empty():
                 self._service_kv_exports()
@@ -2036,6 +2202,15 @@ class InferenceEngine:
                     except Exception as e:  # noqa: BLE001
                         self._dispatch_failed(e)
                     self._note_iter(t_iter)
+                    continue
+                if self._control is not None:
+                    # rank 0 waits for a submission; the next plan carries
+                    # it to every rank, which waits for that plan
+                    if self._leader:
+                        try:
+                            self._inbox_head.append(self._inbox.get(timeout=0.05))
+                        except queue.Empty:
+                            pass
                     continue
                 try:
                     req = self.pending.get(timeout=0.05)

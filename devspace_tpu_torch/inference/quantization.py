@@ -26,6 +26,9 @@ preferred_element_type=f32) * scale`` and rounds once to ``x.dtype``:
   temporary is the upcast weight (262 MB for Llama-2-7B's lm_head),
   freed before the next product. A float32 ``x`` takes the plain version.
 
+Under a tensor-parallel mesh (``shard_serving_params``) an int8 weight
+shards like the dense one and its scale along the weight's out dim.
+
 KV blocks: ``quantize_kv_block`` and ``dequantize_kv_block`` on numpy,
 with the scale floor ``KV_SCALE_EPS`` that
 ``ops.paged_attention.quantize_kv`` shares.
@@ -43,6 +46,7 @@ from ..ops.paged_attention import KV_SCALE_EPS
 __all__ = [
     "KV_SCALE_EPS", "QuantizedLinear", "quantize_weight", "quantize_params",
     "dequantize_params", "quantization_error", "quantize_kv_block", "dequantize_kv_block",
+    "shard_serving_params",
 ]
 
 # transformer matmul leaves worth quantizing (embeddings are gathers, norms
@@ -188,3 +192,53 @@ def dequantize_kv_block(q: np.ndarray, scale: np.ndarray, dtype=np.float32) -> n
     """Host-side inverse of :func:`quantize_kv_block` (tests and
     debugging; the engine's restore dequantizes on the device)."""
     return (q.astype(np.float32) * np.asarray(scale, np.float32)[..., None]).astype(dtype)
+
+
+def shard_serving_params(params: dict, cfg, mesh, model_axis: str = "model") -> dict:
+    """This rank's shards of a serving param tree on ``mesh.device``, placed
+    by ``models.transformer.param_partition_spec`` (heads and FFN over
+    ``model_axis``, the LM head's vocab, the rest replicated). An int8
+    ``QuantizedLinear`` shards like the dense weight it replaces, its
+    per-output-column scale on the out dim's axis (replicated when the
+    out dim is), so the dequantizing product stays local to the rank and
+    the block's all-reduce is unchanged. A leaf may arrive whole (it is
+    cut) or already as this rank's shard (``load_serving_params(mesh=)``);
+    a leaf already on the device at a model axis of one is served without
+    a copy, and a block cut from a whole leaf owns its bytes. ``ValueError``
+    for any other shape."""
+    from ..models import transformer as tfm
+    from ..parallel.mesh import P, shard_tensor
+
+    n = mesh.size(model_axis)
+
+    def local_shape(shape, spec):
+        return tuple(d // n if i < len(spec) and spec[i] is not None else d
+                     for i, d in enumerate(shape))
+
+    def place(x: torch.Tensor, spec, full: tuple, where: str) -> torch.Tensor:
+        if tuple(x.shape) == full:
+            x = shard_tensor(x, spec, mesh)
+        elif tuple(x.shape) != local_shape(full, spec):
+            raise ValueError(f"{where}: shape {tuple(x.shape)} is neither the whole "
+                             f"{full} nor its shard over {model_axis!r} ({n})")
+        x = x.to(mesh.device).contiguous()
+        # a block that is a view of a larger tensor owns its bytes: the
+        # whole weight is not kept alive for it
+        return x.clone() if x.untyped_storage().nbytes() != x.nbytes else x
+
+    def walk(node, template, spec, where):
+        if isinstance(node, dict):
+            return {k: walk(node[k], template[k], spec[k], f"{where}.{k}") for k in node}
+        if isinstance(node, list):
+            return [walk(a, b, c, f"{where}.{i}")
+                    for i, (a, b, c) in enumerate(zip(node, template, spec, strict=True))]
+        full = tuple(template.shape)
+        if isinstance(node, QuantizedLinear):
+            out_axis = spec[1] if len(spec) > 1 else None
+            return QuantizedLinear(place(node.q, spec, full, where),
+                                   place(node.scale, P(out_axis), full[1:], where + ".scale"))
+        return place(node, spec, full, where)
+
+    template = tfm.init_params(cfg, torch.Generator(), device="meta")
+    spec = tfm.param_partition_spec(cfg, model_axis=model_axis)
+    return walk(params, template, spec, "params")

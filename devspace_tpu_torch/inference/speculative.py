@@ -49,22 +49,23 @@ class SpecStats:
         return self.committed / self.rounds if self.rounds else 0.0
 
 
-def _draft_propose(params, cache, cur, pos0, cfg, k):
+def _draft_propose(params, cache, cur, pos0, cfg, k, tp=None):
     """Greedy-propose k tokens per sequence -> (proposals [B, k], cache).
 
     The loop runs k+1 steps: the extra step feeds the LAST proposal so
     its K/V is written to the draft cache too (otherwise a fully accepted
     round would leave a permanent zero hole at that position that every
-    later draft query attends); its own proposal is discarded."""
+    later draft query attends); its own proposal is discarded. ``tp``:
+    the draft's shards and cache heads of a tensor-parallel engine."""
     props = []
     for j in range(k + 1):
-        logits, _ = tfm.decode_tokens(params, cache, cur, pos0 + j, cfg)
+        logits, _ = tfm.decode_tokens(params, cache, cur, pos0 + j, cfg, tp=tp)
         cur = torch.argmax(logits, dim=-1)
         props.append(cur)
     return torch.stack(props[:k], dim=1), cache
 
 
-def _draft_propose_sampled(params, cache, cur, pos0, cfg, k, seeds, temps):
+def _draft_propose_sampled(params, cache, cur, pos0, cfg, k, seeds, temps, tp=None):
     """Propose k tokens per sequence, SAMPLING rows with temps > 0 from
     the draft's temperature distribution and argmaxing the rest ->
     (proposals [B, k], draft probs [B, k, V], cache). The probs are the
@@ -74,7 +75,7 @@ def _draft_propose_sampled(params, cache, cur, pos0, cfg, k, seeds, temps):
     safe_t = torch.clamp(temps.float(), min=1e-6)[:, None]
     props, probs = [], []
     for j in range(k + 1):
-        logits, _ = tfm.decode_tokens(params, cache, cur, pos0 + j, cfg)
+        logits, _ = tfm.decode_tokens(params, cache, cur, pos0 + j, cfg, tp=tp)
         scaled = logits / safe_t
         noise = gumbel_noise(seeds, pos0 + j, logits.shape[-1], DRAFT)
         sampled = torch.argmax(scaled + noise, dim=-1)

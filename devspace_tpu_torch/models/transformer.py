@@ -16,6 +16,15 @@ converted JAX tree (``models/convert.py``) computes the same function.
 RoPE, GQA and SwiGLU follow Llama-2; RMSNorm accumulates and logits come
 out in float32.
 
+Tensor-parallel serving (``tp=(mesh, axis)`` of the decode and prefill
+functions): each rank of the model axis holds its shards of the params
+(``param_partition_spec``) and its KV heads of the pool, computes with
+the per-shard config, sums each block's output over the axis (one
+all-reduce after ``wo`` and one after ``w_down``, the reference's
+GSPMD-inserted collectives) and gathers the vocab-sharded logits, so
+every rank holds the whole logits and samples the same token. The
+paged-decode kernel reads the rank's local KV heads with no collective.
+
 Unlike the reference, caches are written IN PLACE: the paged functions
 mutate the pool tensors they are given and return the same dict, and the
 dense decode functions mutate ``cache["k"]``/``cache["v"]`` and return
@@ -38,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import fused_attention
 from ..ops.paged_attention import dequantize_kv, paged_decode_attention, quantize_kv
+from ..parallel.collectives import all_reduce_, gather
 from ..parallel.mesh import P
 from ..parallel.ring_attention import full_attention
 
@@ -196,6 +206,19 @@ def _identity(x):
     return x
 
 
+def tp_parts(cfg: TransformerConfig, tp):
+    """What a tensor-parallel inference call computes with: the per-shard
+    config, the sum of a block's output over the model axis, and the
+    gather of the vocab-sharded logits (identities without ``tp``)."""
+    if tp is None:
+        return cfg, _identity, _identity
+    mesh, axis = tp
+    group = mesh.group(axis)
+    return (shard_config(cfg, mesh.size(axis)),
+            lambda x: all_reduce_(x.contiguous(), group),
+            lambda logits: gather(logits, -1, group).contiguous())
+
+
 # -- training forward -------------------------------------------------------
 def default_attention(q, k, v, causal: bool = True):
     """[B, T, H, D] attention: self-attention (T_q == T_k) through
@@ -332,6 +355,7 @@ def decode_tokens(
     tokens: torch.Tensor,
     positions: torch.Tensor,
     cfg: TransformerConfig,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """One decode iteration with PER-SEQUENCE positions -> (logits
     [B, vocab] f32, {"k","v"}: the cache's own tensors, written in place).
@@ -341,12 +365,14 @@ def decode_tokens(
     write and the causal mask all follow ``positions``; a position is
     written before anything attends to it, so stale entries past a
     sequence's position never matter. Kept as its own body next to
-    :func:`decode_block`, as in the reference."""
+    :func:`decode_block`, as in the reference. ``tp``: this rank's
+    shards and KV heads of a tensor-parallel model (module docstring)."""
+    gcfg, (cfg, post, gather_logits) = cfg, tp_parts(cfg, tp)
     b = tokens.shape[0]
     hd = cfg.head_dim
     n_rep = cfg.n_heads // cfg.n_kv_heads
     positions = positions.long()
-    cos, sin = rope_frequencies(cfg, positions)
+    cos, sin = rope_frequencies(gcfg, positions)
     rows = torch.arange(b, device=tokens.device)
     h = params["embed"][tokens.long()][:, None, :]
     for li, layer in enumerate(params["layers"]):
@@ -359,10 +385,10 @@ def decode_tokens(
         cache["k"][li][rows, positions] = k[:, 0]
         cache["v"][li][rows, positions] = v[:, 0]
         ctx = _dense_attention(q, cache["k"][li], cache["v"][li], positions[:, None], n_rep)
-        h = h + (ctx.reshape(b, 1, -1) @ layer["wo"]).to(h.dtype)
-        h = _ffn(h, layer, cfg)
+        h = h + post(ctx.reshape(b, 1, -1) @ layer["wo"]).to(h.dtype)
+        h = _ffn(h, layer, cfg, post=post)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    logits = (h[:, 0] @ params["lm_head"]).float()
+    logits = gather_logits((h[:, 0] @ params["lm_head"]).float())
     return logits, {"k": cache["k"], "v": cache["v"]}
 
 
@@ -519,6 +545,7 @@ def decode_tokens_paged(
     tokens: torch.Tensor,
     positions: torch.Tensor,
     cfg: TransformerConfig,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """One decode step for every sequence -> (logits [B, vocab] f32, pool).
 
@@ -526,12 +553,14 @@ def decode_tokens_paged(
     sequence, ``positions`` [B] its logical write position. The new
     token's K/V is written in place at (table[pos // bs], pos % bs), then
     attention reads each slot's blocks through ``paged_decode_attention``
-    (the CUDA kernel on the card, the gather version on the CPU)."""
+    (the CUDA kernel on the card, the gather version on the CPU). ``tp``:
+    this rank's shards, and the pool its KV heads (module docstring)."""
+    gcfg, (cfg, post, gather_logits) = cfg, tp_parts(cfg, tp)
     b = tokens.shape[0]
     hd = cfg.head_dim
     bs = pool["k"].shape[3]
     positions = positions.long()
-    cos, sin = rope_frequencies(cfg, positions)
+    cos, sin = rope_frequencies(gcfg, positions)
     rows = torch.arange(b, device=tokens.device)
     blk = tables.long()[rows, positions // bs]
     off = positions % bs
@@ -549,12 +578,12 @@ def decode_tokens_paged(
         ctx = paged_decode_attention(
             q[:, 0].contiguous(), pool["k"][li], pool["v"][li], tables32, lengths,
             pool["k_scale"][li] if "k_scale" in pool else None,
-            pool["v_scale"][li] if "v_scale" in pool else None,
+            pool["v_scale"][li] if "v_scale" in pool else None, tp=tp,
         )  # [B, H, D]
-        h = h + (ctx.reshape(b, 1, -1) @ layer["wo"]).to(h.dtype)
-        h = _ffn(h, layer, cfg)
+        h = h + post(ctx.reshape(b, 1, -1) @ layer["wo"]).to(h.dtype)
+        h = _ffn(h, layer, cfg, post=post)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    logits = (h[:, 0] @ params["lm_head"]).float()
+    logits = gather_logits((h[:, 0] @ params["lm_head"]).float())
     return logits, pool
 
 
@@ -565,6 +594,7 @@ def decode_block_paged(
     tokens: torch.Tensor,
     positions: torch.Tensor,
     cfg: TransformerConfig,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """K-token generalization of ``decode_tokens_paged`` -> (logits
     [B, K, vocab] f32, pool): the verification forward of the engine's
@@ -579,12 +609,13 @@ def decode_block_paged(
     attends, so a previous round's rejected K/V at positions >= the
     block's start is rewritten before anything reads it. Parked slots
     arrive with a zeroed table row and positions from 0: their writes
-    land in scratch block 0."""
+    land in scratch block 0. ``tp`` as in ``decode_tokens_paged``."""
+    gcfg, (cfg, post, gather_logits) = cfg, tp_parts(cfg, tp)
     b, kk = tokens.shape
     hd = cfg.head_dim
     bs = pool["k"].shape[3]
     pos_flat = positions.long().reshape(-1)
-    cos, sin = rope_frequencies(cfg, pos_flat)
+    cos, sin = rope_frequencies(gcfg, pos_flat)
     rows = torch.arange(b, device=tokens.device).repeat_interleave(kk)
     blk = tables.long()[rows, pos_flat // bs]
     off = pos_flat % bs
@@ -604,14 +635,14 @@ def decode_block_paged(
             q.reshape(b * kk, cfg.n_heads, hd).contiguous(), pool["k"][li], pool["v"][li],
             tables_flat, lengths,
             pool["k_scale"][li] if "k_scale" in pool else None,
-            pool["v_scale"][li] if "v_scale" in pool else None,
+            pool["v_scale"][li] if "v_scale" in pool else None, tp=tp,
         )  # [B*K, H, D]
-        h = h + (ctx.reshape(b, kk, -1) @ layer["wo"]).to(h.dtype)
-        h = _ffn(h, layer, cfg)
+        h = h + post(ctx.reshape(b, kk, -1) @ layer["wo"]).to(h.dtype)
+        h = _ffn(h, layer, cfg, post=post)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     # flattened projection, for bit-parity with decode_tokens_paged at K = 1
-    logits = (h.reshape(b * kk, -1) @ params["lm_head"]).view(b, kk, -1).float()
-    return logits, pool
+    logits = gather_logits((h.reshape(b * kk, -1) @ params["lm_head"]).float())
+    return logits.view(b, kk, -1), pool
 
 
 def prefill_chunk_paged(
@@ -621,6 +652,7 @@ def prefill_chunk_paged(
     tokens: torch.Tensor,
     offset: int,
     cfg: TransformerConfig,
+    tp=None,
 ) -> tuple[torch.Tensor, dict]:
     """One prompt chunk of chunked prefill -> (logits [C, vocab] f32, pool).
 
@@ -632,7 +664,9 @@ def prefill_chunk_paged(
     full-sequence forward. Pad-tail writes land at positions >= the true
     prompt length; decode overwrites each position in the same step that
     first attends to it, so they are never read. Attention here is a
-    gather plus float32 einsums, as in the reference (no kernel)."""
+    gather plus float32 einsums, as in the reference (no kernel), on the
+    rank's local heads under ``tp`` (as in ``decode_tokens_paged``)."""
+    gcfg, (cfg, post, gather_logits) = cfg, tp_parts(cfg, tp)
     c = tokens.shape[0]
     hd = cfg.head_dim
     n_rep = cfg.n_heads // cfg.n_kv_heads
@@ -640,7 +674,7 @@ def prefill_chunk_paged(
     table = table.long()
     t_alloc = table.shape[0] * bs
     positions = offset + torch.arange(c, device=tokens.device)
-    cos, sin = rope_frequencies(cfg, positions)
+    cos, sin = rope_frequencies(gcfg, positions)
     blk = table[positions // bs]
     off = positions % bs
     mask = torch.arange(t_alloc, device=tokens.device)[None, :] <= positions[:, None]
@@ -665,8 +699,8 @@ def prefill_chunk_paged(
         scores = scores.masked_fill(~mask[None, None], -1e30)
         probs = torch.softmax(scores, dim=-1)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs, vals.float()).to(h.dtype)
-        h = h + (ctx.reshape(1, c, -1) @ layer["wo"]).to(h.dtype)
-        h = _ffn(h, layer, cfg)
+        h = h + post(ctx.reshape(1, c, -1) @ layer["wo"]).to(h.dtype)
+        h = _ffn(h, layer, cfg, post=post)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    logits = (h[0] @ params["lm_head"]).float()  # [C, vocab]
+    logits = gather_logits((h[0] @ params["lm_head"]).float())  # [C, vocab]
     return logits, pool

@@ -155,7 +155,7 @@ def _sm_count(index: int) -> int:
 # them to show which path it took (a silent fallback to the plain
 # version on the card is exactly what they guard against). LAUNCHES
 # counts launches of the CUDA kernel and nothing else.
-LAST_DISPATCH = {"impl": None}
+LAST_DISPATCH = {"impl": None, "tp": False}
 LAUNCHES = 0
 
 _KERNEL = None
@@ -257,14 +257,23 @@ def paged_decode_attention(
     lengths: torch.Tensor,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
+    tp=None,
 ) -> torch.Tensor:
     """One decode step of paged attention: q [B, H, D] against each slot's
     pooled cache -> ctx [B, H, D]. The CUDA kernel for CUDA tensors (no
     gather materialization), the plain version for CPU tensors.
     ``k_scale``/``v_scale`` [N, Hkv, bs] mark an int8 pool (quantize_kv).
-    On the card, tables and lengths must be int32."""
+    On the card, tables and lengths must be int32.
+
+    ``tp=(mesh, axis)``: the call is one rank's part of a tensor-parallel
+    model, and ``q``, the pools and the scales hold this rank's heads
+    (``Hkv / tp`` KV heads and their query heads): attention is
+    head-parallel, so the kernel runs on them with no collective, where
+    the reference pins the same partitioning with a ``shard_map``.
+    ``LAST_DISPATCH["tp"]`` records it."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("pass both k_scale and v_scale, or neither")
+    LAST_DISPATCH["tp"] = tp is not None
     tensors = [q, pool_k, pool_v, tables, lengths]
     if k_scale is not None:
         tensors += [k_scale, v_scale]

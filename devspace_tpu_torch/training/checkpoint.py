@@ -40,8 +40,22 @@ directories. The train state is the port's
 ``torch.optim.Optimizer`` over the param tensors, so restoring into a
 template fills its tensors in place and loads the optimizer's state.
 
-The reference's ``sharded_template`` and its mesh placement wait for
-the port of ``parallel/``: here every restore lands on one device.
+Meshes (``parallel/mesh.py``; the reference's Orbax does both for a
+``jax`` mesh):
+
+- **Elastic restore.** ``sharded_template(state, mesh, spec_tree)``
+  describes each leaf's block on a mesh (``ShardedLeaf``: its logical
+  shape and dtype, the mesh and its spec). A restore into it maps the
+  full logical array from the file, as every restore does, and keeps
+  this rank's block on the mesh's device, so a checkpoint saved at one
+  layout (one process, a pipe mesh, FSDP) restores at another.
+- **Saves from a mesh.** ``save_checkpoint(..., mesh=, spec_tree=)`` (and
+  ``CheckpointManager(mesh=, spec_tree=)``) gathers a state sharded over
+  any axes (``pipe``, ``model``, FSDP's ``data``) to its logical arrays,
+  the optimizer's moments by their params' specs, and rank 0 writes it,
+  behind a barrier: every rank then sees the complete step directory,
+  in the same format (version 2, ``meta.json``, ``opt_names``) as a
+  save from one process.
 """
 
 from __future__ import annotations
@@ -50,9 +64,11 @@ import json
 import os
 import shutil
 import threading
+from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
 FORMAT = "devspace-torch-checkpoint"
 VERSION = 2
@@ -134,11 +150,98 @@ def param_names(params: Any, optimizer: torch.optim.Optimizer) -> list[str]:
     return names
 
 
-def snapshot(state: Any) -> dict:
+@dataclass(frozen=True)
+class ShardedLeaf:
+    """A restore template's leaf on a mesh: the logical array's ``shape``
+    and ``dtype``, and the block of it under ``spec`` that this rank
+    keeps, on ``mesh.device``."""
+
+    shape: tuple
+    dtype: torch.dtype
+    mesh: Any
+    spec: Any
+
+    def block(self, saved: torch.Tensor) -> torch.Tensor:
+        from ..parallel.mesh import shard_tensor
+
+        x = shard_tensor(saved, self.spec, self.mesh).to(self.mesh.device, self.dtype)
+        x = x.contiguous()
+        return x.clone() if x.untyped_storage().nbytes() != x.nbytes else x
+
+
+def sharded_template(state: Any, mesh, spec_tree: Any = None) -> Any:
+    """A restore template placing every leaf of ``state`` on ``mesh``: the
+    elastic-restore mechanism. ``state`` gives the structure, shapes and
+    dtypes of the LOGICAL arrays (tensors, e.g. ``init_params(cfg, gen,
+    device="meta")``); ``spec_tree`` is a spec tree over it
+    (``PartitionSpec`` at a node covers its subtree; ``None`` replicates
+    everything). ``restore_checkpoint(path, template)`` then returns this
+    rank's blocks, each a fresh tensor on ``mesh.device``."""
+    from ..parallel.mesh import map_with_spec
+
+    return map_with_spec(lambda x, s: ShardedLeaf(tuple(x.shape), x.dtype, mesh, s), state,
+                         spec_tree)
+
+
+def _named_specs(params: Any, spec_tree: Any) -> dict:
+    """Leaf name (as ``_flatten`` names it) -> the leaf's spec."""
+    from ..parallel.mesh import map_with_spec
+
+    names: dict = {}
+
+    def walk(tree, specs, prefix):
+        if isinstance(tree, dict):
+            for k in tree:
+                walk(tree[k], specs[k], f"{prefix}{k}.")
+        elif isinstance(tree, (list, tuple)):
+            for i, (t, s) in enumerate(zip(tree, specs)):
+                walk(t, s, f"{prefix}{i}.")
+        else:
+            names[prefix[:-1]] = specs
+
+    walk(params, map_with_spec(lambda x, s: s, params, spec_tree), "")
+    return names
+
+
+def _gathered(state: Any, mesh, spec_tree: Any) -> Any:
+    """A mesh-sharded state with its logical arrays: the params gathered by
+    ``spec_tree``, an optimizer's moments by their params' specs (a
+    state tensor shaped like its param takes the param's spec; others,
+    such as step counts, are the same on every rank). Collective over
+    the mesh: every rank calls it."""
+    from ..parallel.mesh import gather_tensor, gather_tree
+
+    train = is_train_state(state)
+    params = state["params"] if train else state
+    full = gather_tree(params, spec_tree, mesh)
+    if not train:
+        return full
+    opt = state["opt_state"]
+    if not isinstance(opt, torch.optim.Optimizer):
+        raise ValueError("a save from a mesh gathers a train state's optimizer, not a state dict")
+    names = param_names(params, opt)
+    specs = _named_specs(params, spec_tree)
+    tensors = [p for g in opt.param_groups for p in g["params"]]
+    sd = opt.state_dict()
+    moments = {}
+    for i, entry in sd["state"].items():
+        moments[i] = {k: gather_tensor(v, specs[names[i]], mesh)
+                      if torch.is_tensor(v) and v.dim() and v.shape == tensors[i].shape else v
+                      for k, v in entry.items()}
+    return {**state, "params": full,
+            "opt_state": {"state": moments, "param_groups": sd["param_groups"],
+                          "param_names": names}}
+
+
+def snapshot(state: Any, mesh=None, spec_tree: Any = None) -> dict:
     """What a save writes, copied to the host: ``{"meta", "params",
     "opt_state"}`` (``opt_state`` None for a bare params tree). A train
     state's optimizer state carries ``param_names`` (an optimizer's are
-    read off it; a state dict must already hold them)."""
+    read off it; a state dict must already hold them). With ``mesh``, the
+    state is this rank's shards under ``spec_tree`` and the snapshot its
+    logical arrays (``_gathered``: collective over the mesh)."""
+    if mesh is not None:
+        state = _gathered(state, mesh, spec_tree)
     train = is_train_state(state)
     params = state["params"] if train else state
     flat: dict = {}
@@ -199,10 +302,28 @@ def write_snapshot(path: str, snap: dict, force: bool = True) -> None:
         raise
 
 
-def save_checkpoint(path: str, state: Any, force: bool = True) -> None:
+def _is_writer(mesh) -> bool:
+    return mesh is None or dist.get_rank() == 0
+
+
+def _barrier(mesh) -> None:
+    if mesh is not None:
+        dist.barrier()
+
+
+def save_checkpoint(path: str, state: Any, force: bool = True, mesh=None,
+                    spec_tree: Any = None) -> None:
     """Save a params tree, or a train state ``{"params", "opt_state",
-    "step"}``, as the checkpoint directory ``path``."""
-    write_snapshot(path, snapshot(state), force=force)
+    "step"}``, as the checkpoint directory ``path``. With ``mesh``: every
+    rank calls it with its shards under ``spec_tree``; the logical state
+    is gathered and rank 0 writes it; every rank returns once it is
+    written."""
+    snap = snapshot(state, mesh, spec_tree)
+    try:
+        if _is_writer(mesh):
+            write_snapshot(path, snap, force=force)
+    finally:
+        _barrier(mesh)
 
 
 def read_meta(path: str) -> dict:
@@ -249,6 +370,11 @@ def _fill(saved: Any, template: Any, where: str) -> Any:
                              f"{len(template)}")
         return type(template)(_fill(s, t, f"{where}.{i}")
                               for i, (s, t) in enumerate(zip(saved, template)))
+    if isinstance(template, ShardedLeaf):
+        if tuple(saved.shape) != template.shape:
+            raise ValueError(f"{where}: saved shape {tuple(saved.shape)} != template's "
+                             f"{template.shape}")
+        return template.block(saved)
     if not isinstance(template, torch.Tensor):
         raise TypeError(f"{where}: template leaf must be a tensor, got {type(template).__name__}")
     if tuple(saved.shape) != tuple(template.shape):
@@ -314,8 +440,9 @@ def restore_checkpoint(path: str, template: Optional[Any] = None, partial: bool 
     With a template (the tree to restore, or a train state's dict), the
     saved tree must have its structure and shapes (``ValueError``
     otherwise): a template tensor on the meta device becomes the saved
-    tensor in the template's dtype on the CPU, any other template
-    tensor is filled in place; an optimizer loads the saved state, and
+    tensor in the template's dtype on the CPU, a ``ShardedLeaf``
+    (``sharded_template``) this rank's block of it on the mesh's device,
+    any other template tensor is filled in place; an optimizer loads the saved state, and
     ``step`` is the saved step; the optimizer's moments are bound by
     parameter name (remapped where the order differs, ``ValueError``
     where the names differ or the checkpoint is a version 1 train state,
@@ -396,17 +523,27 @@ class CheckpointManager:
     ``save`` and writes it on a thread, overlapping the next steps; a
     save waits for the one before it, and ``wait_until_finished`` (which
     ``restore``, ``close`` and ``train_loop`` call) commits the last and
-    raises its error, if any."""
+    raises its error, if any.
+
+    ``mesh``/``spec_tree``: every rank of a mesh holds its shards and
+    makes the same calls; a save gathers the logical state (collective)
+    and rank 0 writes it and prunes old steps. A synchronous save returns
+    on every rank once the step is written; an asynchronous one
+    synchronizes the ranks in ``wait_until_finished``."""
 
     def __init__(self, root: str, save_interval: int = 100, max_to_keep: int = 3,
-                 use_async: bool = False):
+                 use_async: bool = False, mesh=None, spec_tree: Any = None):
         self.root = os.path.abspath(root)
         self.save_interval = max(1, int(save_interval))
         self.max_to_keep = max(1, int(max_to_keep))
         self.use_async = use_async
+        self.mesh, self.spec_tree = mesh, spec_tree
         self._writer: Optional[threading.Thread] = None
+        self._pending_barrier = False
         self._error: Optional[BaseException] = None
-        os.makedirs(self.root, exist_ok=True)
+        if _is_writer(mesh):
+            os.makedirs(self.root, exist_ok=True)
+        _barrier(mesh)
 
     def _dir(self, step: int) -> str:
         return os.path.join(self.root, f"step_{step:08d}")
@@ -421,11 +558,17 @@ class CheckpointManager:
     def save(self, step: int, state: Any) -> str:
         path = self._dir(step)
         if not self.use_async:
-            save_checkpoint(path, state, force=True)
-            self._gc()
+            save_checkpoint(path, state, force=True, mesh=self.mesh, spec_tree=self.spec_tree)
+            if _is_writer(self.mesh):
+                self._gc()
+            _barrier(self.mesh)
             return path
         self.wait_until_finished()
-        snap = snapshot(state)  # the device -> host copy, before the state moves on
+        # the device -> host copy, before the state moves on
+        snap = snapshot(state, self.mesh, self.spec_tree)
+        self._pending_barrier = self.mesh is not None
+        if not _is_writer(self.mesh):
+            return path
 
         def write():
             try:
@@ -444,6 +587,9 @@ class CheckpointManager:
         if self._writer is not None:
             self._writer.join()
             self._writer = None
+        if self._pending_barrier:
+            self._pending_barrier = False
+            _barrier(self.mesh)
         if self._error is not None:
             error, self._error = self._error, None
             raise error

@@ -433,7 +433,27 @@ def test_fleet_phase_rehearsed_on_the_cpu(monkeypatch, tmp_path):
 
 
 # -- a CPU rehearsal of the parallel phase --------------------------------------
-def test_parallel_phase_rehearsed_on_the_cpu(monkeypatch, cpu_card, few_torch_threads):
+def tiny_serving_reference(tmp_path, kv_dtype=None, requests=None):
+    """What the parallel phase's part 2 is handed at TINY (bf16): the
+    params, the smoke requests and the streams a plain engine on the CPU
+    serves them with."""
+    from devspace_tpu_torch.inference import InferenceEngine
+    from devspace_tpu_torch.models import transformer as tfm
+
+    params = tfm.init_params(tfm.TINY, torch.Generator().manual_seed(0))
+    requests = requests or tiny_serving_requests(tfm.TINY)
+    engine = InferenceEngine(params, tfm.TINY, device="cpu", max_slots=8, max_len=128,
+                             kv_dtype=kv_dtype).start()
+    try:
+        results = [h.result(timeout=120) for h in [engine.submit(p, n, **kw)
+                                                     for p, n, kw in requests]]
+    finally:
+        engine.stop()
+    return params, requests, results
+
+
+def test_parallel_phase_rehearsed_on_the_cpu(monkeypatch, cpu_card, counting_launches,
+                                             few_torch_threads, tmp_path):
     """The parallel phase's control flow and checks on the CPU, in a gloo
     world of one formed and torn down by the phase: the bench LM as
     float32 TINY at 2 x 1280 (the flash path) through the mesh step and
@@ -441,13 +461,38 @@ def test_parallel_phase_rehearsed_on_the_cpu(monkeypatch, cpu_card, few_torch_th
     processes over gloo; the long-context build at TINY's widths
     on 256 tokens; ring and Ulysses against the flash path at [1, 1280,
     2, 16] (float32: the kernel tolerances' float32 branch); the MoE at
-    TINY_MOE's widths on 1 x 1280 tokens. Timings are host-clock
-    stand-ins."""
+    TINY_MOE's widths on 1 x 1280 tokens. Part 2: the 1F1B and
+    interleaved steps (V = 2, one layer a chunk) on the same batches as 2
+    microbatches of 1 x 1280, launches as predicted; TINY (bf16) through
+    a checkpoint of the params through ``load_serving_params(mesh=)``
+    and ``from_checkpoint(mesh={"model": 1})`` on the smoke requests and a
+    steady burst of 4 x 24, and ``InferenceEngine(mesh=)`` on an int8
+    pool with four short prompts, each stream equal to a plain CPU
+    engine's.
+    Timings are host-clock stand-ins; every kernel counter is put back."""
     import dataclasses
 
     import torch.distributed as dist
 
     from devspace_tpu_torch.models import moe, transformer as tfm
+    from devspace_tpu_torch.ops import attention as sa
+    from devspace_tpu_torch.ops import normalization as rn
+    from devspace_tpu_torch.ops import paged_attention as pa
+    from devspace_tpu_torch.training.checkpoint import save_checkpoint
+
+    for module in (pa, sa, rn):
+        monkeypatch.setattr(module, "LAUNCHES", module.LAUNCHES)
+    monkeypatch.setattr(pa, "LAST_DISPATCH", dict(pa.LAST_DISPATCH))
+    monkeypatch.setattr(cs, "STEADY", {"requests": 4, "prompt": 8, "new_tokens": 24})
+    monkeypatch.setattr(cs, "PIPE", {"micro": 2, "chunks": 2})
+    params, requests, results = tiny_serving_reference(tmp_path)
+    rng = np.random.default_rng(1)
+    int8_requests = [(rng.integers(1, 256, n).tolist(), 16, {}) for n in (7, 20, 30, 50)]
+    _, _, int8_results = tiny_serving_reference(tmp_path, "int8", int8_requests)
+    save_checkpoint(str(tmp_path / "step_00000001"), params)
+    serving = {"cfg": tfm.TINY, "params": params, "requests": requests, "results": results,
+               "int8_requests": int8_requests, "int8_results": int8_results,
+               "steady_ms": 1.0, "checkpoint": str(tmp_path)}
 
     tiny = dataclasses.replace(tfm.TINY, dtype=torch.float32)
     monkeypatch.setattr(cs, "BENCH_LM", tiny)
@@ -459,7 +504,7 @@ def test_parallel_phase_rehearsed_on_the_cpu(monkeypatch, cpu_card, few_torch_th
                                          "ring_shape": (1, 1280, 2, 16), "ring_block": 256,
                                          "moe_batch": 1, "moe_seq": 1280})
     monkeypatch.setattr(cs, "device_ms", lambda fn, reps, **kw: (fn() is None and 0.0, 0.0))
-    line = cs.phase_parallel(torch.device("cpu"), "cpu")
+    line = cs.phase_parallel(torch.device("cpu"), "cpu", serving)
     assert not dist.is_initialized()
     assert (line["backend"], line["world"]) == ("gloo", 1)
     n = tiny.n_layers * cs.PARALLEL["steps"]
@@ -475,4 +520,21 @@ def test_parallel_phase_rehearsed_on_the_cpu(monkeypatch, cpu_card, few_torch_th
     assert set(line["ring_vs_flash"]["errors"]["ring"]) == {"o", "dq", "dk", "dv"}
     assert line["expert_parallel"]["launches"]["cross_entropy"] == 3
     assert line["expert_parallel"]["moe_ffn_max_abs_err"] <= line["expert_parallel"]["moe_ffn_bound"]
+    predicted = {"flash_fwd": 2 * 2 * n, "flash_bwd_dq": 2 * n, "flash_bwd_dkv": 2 * n,
+                 "cross_entropy": 2 * cs.PARALLEL["steps"]}
+    for kind in ("1f1b", "interleaved"):
+        r = line["pipeline"][kind]
+        assert r["launches"] == r["predicted_launches"] == predicted
+        assert r["loss_rel_err"] <= cs.PARALLEL_REL and r["grad_rel_err"] <= cs.PIPE_GRAD_REL
+        assert len(r["losses"]) == 3
+    tp = line["tp_engine"]
+    for pool in ("bf16", "int8"):
+        assert tp[pool]["streams_equal_plain"] and tp[pool]["graph_captures_after_prewarm"] == 0
+        assert tp[pool]["launches"] == tfm.TINY.n_layers * tp[pool]["decode_steps"] > 0
+    assert tp["bf16"]["steady"]["decode_steps"] > 0
+    assert tp["bf16"]["built_by"] == "from_checkpoint(mesh=)"
+    assert tp["seam"]["params_byte_equal"] and tp["seam"]["step"] == 1
+    assert set(line["part_seconds"]) == {"lm_mesh_and_pipeline", "data2_gloo", "long_context",
+                                         "ring_vs_flash", "expert_parallel", "tp_engine"}
+    assert pa.LAST_DISPATCH == {"impl": "reference", "tp": True}
     json.dumps(line)

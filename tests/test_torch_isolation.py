@@ -46,7 +46,8 @@ def test_every_module_imports_with_jax_blocked():
                  "models.convert", "parallel.expert_parallel", "training.data",
                  "training.profiler", "training.trainer", "parallel.mesh",
                  "parallel.collectives", "parallel.data_parallel", "parallel.tensor_parallel",
-                 "parallel.ring_attention", "parallel.sequence_parallel", "parallel.fsdp"):
+                 "parallel.ring_attention", "parallel.sequence_parallel", "parallel.fsdp",
+                 "parallel.pipeline", "parallel.interleaved"):
         assert f"devspace_tpu_torch.{name}" in MODULES
     for name in ("obs", "obs.metrics", "obs.tracing", "obs.events", "obs.request_trace",
                  "obs.slo", "obs.fleet", "obs.collector", "serving", "serving.router",

@@ -26,6 +26,24 @@ vocab-parallel loss, ``{"data": 2, "seq": 2}`` with Ulysses, ``{"data":
 over four cards; FSDP. Tolerances as the CPU tests': the loss within
 1e-5 relative, each gradient leaf within 1e-4 of its largest reference
 value, outputs ``rtol=1e-5, atol=1e-6``. With fewer cards they skip.
+
+Part 2 (pipelines and tensor-parallel serving). At one rank: the 1F1B
+and interleaved (V = 2) steps against the plain step (losses within
+``1e-3``; first-step gradients within ``2e-2`` of each leaf's largest
+value: bf16, the microbatches' gradients summed in float32 and rounded
+once, the batch's rounded once), their flash and loss launches as the
+schedule predicts; the engine over ``mesh={"model": 1}`` against the
+plain engine, greedy streams equal token for token (an all-reduce and a
+gather over one rank change no bit), ``LAST_DISPATCH`` ``{"impl":
+"cuda", "tp": True}``, captures flat after ``prewarm``, the same
+paged-decode launches a step. On four cards: 1F1B at ``pipe = 4`` (the
+bench LM's widths, 2 layers a stage), ``{"pipe": 2, "model": 2}``, the
+interleaved step at ``pipe = 4``, V = 2, each in float32 against the
+plain step on card 0 (loss within 1e-5, gradients within 1e-4 of each
+leaf's largest); the engine at ``model = 4`` at Llama-2-7B's widths in
+float32 with 4 layers against the one-card engine, greedy streams equal
+on tie-free prompts; the full bf16 Llama-2-7B at ``model = 4``, its
+token agreement with the one-card engine printed (``-s``).
 """
 
 import dataclasses
@@ -40,10 +58,13 @@ from devspace_tpu_torch.ops import flash_attention as fa
 from devspace_tpu_torch.ops import losses as xl
 from devspace_tpu_torch.parallel import expert_parallel as tep
 from devspace_tpu_torch.parallel import fsdp
+from devspace_tpu_torch.ops import paged_attention as pa
 from devspace_tpu_torch.parallel import mesh as pmesh
+from devspace_tpu_torch.parallel import pipeline as tpipe
 from devspace_tpu_torch.parallel.data_parallel import shard_batch
 from devspace_tpu_torch.parallel.ring_attention import ring_attention
 from devspace_tpu_torch.parallel.sequence_parallel import ulysses_attention
+from devspace_tpu_torch.inference import InferenceEngine
 from devspace_tpu_torch.models.convert import params_from_numpy, params_to_numpy
 from devspace_tpu_torch.training import trainer as ttrainer
 import torch_parallel_workers as w
@@ -125,6 +146,92 @@ def test_mesh_and_fsdp_lm_steps_equal_the_plain_step(world):
     full = pmesh.gather_tree(shards, fsdp.fsdp_spec(base, mesh), mesh)
     assert max(abs(a - b) / abs(a) for a, b in zip(p_losses, f_losses)) <= REL
     assert update_err(base, p_state["params"], full) <= REL
+
+
+def grads_within(ref: list, got: list, rel: float) -> float:
+    worst = 0.0
+    for r, g in zip(ref, got, strict=True):
+        worst = max(worst, ((g.float() - r.float()).abs().max() / r.float().abs().max()).item())
+    assert worst <= rel, worst
+    return worst
+
+
+@pytest.mark.parametrize("n_chunks", [0, 2], ids=["1f1b", "interleaved"])
+def test_pipeline_steps_at_one_rank_equal_the_plain_step(world, n_chunks):
+    dev = world
+    m, steps = 2, 2
+    base = tfm.init_params(CFG, torch.Generator(device=dev).manual_seed(0))
+    g = torch.Generator(device=dev).manual_seed(1)
+    batches = [torch.randint(0, CFG.vocab_size, (2, 1281), generator=g, device=dev)
+               for _ in range(steps)]
+    opt = ttrainer.adamw(3e-4)
+    plain_params = trainable(base, dev)
+    plain = ttrainer.make_lm_train_step(tfm.forward, CFG, opt)
+    p_state, p_losses = run_steps(plain, ttrainer.init_train_state(plain_params, opt), batches[:1])
+    plain_grads = [p.grad.clone() for p in ttrainer.param_leaves(plain_params)]
+    _, more = run_steps(plain, p_state, batches[1:])
+    p_losses += more
+
+    mesh = pmesh.create_mesh({"pipe": 1}, dev)
+    params = trainable(base, dev)
+    if n_chunks:
+        staged = tpipe.transformer_interleaved_stage_params(params, 1, n_chunks)
+        spec = tpipe.interleaved_param_specs()
+        step = tpipe.make_interleaved_pipeline_lm_train_step(mesh, CFG, opt, m, n_chunks)
+        unstage = tpipe.transformer_uninterleave_params
+    else:
+        staged = tpipe.transformer_stage_params(params, 1)
+        spec = tpipe.pipeline_param_specs()
+        step = tpipe.make_pipeline_lm_train_step(mesh, CFG, opt, m)
+        unstage = tpipe.transformer_unstage_params
+    state = ttrainer.init_train_state(pmesh.shard_tree(staged, spec, mesh), opt)
+    before = dict(fa.LAUNCHES), xl.LAUNCHES
+    state, first = step(state, batches[0].view(m, -1, batches[0].shape[-1]))
+    local = ttrainer.param_leaves(state["params"])
+    grads = ttrainer.param_leaves(unstage(ttrainer.tree_like(state["params"],
+                                                             [p.grad.clone() for p in local])))
+    _, more = run_steps(step, state, [b.view(m, -1, b.shape[-1]) for b in batches[1:]])
+    losses = [first.item()] + more
+    # each microbatch and layer: a forward at F, again at B, one backward
+    assert fa.LAUNCHES["fwd"] - before[0]["fwd"] == 2 * m * CFG.n_layers * steps
+    assert fa.LAUNCHES["bwd_dq"] - before[0]["bwd_dq"] == m * CFG.n_layers * steps
+    assert fa.LAUNCHES["bwd_dkv"] - before[0]["bwd_dkv"] == m * CFG.n_layers * steps
+    assert xl.LAUNCHES - before[1] == m * steps
+    assert max(abs(a - b) / abs(a) for a, b in zip(p_losses, losses)) <= REL
+    grads_within(plain_grads, grads, 2e-2)
+
+
+SERVE_CFG = dataclasses.replace(tfm.TINY, dim=512, n_heads=8, n_kv_heads=4, ffn_dim=1024,
+                                vocab_size=1024, n_layers=2, max_seq_len=512)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_tp_engine_at_one_rank_equals_the_plain_engine(world, kv_dtype):
+    dev = world
+    params = tfm.init_params(SERVE_CFG, torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, SERVE_CFG.vocab_size, n).tolist() for n in (5, 40, 90, 130)]
+
+    def serve(engine):
+        engine.prewarm()
+        captures = engine.stats()["graph_captures"]
+        engine.start()
+        try:
+            out = [h.result(timeout=120) for h in [engine.submit(p, 24) for p in prompts]]
+        finally:
+            engine.stop()
+        st = engine.stats()
+        assert st["graph_captures"] == captures > 0 and st["requests_failed"] == 0
+        return out, st["paged_decode_launches"] / st["decode_steps"]
+
+    plain, plain_per_step = serve(InferenceEngine(params, SERVE_CFG, device=dev, max_slots=4,
+                                                  max_len=256, kv_dtype=kv_dtype))
+    mesh = pmesh.create_mesh({"model": 1}, dev)
+    got, per_step = serve(InferenceEngine(params, SERVE_CFG, mesh=mesh, max_slots=4,
+                                          max_len=256, kv_dtype=kv_dtype))
+    assert pa.LAST_DISPATCH == {"impl": "cuda", "tp": True}
+    assert got == plain
+    assert per_step == plain_per_step == SERVE_CFG.n_layers
 
 
 def head_rel(got, ref):
@@ -321,3 +428,95 @@ def test_fsdp_across_four_cards_equals_one_card(cards):
         for k in params:
             np.testing.assert_allclose(r["params"][k], p[k].detach().cpu().numpy(), rtol=1e-5,
                                        atol=1e-6)
+
+
+# -- part 2 across four cards --------------------------------------------------
+BENCH_WIDTHS = dict(vocab_size=32000, dim=1024, n_layers=8, n_heads=16, n_kv_heads=16,
+                    ffn_dim=4096, max_seq_len=2048)
+
+
+def plain_grads(cfg_kwargs, params_np, tokens):
+    """The loss and gradients without a pipeline on card 0 (float32, TF32
+    off), the microbatches flattened into one batch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cfg = tfm.TransformerConfig(**cfg_kwargs, dtype=torch.float32)
+    params = params_from_numpy(params_np, dev, trainable=True)
+    flat = torch.from_numpy(tokens.reshape(-1, tokens.shape[-1])).to(dev)
+    loss = ttrainer.lm_loss(tfm.forward, cfg)(params, flat)
+    loss.backward()
+    grads = ttrainer.tree_like(params, [p.grad for p in ttrainer.param_leaves(params)])
+    return loss.item(), params_to_numpy(grads)
+
+
+@pytest.mark.parametrize("axes, n_chunks", [({"pipe": 4}, 0), ({"pipe": 2, "model": 2}, 0),
+                                            ({"pipe": 4}, 2)],
+                         ids=["1f1b-pipe4", "1f1b-pipe2-model2", "interleaved-pipe4"])
+def test_pipeline_across_four_cards_equals_one_card(cards, axes, n_chunks):
+    cfg = tfm.TransformerConfig(**BENCH_WIDTHS, dtype=torch.float32)
+    params_np = params_to_numpy(tfm.init_params(cfg, torch.Generator().manual_seed(0)))
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, size=(4, 1, 1281))
+    loss, grads = plain_grads(BENCH_WIDTHS, params_np, tokens)
+    unstage = (tpipe.transformer_uninterleave_params if n_chunks
+               else tpipe.transformer_unstage_params)
+    for r in cards.run(w.pipeline_loss_grads, axes, params_np, BENCH_WIDTHS, tokens, n_chunks,
+                       "cuda", timeout=600):
+        assert abs(r["loss"] - loss) <= 1e-5 * abs(loss)
+        leaves_close(grads, unstage(r["grads"]), 1e-4)
+        # each rank's layers: a flash forward per microbatch at F and at B
+        layers = BENCH_WIDTHS["n_layers"] // axes["pipe"]
+        assert r["flash_fwd_launches"] == 2 * len(tokens) * layers
+
+
+LLAMA_WIDTHS_4L = dict(vocab_size=32000, dim=4096, n_layers=4, n_heads=32, n_kv_heads=32,
+                       ffn_dim=11008, max_seq_len=512)
+
+
+def one_card_streams(cfg_kwargs, dtype, prompts, n_new, seed=0):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cfg = tfm.TransformerConfig(**cfg_kwargs, dtype=dtype)
+    params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+    engine = InferenceEngine(params, cfg, device=dev, max_slots=2, max_len=256).start()
+    try:
+        return [engine.submit(p, n_new).result(timeout=300) for p in prompts]
+    finally:
+        engine.stop()
+        del engine, params
+        torch.cuda.empty_cache()
+
+
+def test_tp_engine_across_four_cards_equals_one_card(cards):
+    """Llama-2-7B's widths, 4 layers, float32: greedy streams equal the
+    one-card engine's on tie-free prompts."""
+    prompts = [[5, 1, 4], [2, 2, 2, 2, 2], list(range(10, 40))]
+    ref = one_card_streams(LLAMA_WIDTHS_4L, torch.float32, prompts, 16)
+    got = cards.run(w.engine_tp_streams, {"model": 4}, None, LLAMA_WIDTHS_4L, prompts, 16,
+                    None, False, None, None, False, None, 4, "cuda", "float32", 0, 256,
+                    timeout=900)
+    for r in got:
+        assert r["streams"] == ref
+        assert r["dispatch"] == {"impl": "cuda", "tp": True}
+        assert r["captures"][0] == r["captures"][1]
+        assert r["pool_heads"] == 8
+        assert r["paged_decode_launches"] == LLAMA_WIDTHS_4L["n_layers"] * r["decode_steps"] > 0
+
+
+def test_bf16_llama2_7b_across_four_cards_reports_token_agreement(cards):
+    cfg_kwargs = dict(vocab_size=32000, dim=4096, n_layers=32, n_heads=32, n_kv_heads=32,
+                      ffn_dim=11008, max_seq_len=4096)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 32000, n).tolist() for n in (7, 64, 200)]
+    ref = one_card_streams(cfg_kwargs, torch.bfloat16, prompts, 32)
+    got = cards.run(w.engine_tp_streams, {"model": 4}, None, cfg_kwargs, prompts, 32, None,
+                    False, None, None, False, None, 4, "cuda", "bfloat16", 0, 256, timeout=1200)
+    streams = got[0]["streams"]
+    same = sum(a == b for r, s in zip(ref, streams) for a, b in zip(r, s))
+    first_diff = [next((i for i, (a, b) in enumerate(zip(r, s)) if a != b), None)
+                  for r, s in zip(ref, streams)]
+    print(f"bf16 Llama-2-7B at model = 4 against one card: {same}/{sum(map(len, ref))} "
+          f"tokens agree; first divergence per stream {first_diff}")
+    assert all(r["streams"] == streams for r in got)  # every rank samples the same
+    assert all(r["dispatch"] == {"impl": "cuda", "tp": True} and r["paged_decode_launches"] > 0
+               for r in got)
+    assert all(s[0] == r[0] for r, s in zip(ref, streams))

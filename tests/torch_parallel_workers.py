@@ -15,7 +15,13 @@ from devspace_tpu_torch.models import moe as tmoe
 from devspace_tpu_torch.models import transformer as ttfm
 from devspace_tpu_torch.models.convert import params_from_numpy, params_to_numpy
 from devspace_tpu_torch.ops.losses import vocab_parallel_cross_entropy
-from devspace_tpu_torch.parallel import collectives, data_parallel, expert_parallel, fsdp
+from devspace_tpu_torch.parallel import (
+    collectives,
+    data_parallel,
+    expert_parallel,
+    fsdp,
+    pipeline,
+)
 from devspace_tpu_torch.parallel.mesh import (
     P,
     create_mesh,
@@ -385,3 +391,259 @@ def fsdp_lm_step(params_np: dict, cfg_kwargs: dict, tokens, lr: float) -> dict:
 def noop() -> int:
     return dist.get_rank()
 
+
+
+# -- pipeline parallelism -----------------------------------------------------
+def _pipeline_setup(axes: dict, params_np: dict, cfg_kwargs: dict, n_chunks: int,
+                    device: str = "cpu"):
+    """The mesh, config, this rank's staged params and their spec tree:
+    the 1F1B layout for ``n_chunks == 0``, else the interleaved one."""
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = create_mesh(axes, device=device)
+    cfg = ttfm.TransformerConfig(**cfg_kwargs, dtype=torch.float32)
+    params = params_from_numpy(params_np, mesh.device)
+    tp_axis = "model" if "model" in axes else None
+    if n_chunks:
+        staged = pipeline.transformer_interleaved_stage_params(params, axes["pipe"], n_chunks)
+        spec = pipeline.interleaved_param_specs("pipe", tp_axis)
+    else:
+        staged = pipeline.transformer_stage_params(params, axes["pipe"])
+        spec = pipeline.pipeline_param_specs("pipe", tp_axis)
+    return mesh, cfg, shard_tree(staged, spec, mesh), spec, tp_axis
+
+
+def _pipeline_rows(tokens, mesh, axes: dict):
+    toks = t(tokens).to(mesh.device)
+    return shard_tensor(toks, P(None, "data"), mesh).contiguous() if "data" in axes else toks
+
+
+def pipeline_loss_grads(axes: dict, params_np: dict, cfg_kwargs: dict, tokens,
+                        n_chunks: int = 0, device: str = "cpu") -> dict:
+    """The loss and the gathered staged gradients of
+    ``pipeline_lm_loss_and_grads`` (or, with ``n_chunks``, the
+    interleaved executor) over ``axes``."""
+    from devspace_tpu_torch.ops import flash_attention as tflash
+
+    mesh, cfg, local, spec, tp_axis = _pipeline_setup(axes, params_np, cfg_kwargs, n_chunks,
+                                                      device)
+    data_axis = "data" if "data" in axes else None
+    m = len(tokens)
+    if n_chunks:
+        fn = pipeline.interleaved_pipeline_lm_loss_and_grads(
+            mesh, cfg, m, n_chunks, data_axis=data_axis, tp_axis=tp_axis)
+    else:
+        fn = pipeline.pipeline_lm_loss_and_grads(mesh, cfg, m, data_axis=data_axis,
+                                                 tp_axis=tp_axis)
+    before = tflash.LAUNCHES["fwd"]
+    loss, grads = fn(local, _pipeline_rows(tokens, mesh, axes))
+    return {"loss": float(loss), "grads": tree_np(gather_tree(grads, spec, mesh)),
+            "flash_fwd_launches": tflash.LAUNCHES["fwd"] - before}
+
+
+def pipeline_train_steps(axes: dict, params_np: dict, cfg_kwargs: dict, tokens, steps: int,
+                         lr: float, n_chunks: int = 0, device: str = "cpu",
+                         momentum: float = 0.9) -> dict:
+    """``steps`` SGD steps of ``make_pipeline_lm_train_step`` (or the
+    interleaved one) -> losses, the gathered staged params after, the
+    optimizer state's specs and the flash and loss kernels' launches
+    (on the card)."""
+    from devspace_tpu_torch.ops import flash_attention as tflash
+    from devspace_tpu_torch.ops import losses as tlosses
+
+    mesh, cfg, local, spec, tp_axis = _pipeline_setup(axes, params_np, cfg_kwargs, n_chunks,
+                                                      device)
+    data_axis = "data" if "data" in axes else None
+    opt = ttrainer.sgd(lr, momentum=momentum)
+    state = ttrainer.init_train_state(local, opt)
+    m = len(tokens)
+    if n_chunks:
+        step = pipeline.make_interleaved_pipeline_lm_train_step(
+            mesh, cfg, opt, m, n_chunks, data_axis=data_axis, tp_axis=tp_axis)
+    else:
+        step = pipeline.make_pipeline_lm_train_step(mesh, cfg, opt, m, data_axis=data_axis,
+                                                    tp_axis=tp_axis)
+    rows = _pipeline_rows(tokens, mesh, axes)
+    before = (dict(tflash.LAUNCHES), tlosses.LAUNCHES)
+    losses = []
+    for _ in range(steps):
+        state, loss = step(state, rows)
+        losses.append(float(loss))
+    launches = {k: tflash.LAUNCHES[k] - before[0][k] for k in before[0]}
+    launches["xent"] = tlosses.LAUNCHES - before[1]
+    return {"losses": losses, "params": tree_np(gather_tree(state["params"], spec, mesh)),
+            "opt_spec": ttrainer.opt_state_partition_spec(state["opt_state"], spec,
+                                                          state["params"]),
+            "step": state["step"], "launches": launches}
+
+
+def pipeline_apply_case(axes: dict, ws, xs) -> np.ndarray:
+    """``pipeline_apply`` of ``y = tanh(x @ w_s)`` stages (``ws`` ``[S, d,
+    d]``) over ``axes``, microbatches ``xs`` ``[M, mb, d]``; with a
+    ``model`` axis each stage's weight is column-sharded and its outputs
+    gathered inside the stage."""
+    mesh = cpu_mesh(axes)
+    tp = "model" in axes
+
+    def stage_fn(p, x):
+        y = x @ p["w"]
+        if tp:
+            y = collectives.gather(y, -1, mesh.group("model"))
+        return torch.tanh(y)
+
+    f = pipeline.pipeline_apply(mesh, stage_fn, params_spec={"w": (None, "model") if tp
+                                                              else (None,)})
+    local = shard_tree({"w": t(ws)}, f.params_spec, mesh)
+    return f(local, t(xs)).numpy()
+
+
+# -- tensor-parallel serving --------------------------------------------------
+def engine_tp_streams(axes: dict, params_np: dict, cfg_kwargs: dict, prompts: list, n_new: int,
+                      kv_dtype=None, quantize: bool = False, draft_np=None,
+                      draft_kwargs=None, late: bool = False, checkpoint: str = None,
+                      spec_k: int = 4, device: str = "cpu", dtype: str = "float32",
+                      seed=None, max_len: int = 32) -> dict:
+    """``InferenceEngine(mesh=)`` over ``axes`` on ``device`` (float32 by
+    default; or ``from_checkpoint(mesh=)`` of ``checkpoint``), prewarmed:
+    rank 0 submits ``prompts`` (with ``late``, the second once the first
+    has streamed a token) and returns their greedy streams; every other
+    rank the streams of the requests it mirrored; with the paged
+    wrapper's last dispatch and launches and the engine's counters. With
+    ``seed`` the params are made on the device from it instead of
+    ``params_np``."""
+    from devspace_tpu_torch.inference import InferenceEngine
+    from devspace_tpu_torch.inference.quantization import quantize_params
+    from devspace_tpu_torch.ops import paged_attention as tpa
+
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = create_mesh(axes, device=device)
+    cfg = ttfm.TransformerConfig(**cfg_kwargs, dtype=getattr(torch, dtype))
+    kw = dict(max_slots=2, max_len=max_len, mesh=mesh, kv_dtype=kv_dtype, spec_k=spec_k)
+    if draft_np is not None:
+        kw.update(draft_params=params_from_numpy(draft_np, "cpu"),
+                  draft_cfg=ttfm.TransformerConfig(**draft_kwargs, dtype=torch.float32))
+    if checkpoint is not None:
+        engine = InferenceEngine.from_checkpoint(checkpoint, cfg,
+                                                 quantize="int8" if quantize else None, **kw)
+    else:
+        if seed is None:
+            params = params_from_numpy(params_np, "cpu")
+        else:
+            params = ttfm.init_params(cfg, torch.Generator(device=mesh.device).manual_seed(seed))
+        engine = InferenceEngine(quantize_params(params) if quantize else params, cfg, **kw)
+        del params
+    engine.prewarm()
+    captures = engine.stats()["graph_captures"]
+    engine.start()
+    try:
+        if mesh.index("model") == 0:
+            reqs = [engine.submit(prompts[0], n_new)]
+            if late:
+                next(reqs[0].stream(timeout=60))
+            reqs += [engine.submit(p, n_new) for p in prompts[1:]]
+            streams = [r.result(timeout=120) for r in reqs]
+        else:
+            try:
+                engine.submit(prompts[0], n_new)
+                refused = "no error"
+            except RuntimeError as e:
+                refused = str(e)
+    finally:
+        engine.stop()
+    if mesh.index("model") != 0:
+        streams = [list(r.tokens) for r in engine.mirrored]
+    stats = engine.stats()
+    return {"streams": streams, "dispatch": dict(tpa.LAST_DISPATCH),
+            "captures": (captures, stats["graph_captures"]),
+            "paged_decode_launches": stats["paged_decode_launches"],
+            "decode_steps": stats["decode_steps"],
+            "spec_rounds": stats["spec_rounds"],
+            "refused": None if mesh.index("model") == 0 else refused,
+            "pool_heads": engine.pool["k"].shape[2]}
+
+
+def engine_tp_indivisible(cfg_kwargs: dict, draft_kwargs=None) -> str:
+    from devspace_tpu_torch.inference import InferenceEngine
+
+    mesh = cpu_mesh({"model": -1})
+    cfg = ttfm.TransformerConfig(**cfg_kwargs, dtype=torch.float32)
+    params = ttfm.init_params(cfg, torch.Generator().manual_seed(0))
+    kw = {}
+    if draft_kwargs is not None:
+        dcfg = ttfm.TransformerConfig(**draft_kwargs, dtype=torch.float32)
+        kw = dict(draft_params=ttfm.init_params(dcfg, torch.Generator().manual_seed(1)),
+                  draft_cfg=dcfg)
+    try:
+        InferenceEngine(params, cfg, max_slots=2, max_len=32, mesh=mesh, **kw)
+    except ValueError as e:
+        return str(e)
+    return "no error"
+
+
+# -- checkpoints on a mesh ----------------------------------------------------
+def sharded_restore_case(path: str, axes: dict, cfg_kwargs: dict, quantize: bool = False) -> dict:
+    """This rank's blocks of a params checkpoint: through
+    ``restore_checkpoint`` into ``sharded_template`` by the TP spec, and
+    through ``load_serving_params(mesh=)`` (int8 with ``quantize``)."""
+    from devspace_tpu_torch.inference.checkpoint import load_serving_params
+    from devspace_tpu_torch.training import checkpoint as tckpt
+
+    mesh = cpu_mesh(axes)
+    cfg = ttfm.TransformerConfig(**cfg_kwargs, dtype=torch.float32)
+    spec = ttfm.param_partition_spec(cfg, "model")
+    template = tckpt.sharded_template(ttfm.init_params(cfg, torch.Generator(), device="meta"),
+                                      mesh, spec)
+    blocks = tckpt.restore_checkpoint(path, template)
+    serving, _ = load_serving_params(path, cfg, mesh=mesh,
+                                     quantize="int8" if quantize else None)
+    return {"index": mesh.index("model"), "blocks": tree_np(blocks),
+            "serving": tree_np(serving)}
+
+
+def _gathered_moments(opt, params, spec, mesh) -> dict:
+    """name -> {state name: the logical moment} of ``opt`` over ``params``."""
+    from devspace_tpu_torch.training import checkpoint as tckpt
+
+    names = tckpt.param_names(params, opt)
+    specs = tckpt._named_specs(params, spec)
+    out = {}
+    for i, entry in opt.state_dict()["state"].items():
+        out[names[i]] = {k: gather_tensor(v, specs[names[i]], mesh).numpy()
+                         if v.dim() else v.numpy() for k, v in entry.items()}
+    return out
+
+
+def mesh_save_case(root: str, kind: str, params_np: dict, cfg_kwargs: dict, tokens,
+                   lr: float) -> dict:
+    """One AdamW step of a train state sharded over ``pipe`` (the 1F1B
+    step) or FSDP's ``data`` (``make_fsdp_train_step``) over every rank,
+    then a save from the mesh through ``CheckpointManager(mesh=,
+    spec_tree=)`` -> the logical params and moments (gathered here) and
+    whether the step directory is complete on this rank after the save."""
+    from devspace_tpu_torch.training import checkpoint as tckpt
+
+    mesh = cpu_mesh({"pipe": -1} if kind == "pipe" else {"data": -1})
+    cfg = ttfm.TransformerConfig(**cfg_kwargs, dtype=torch.float32)
+    params = params_from_numpy(params_np, "cpu", trainable=True)
+    opt = ttrainer.adamw(lr)
+    if kind == "pipe":
+        n = mesh.size("pipe")
+        spec = pipeline.pipeline_param_specs("pipe")
+        local = shard_tree(pipeline.transformer_stage_params(params, n), spec, mesh)
+        state = ttrainer.init_train_state(local, opt)
+        step = pipeline.make_pipeline_lm_train_step(mesh, cfg, opt, len(tokens))
+        state, _ = step(state, t(tokens))
+    else:
+        fstep, shards, fopt = fsdp.make_fsdp_train_step(ttrainer.lm_loss(ttfm.forward, cfg),
+                                                        opt, mesh, params, min_size=0)
+        spec = fsdp.fsdp_spec(params, mesh, min_size=0)
+        shards, fopt, _ = fstep(shards, fopt, data_parallel.shard_batch(t(tokens), mesh))
+        state = {"params": shards, "opt_state": fopt, "step": 1}
+    manager = tckpt.CheckpointManager(root, mesh=mesh, spec_tree=spec)
+    path = manager.save(1, state)
+    import os
+
+    return {"complete": sorted(os.listdir(path)),
+            "params": tree_np(gather_tree(state["params"], spec, mesh)),
+            "moments": _gathered_moments(state["opt_state"], state["params"], spec, mesh)}
