@@ -96,6 +96,17 @@ Mixtral-8x7B's widths, 2 layers, with ``moe_ffn`` as its expert layer,
 3 AdamW steps at 2 x 2049 tokens, ``moe_ffn`` held to
 ``moe_ffn_reference``.
 
+Then the analysis tooling (``analysis`` phase, devspace_tpu_torch/lint):
+one more wave of the smoke requests on the plain 7B engine and on the
+tensor-parallel engine's two pools, each under ``CompileWatch`` after
+``prewarm`` (no graph captured; the paged-decode launches of the wave
+counted), SHD300-303 over the live 7B's serving spec tree on meshes of
+``model`` = 1, 2, 3, 4, 8 (SHD302 at 3 only) and over the bench LM's
+1F1B and interleaved layouts at ``pipe`` = 4 and its FSDP specs at
+``data`` = 8, SHD304 on meta tensors over the trainer's AdamW update and
+a decode program (clean) and a seeded cast (one finding), and the static
+legs of scripts/analysis_gate_torch.py.
+
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The line before the last lists the kernels; the last is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
@@ -135,6 +146,8 @@ from devspace_tpu_torch.inference import engine as einf
 from devspace_tpu_torch.inference import quantization as wq
 from devspace_tpu_torch.inference import kv_tier as kvt
 from devspace_tpu_torch.inference import speculative as spec
+from devspace_tpu_torch import lint
+from devspace_tpu_torch.lint.runtime import CompileWatch
 from devspace_tpu_torch.models import mlp, moe, resnet, vit
 from devspace_tpu_torch.models import transformer as tfm
 from devspace_tpu_torch.ops import _build
@@ -155,6 +168,7 @@ from devspace_tpu_torch.training import trainer as ttrainer
 from devspace_tpu_torch.training.checkpoint import save_checkpoint
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+import analysis_gate_torch as gate_script  # noqa: E402
 import train_draft_pair_torch as pair_script  # noqa: E402
 import train_long_context_torch as long_script  # noqa: E402
 
@@ -400,14 +414,14 @@ def phase_parity(dev) -> dict:
             for int8 in (False, True):
                 args = paged_inputs(1, lengths, H, Hkv, 128, 64, dtype, int8, dev, mb)
                 got = pa.paged_decode_attention(*args)
-                torch.cuda.synchronize()
+                torch.cuda.synchronize()  # lint: allow(JIT502) — parity: one readback per case, after its kernel ran
                 assert pa.LAST_DISPATCH["impl"] == "cuda"
                 ref = pa.paged_decode_reference(*args)
                 live = args[4] > 0
                 assert (got[~live] == 0).all(), "dead rows must be exactly zero"
                 diff = (got[live].float() - ref[live].float()).abs()
-                err = diff.max().item()
-                rel = (diff.amax(-1) / ref[live].float().abs().amax(-1)).max().item()
+                err = diff.max().item()  # lint: allow(JIT502) — parity: one readback per case, after its kernel ran
+                rel = (diff.amax(-1) / ref[live].float().abs().amax(-1)).max().item()  # lint: allow(JIT502) — parity: one readback per case, after its kernel ran
                 name = f"{case}/{str(dtype)[6:]}/{'int8' if int8 else 'float'}"
                 if dtype == torch.float32:
                     torch.testing.assert_close(got[live], ref[live], rtol=F32_RTOL, atol=F32_ATOL)
@@ -422,12 +436,12 @@ def phase_parity(dev) -> dict:
         args = verify_inputs(3, dtype, dev)
         assert args[0].shape == (40, 8, 128) and args[3].shape == (40, 16)
         got = pa.paged_decode_attention(*args)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # lint: allow(JIT502) — parity: one readback per case, after its kernel ran
         assert pa.LAST_DISPATCH["impl"] == "cuda"
         ref = pa.paged_decode_reference(*args)
         diff = (got.float() - ref.float()).abs()
-        err = diff.max().item()
-        rel = (diff.amax(-1) / ref.float().abs().amax(-1)).max().item()
+        err = diff.max().item()  # lint: allow(JIT502) — parity: one readback per case, after its kernel ran
+        rel = (diff.amax(-1) / ref.float().abs().amax(-1)).max().item()  # lint: allow(JIT502) — parity: one readback per case, after its kernel ran
         name = f"verify/{str(dtype)[6:]}/float"
         if dtype == torch.float32:
             torch.testing.assert_close(got, ref, rtol=F32_RTOL, atol=F32_ATOL)
@@ -471,7 +485,7 @@ def phase_timing(dev) -> dict:
         assert torch.equal(got, pa.paged_decode_attention(*args))
         plain, _ = device_ms(lambda: pa.paged_decode_reference(*args), 20)
         lib, _ = device_ms(lambda: library_attention(*args), 50)
-        lib_err = (library_attention(*args).float() - got.float()).abs().max().item()
+        lib_err = (library_attention(*args).float() - got.float()).abs().max().item()  # lint: allow(JIT502) — the library call's error, read once per timed shape
         # the verification rows of a slot share its blocks: read once
         kv_lens = lens.view(-1, SPEC_K + 1).amax(1) if name == "verify_b40" else None
         bound_ms, bound_by = bound(q, pk, tables, lens, int8, kv_lens)
@@ -505,7 +519,7 @@ def phase_small_reference(dev) -> dict:
         for d, p in ((cpu, params), (dev, gparams)):
             table = torch.tensor([3, 5, 1, 7], device=d)
             logits[d], _ = tfm.prefill_chunk_paged(p, pools[d], table, prompt.to(d), 0, cfg)
-        err = max(err, (logits[dev].cpu() - logits[cpu]).abs().max().item())
+        err = max(err, (logits[dev].cpu() - logits[cpu]).abs().max().item())  # lint: allow(JIT502) — the card's result read back to hold it to the CPU's
         tables = torch.tensor([[3, 5, 1, 7], [2, 4, 0, 0]], dtype=torch.int32)
         tok = torch.stack([logits[cpu][-1].argmax(), torch.tensor(9)])
         pos = torch.tensor([13, 0])
@@ -514,7 +528,7 @@ def phase_small_reference(dev) -> dict:
             for d, p in ((cpu, params), (dev, gparams)):
                 step[d], _ = tfm.decode_tokens_paged(p, pools[d], tables.to(d), tok.to(d),
                                                      pos.to(d), cfg)
-            err = max(err, (step[dev].cpu() - step[cpu]).abs().max().item())
+            err = max(err, (step[dev].cpu() - step[cpu]).abs().max().item())  # lint: allow(JIT502) — the card's result read back to hold it to the CPU's
             tok, pos = step[cpu].argmax(-1), pos + 1
         assert err <= 1e-3, f"card vs CPU logits differ by {err} ({kv or 'float'} pool)"
         worst[kv or "float"] = err
@@ -546,14 +560,14 @@ def decode_step_times(engine) -> dict:
                 step()
         torch.cuda.current_stream().wait_stream(side)
         for _ in range(5):
-            torch.cuda.synchronize()
+            torch.cuda.synchronize()  # lint: allow(JIT502) — timing: each timed run starts on an idle card
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
             start.record()
             step()
             end.record()
             host.append((time.perf_counter() - t0) * 1e3)
-            torch.cuda.synchronize()
+            torch.cuda.synchronize()  # lint: allow(JIT502) — timing: each timed run starts on an idle card
             eager.append(start.elapsed_time(end))
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
@@ -980,9 +994,9 @@ def phase_int8_weights(params, dev, card, bf16_graph_ms, tmp: str, cfg=tfm.LLAMA
         checked = {"lm_head": params["lm_head"], "layers.0.w_down": layers[0]["w_down"],
                    f"layers.{len(layers) - 1}.w_down": layers[-1]["w_down"]}
         for name, leaf in checked.items():
-            here, there = wq.quantize_weight(leaf), wq.quantize_weight(leaf.cpu())
-            assert torch.equal(here.q.cpu(), there.q), name
-            assert torch.equal(bits(here.scale.cpu()), bits(there.scale)), name
+            here, there = wq.quantize_weight(leaf), wq.quantize_weight(leaf.cpu())  # lint: allow(JIT502) — each leaf's int8 bytes held to the CPU's, read back once
+            assert torch.equal(here.q.cpu(), there.q), name  # lint: allow(JIT502) — each leaf's int8 bytes held to the CPU's, read back once
+            assert torch.equal(bits(here.scale.cpu()), bits(there.scale)), name  # lint: allow(JIT502) — each leaf's int8 bytes held to the CPU's, read back once
         sync(dev)
         t0 = time.monotonic()
         qtree = wq.quantize_params(params)
@@ -1100,13 +1114,13 @@ def synced_device_ms(fn, reps: int = 5, spin_ms: float = 200.0) -> float:
     fn()
     times = []
     for _ in range(reps):
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # lint: allow(JIT502) — timing: each timed run starts on an idle card
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(int(spin_ms * 2e6))
         start.record()
         fn()
         end.record()
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # lint: allow(JIT502) — timing: each timed run starts on an idle card
         times.append(start.elapsed_time(end))
     return statistics.median(times)
 
@@ -1409,7 +1423,7 @@ def phase_train_kernel_parity(dev) -> dict:
             for causal in (True, False):
                 q, k, v, do = flash_inputs(3, shape, dtype, dev)
                 o, lse, delta, dq, dk, dv = flash_run(q, k, v, do, causal)
-                torch.cuda.synchronize()
+                torch.cuda.synchronize()  # lint: allow(JIT502) — parity: one readback per case, after its kernel ran
                 assert fa.LAST_DISPATCH["impl"] == "cuda"
                 ro, rlse = fa.flash_fwd_reference(q, k, v, causal)
                 rdk, rdv = fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal)
@@ -1419,7 +1433,7 @@ def phase_train_kernel_parity(dev) -> dict:
                 line = {t: kernel_err(g, r, f"{name} {t}")
                         for t, g, r in (("o", o, ro), ("dq", dq, rdq), ("dk", dk, rdk),
                                         ("dv", dv, rdv))}
-                line["lse"] = (lse - rlse).abs().max().item()
+                line["lse"] = (lse - rlse).abs().max().item()  # lint: allow(JIT502) — parity: one readback per case, after its kernel ran
                 if dtype == torch.bfloat16 and causal:
                     again = flash_run(q, k, v, do, causal)
                     line["bitwise_repeat"] = all(
@@ -1434,13 +1448,13 @@ def phase_train_kernel_parity(dev) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         logits = (3 * torch.randn((b, vocab), generator=g, device=dev)).to(dtype)
         loss, lse = xl.xent_fwd(logits, labels)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # lint: allow(JIT502) — parity: one readback per case, after its kernel ran
         assert xl.LAST_DISPATCH["impl"] == "cuda"
         rloss, rlse = xl._xent_fwd_reference(logits, labels)
         torch.testing.assert_close(loss, rloss, rtol=XENT_RTOL, atol=XENT_ATOL)
         torch.testing.assert_close(lse, rlse, rtol=XENT_RTOL, atol=XENT_ATOL)
-        out[f"xent/{str(dtype)[6:]}"] = {"loss": (loss - rloss).abs().max().item(),
-                                         "lse": (lse - rlse).abs().max().item()}
+        out[f"xent/{str(dtype)[6:]}"] = {"loss": (loss - rloss).abs().max().item(),  # lint: allow(JIT502) — parity: one readback per case, after its kernel ran
+                                         "lse": (lse - rlse).abs().max().item()}  # lint: allow(JIT502) — parity: one readback per case, after its kernel ran
         del logits
     return out
 
@@ -1536,7 +1550,7 @@ def phase_train_small_reference(dev) -> dict:
         step = ttrainer.make_lm_train_step(tfm.forward, cfg, ttrainer.adamw(TRAIN_LR))
         state, loss = step(ttrainer.init_train_state(trainable(base, d), ttrainer.adamw(TRAIN_LR)),
                            tokens.to(d))
-        result[d] = (loss.item(), [p.grad.cpu() for p in ttrainer.param_leaves(state["params"])])
+        result[d] = (loss.item(), [p.grad.cpu() for p in ttrainer.param_leaves(state["params"])])  # lint: allow(JIT502) — the card's result read back to hold it to the CPU's
     counts = train_counts()  # of the run on the card, the last one
     n = cfg.n_layers
     assert counts == {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n, "cross_entropy": 1}, counts
@@ -1734,13 +1748,13 @@ def phase_zoo_kernel_parity(dev) -> dict:
         logits = 3 * torch.randn((b, vocab), generator=g, device=dev)
         labels = torch.randint(0, vocab, (b,), generator=g, device=dev)
         loss, lse = xl.xent_fwd(logits, labels)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # lint: allow(JIT502) — parity: one readback per case, after its kernel ran
         assert xl.LAST_DISPATCH["impl"] == "cuda"
         rloss, rlse = xl._xent_fwd_reference(logits, labels)
         torch.testing.assert_close(loss, rloss, rtol=XENT_RTOL, atol=XENT_ATOL)
         torch.testing.assert_close(lse, rlse, rtol=XENT_RTOL, atol=XENT_ATOL)
-        out[f"xent/{b}x{vocab}"] = {"loss": (loss - rloss).abs().max().item(),
-                                    "lse": (lse - rlse).abs().max().item()}
+        out[f"xent/{b}x{vocab}"] = {"loss": (loss - rloss).abs().max().item(),  # lint: allow(JIT502) — parity: one readback per case, after its kernel ran
+                                    "lse": (lse - rlse).abs().max().item()}  # lint: allow(JIT502) — parity: one readback per case, after its kernel ran
     q, k, v, do = flash_inputs(8, ZOO_FLASH_SHAPE, torch.bfloat16, dev)
     o, lse, delta, dq, dk, dv = flash_run(q, k, v, do, True)
     torch.cuda.synchronize()
@@ -1795,7 +1809,7 @@ def phase_zoo_small_reference(dev) -> dict:
         reset_train_counts()
         _, loss = step(ttrainer.init_train_state(model, opt),
                        {k: t.to(d) for k, t in batch.items()})
-        result[d] = (logits.cpu(), loss.item(), [b.cpu() for b in model.buffers()])
+        result[d] = (logits.cpu(), loss.item(), [b.cpu() for b in model.buffers()])  # lint: allow(JIT502) — the card's result read back to hold it to the CPU's
     assert xl.LAUNCHES == 1, xl.LAUNCHES  # the card's step, the last one
     logit_err = ((result[dev][0] - result[cpu][0]).abs().max()
                  / result[cpu][0].abs().max()).item()
@@ -2057,7 +2071,7 @@ def phase_short_attention_parity(dev) -> dict:
                 q, k, v = flash_inputs(7, shape, dtype, dev)[:3]
                 before = sa.LAUNCHES
                 got = sa.fused_attention(q, k, v, causal=causal)
-                torch.cuda.synchronize()
+                torch.cuda.synchronize()  # lint: allow(JIT502) — parity: one readback per case, after its kernel ran
                 assert sa.LAUNCHES == before + 1 and sa.LAST_DISPATCH["impl"] == "cuda"
                 ref = sa.attention_reference(q, k, v, causal)
                 key = f"{name}/{str(dtype)[6:]}/{'causal' if causal else 'full'}"
@@ -2072,7 +2086,7 @@ def phase_short_attention_parity(dev) -> dict:
                 base[3].transpose(1, 2))
             grads.append((q.grad, k.grad, v.grad))
         for a, b in zip(*grads):
-            worst_grad = max(worst_grad, (a.float() - b.float()).abs().max().item())
+            worst_grad = max(worst_grad, (a.float() - b.float()).abs().max().item())  # lint: allow(JIT502) — parity: one readback per case, after its kernel ran
             torch.testing.assert_close(a, b, rtol=0, atol=0)
     return {"errors": {k: v for k, v in out.items() if "bfloat16" in k or "target" in k},
             "max_abs_err_f32": max(e for k, (e, _) in out.items() if "float32" in k),
@@ -2100,7 +2114,7 @@ def phase_rms_norm_parity(dev) -> dict:
             xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
             got = rn.fused_rms_norm(xk, wk, block_rows=min(256, shape[0]))
             got.backward(g)
-            torch.cuda.synchronize()
+            torch.cuda.synchronize()  # lint: allow(JIT502) — parity: one readback per case, after its kernel ran
             assert rn.LAUNCHES == before + 1 and rn.LAST_DISPATCH["impl"] == "cuda"
             xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
             ref = rn.rms_norm_reference(xr, wr)
@@ -2113,9 +2127,9 @@ def phase_rms_norm_parity(dev) -> dict:
             torch.testing.assert_close(wk.grad, wr.grad, rtol=1e-4 if f32 else 1e-3,
                                        atol=1e-4 if f32 else 1e-2 * shape[0] ** 0.5)
             out[f"{shape[0]}x{shape[1]}/{str(dtype)[6:]}"] = {
-                "y": (got.detach().float() - ref.detach().float()).abs().max().item(),
-                "dx": (xk.grad.float() - xr.grad.float()).abs().max().item(),
-                "dw": (wk.grad - wr.grad).abs().max().item(),
+                "y": (got.detach().float() - ref.detach().float()).abs().max().item(),  # lint: allow(JIT502) — parity: one readback per case, after its kernel ran
+                "dx": (xk.grad.float() - xr.grad.float()).abs().max().item(),  # lint: allow(JIT502) — parity: one readback per case, after its kernel ran
+                "dw": (wk.grad - wr.grad).abs().max().item(),  # lint: allow(JIT502) — parity: one readback per case, after its kernel ran
             }
     return out
 
@@ -2139,7 +2153,7 @@ def phase_spec_kernel_timing(dev) -> dict:
         plain_ms, _ = device_ms(lambda: sa.attention_reference(q, k, v, True), 20)
         lib_ms, _ = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 50)
         got = sa.attention_fwd(q, k, v, True)
-        lib_err = (F.scaled_dot_product_attention(q, k, v, is_causal=True).float()
+        lib_err = (F.scaled_dot_product_attention(q, k, v, is_causal=True).float()  # lint: allow(JIT502) — the library call's error, read once per timed shape
                    - got.float()).abs().max().item()
         err = kernel_err(got.flatten(0, 1), sa.attention_reference(q, k, v, True).flatten(0, 1),
                          f"attention_{name}")
@@ -2889,7 +2903,7 @@ def rel_update_err(before: dict, after_a: dict, after_b: dict) -> float:
     for p0, a, b in zip(ttrainer.param_leaves(before), ttrainer.param_leaves(after_a),
                         ttrainer.param_leaves(after_b)):
         da, db = a.detach().float() - p0.float(), b.detach().float() - p0.float()
-        worst = max(worst, ((db - da).abs().max() / da.abs().max().clamp_min(1e-30)).item())
+        worst = max(worst, ((db - da).abs().max() / da.abs().max().clamp_min(1e-30)).item())  # lint: allow(JIT502) — one error a leaf, after the steps
     return worst
 
 
@@ -3114,7 +3128,7 @@ def _two_rank_lm(rank: int, tmp: str, device_type: str, cfg, batch: int, seq: in
             rows = shard_batch(sample(batch, seq + 1, seed=s), mesh)
             t0 = time.perf_counter()
             state, loss = step(state, rows)
-            losses.append(loss.item())
+            losses.append(loss.item())  # lint: allow(JIT502) — each step's loss is the result, read once a step
             ms.append((time.perf_counter() - t0) * 1e3)
         results.put((rank, {"losses": losses, "step_ms": ms[1:]}))
     except Exception:  # reported to the parent, which fails the phase
@@ -3219,7 +3233,7 @@ def parallel_pipelines(dev, cfg, base, batches, plain) -> dict:
             fn = ppipe.interleaved_pipeline_lm_loss_and_grads(mesh, cfg, m, PIPE["chunks"])
         _, grads = fn(local, micro[0])
         got = ttrainer.param_leaves(unstage(grads))
-        errs = {name: ((g - r.float()).abs().max() / r.float().abs().max()).item()
+        errs = {name: ((g - r.float()).abs().max() / r.float().abs().max()).item()  # lint: allow(JIT502) — one error a leaf, after the steps
                 for name, g, r in zip(names, got, ref_grads, strict=True)}
         embed_err = errs.pop("embed")
         grad_err = max(errs.values())
@@ -3268,7 +3282,7 @@ def update_l2_rel(before: dict, after_a: dict, after_b: dict) -> float:
     for p0, a, b in zip(ttrainer.param_leaves(before), ttrainer.param_leaves(after_a),
                         ttrainer.param_leaves(after_b)):
         da, db = a.detach().float() - p0.float(), b.detach().float() - p0.float()
-        worst = max(worst, (torch.linalg.norm(db - da) / torch.linalg.norm(da)
+        worst = max(worst, (torch.linalg.norm(db - da) / torch.linalg.norm(da)  # lint: allow(JIT502) — one error a leaf, after the steps
                             .clamp_min(1e-30)).item())
     return worst
 
@@ -3289,6 +3303,7 @@ def _tp_serve(engine, requests, want, steady: bool) -> dict:
                 "ttft_s_median": statistics.median(run.pop("ttft_s")), **run}
         if steady:
             line["steady"] = steady_burst(engine)
+        line["watched"] = watched_wave(engine, requests, "tp_engine")
         st = engine.stats()
         assert st["requests_failed"] == 0
         assert st["graph_captures"] == warm["captures"], "a graph was captured after prewarm"
@@ -3378,6 +3393,142 @@ def phase_parallel(dev, card, serving: dict) -> dict:
         out["part_seconds"] = parts
         out["seconds"] = time.monotonic() - t0
     return out
+
+
+# -- the analysis tooling (devspace_tpu_torch/lint) ------------------------------
+SHD_MODEL_AXES = (1, 2, 3, 4, 8)  # model = 3 divides no head or FFN width
+SHD_PIPE, SHD_DATA = 4, 8
+
+
+def watched_wave(engine, requests, label: str) -> dict:
+    """One more wave of ``requests`` on an engine after ``prewarm``, under
+    ``CompileWatch``: the programs it builds (graph captures; must be 0,
+    and equal the engine's own ``graph_captures`` delta) and the
+    paged-decode launches its replays make (> 0, ``n_layers`` a step)."""
+    reset_counts()
+    before = engine.stats()
+    with CompileWatch(label) as watch:
+        for h in [engine.submit(p, n, **kw) for p, n, kw in requests]:
+            h.result(timeout=600)
+    st = engine.stats()
+    line = {"captures": watch.count,
+            "graph_captures_delta": st["graph_captures"] - before["graph_captures"],
+            "decode_steps": st["decode_steps"] - before["decode_steps"],
+            "paged_decode_launches": (st["paged_decode_launches"]
+                                      - before["paged_decode_launches"])}
+    assert line["captures"] == line["graph_captures_delta"], line
+    watch.assert_no_recompiles()
+    assert pa.LAUNCHES == 0, f"{pa.LAUNCHES} launches outside the graphs"
+    assert line["paged_decode_launches"] == engine.cfg.n_layers * line["decode_steps"] > 0, line
+    return line
+
+
+def shd_summary(findings) -> dict:
+    """A preflight's findings by rule, and the leaves they name (layer
+    indices folded)."""
+    return {"findings": len(findings), "rules": sorted({f.rule_id for f in findings}),
+            "leaves": sorted({re.sub(r"\.\d+\.", ".*.", f.location) for f in findings})}
+
+
+def analysis_sharding(params, cfg) -> dict:
+    """SHD300-303 from shapes alone: the live serving params under
+    ``param_partition_spec`` (as ``shard_serving_params`` places them) on
+    declared meshes of ``model`` = 1, 2, 3, 4 and 8; the bench LM's 1F1B
+    and interleaved layouts at ``pipe`` = 4 and its FSDP specs at ``data``
+    = 8, over meta params of its config (the train phase's shapes)."""
+    serving = lint.tree_shardings(params, tfm.param_partition_spec(cfg))
+    out = {"serving_leaf_count": len(serving),
+           "model": {str(m): shd_summary(lint.sharding_preflight({"model": m}, serving))
+                     for m in SHD_MODEL_AXES}}
+    for m in SHD_MODEL_AXES:
+        got = out["model"][str(m)]
+        if m == 3:
+            assert got["rules"] == ["SHD302"] and got["findings"] > 0, (m, got)
+        else:
+            assert got["findings"] == 0, (m, got)
+    meta = tfm.init_params(BENCH_LM, torch.Generator(), device="meta")
+    layouts = {
+        "1f1b": (ppipe.transformer_stage_params(meta, SHD_PIPE), ppipe.pipeline_param_specs(),
+                 {"pipe": SHD_PIPE}),
+        "interleaved": (ppipe.transformer_interleaved_stage_params(meta, SHD_PIPE, PIPE["chunks"]),
+                        ppipe.interleaved_param_specs(), {"pipe": SHD_PIPE}),
+        "fsdp": (meta, pmesh.tree_map(lambda p: pfsdp.fsdp_leaf_spec(tuple(p.shape), "data",
+                                                                     SHD_DATA), meta),
+                 {"data": SHD_DATA}),
+    }
+    for name, (tree, spec, axes) in layouts.items():
+        shardings = lint.tree_shardings(tree, spec)
+        out[name] = {"mesh": axes, "leaf_count": len(shardings),
+                     **shd_summary(lint.sharding_preflight(axes, shardings))}
+        assert out[name]["findings"] == 0, (name, out[name])
+    return out
+
+
+def analysis_donation(cfg) -> dict:
+    """SHD304 with each function run on meta tensors: the trainer's update
+    (the bench LM's params in, AdamW, the params out, donated) and a
+    decode program over the serving config's pool (a step through the
+    paged functions, the pool and the carry's tokens and positions
+    written back in place, donated) give no finding; a seeded
+    dtype-changing function gives one."""
+    params = pmesh.tree_map(lambda t: t.requires_grad_(),
+                            tfm.init_params(BENCH_LM, torch.Generator(), device="meta"))
+    tokens = torch.empty((TRAIN_BATCH, TRAIN_SEQ + 1), dtype=torch.long, device="meta")
+
+    def update(params, tokens):
+        state = ttrainer.init_train_state(params, ttrainer.adamw(3e-4))
+        state, _ = ttrainer.make_lm_train_step(tfm.forward, BENCH_LM, None)(state, tokens)
+        return state["params"]
+
+    slots, max_len, bs = 8, 2048, 64
+    pool = tfm.init_paged_pool(cfg, slots * max_len // bs + 1, bs, device="meta")
+    carry = (torch.empty((slots, max_len // bs), dtype=torch.int32, device="meta"),
+             torch.empty(slots, dtype=torch.long, device="meta"),
+             torch.empty(slots, dtype=torch.long, device="meta"))
+
+    @torch.no_grad()
+    def decode_program(params, pool, tables, tokens, positions):
+        logits, pool = tfm.decode_tokens_paged(params, pool, tables, tokens, positions, cfg)
+        tokens.copy_(logits.argmax(-1))
+        positions.add_(1)
+        return pool, tokens, positions
+
+    out = {}
+    for name, fn, args, donate in (
+        ("update", update, (params, tokens), (0,)),
+        ("decode_program", decode_program,
+         (tfm.init_params(cfg, torch.Generator(), device="meta"), pool, *carry), (1, 3, 4)),
+        ("seeded_cast", lambda x: x.to(torch.bfloat16),
+         (torch.empty(64, device="meta"),), (0,)),
+    ):
+        t0 = time.monotonic()
+        findings = lint.donation_preflight(fn, args, donate_argnums=donate)
+        out[name] = {"findings": [f.rule_id for f in findings], "seconds": time.monotonic() - t0}
+    assert out["update"]["findings"] == out["decode_program"]["findings"] == [], out
+    assert out["seeded_cast"]["findings"] == ["SHD304"], out
+    return out
+
+
+def phase_analysis(params, cfg, card, tripwire: dict) -> dict:
+    """The analysis tooling on the card's machine: ``tripwire``, the
+    ``watched_wave`` lines of the plain 7B engine and the TP engine's
+    pools (read here); the sharding and donation preflights (host only);
+    the static legs of ``scripts/analysis_gate_torch.py`` (self-lint,
+    catalogs, fixtures), whose findings outside the baseline must be 0."""
+    t0 = time.monotonic()
+    line = {"phase": "analysis", "card": card, "tripwire": tripwire}
+    for name, wave in tripwire.items():
+        assert wave["captures"] == wave["graph_captures_delta"] == 0, (name, wave)
+        assert wave["paged_decode_launches"] > 0, (name, wave)
+    line["sharding"] = analysis_sharding(params, cfg)
+    line["donation"] = analysis_donation(cfg)
+    t = time.monotonic()
+    problems, line["self_lint"] = gate_script.self_lint()
+    problems += gate_script.catalog_lint() + gate_script.fixture_detection()
+    line["static_gate_s"] = time.monotonic() - t
+    assert not problems, problems
+    line["seconds"] = time.monotonic() - t0
+    return line
 
 
 def main() -> int:
@@ -3486,6 +3637,7 @@ def main() -> int:
     emit(engine_line)
     try:
         emit(phase_http(engine, card))
+        plain_wave = watched_wave(engine, serving_requests(tfm.LLAMA2_7B), "llama2-7b")
     finally:
         engine.stop()
     del engine
@@ -3522,6 +3674,11 @@ def main() -> int:
                    "steady_ms": engine_line["steady"]["ms_per_step"], "checkpoint": ckpt_dir}
         parallel_line = phase_parallel(dev, card, serving)
         emit(parallel_line)
+        tripwire = {"llama2-7b": plain_wave,
+                    **{f"tp_engine_{pool}": parallel_line["tp_engine"][pool]["watched"]
+                       for pool in ("bf16", "int8")}}
+        analysis_line = phase_analysis(params, tfm.LLAMA2_7B, card, tripwire)
+        emit(analysis_line)
         del params, serving
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -3550,6 +3707,11 @@ def main() -> int:
         # from the checkpoint on the mesh)
         by_path["tp_engine"] = tp_paths[variant]
         err_by_path["tp_engine"] = err_by_path["serving"]
+        # the waves the analysis phase watched for captures: the plain
+        # engine's (bf16) and the TP engine's on each pool
+        by_path["analysis"] = sum(wave["paged_decode_launches"] for name, wave in tripwire.items()
+                                  if name.endswith("int8") == (variant == "int8"))
+        err_by_path["analysis"] = err_by_path["serving"]
         if variant == "bf16":
             by_path["speculative"] = spec_line["spec"]["paged_decode_launches"]
             err_by_path["speculative"] = errs["verify/bfloat16/float"]

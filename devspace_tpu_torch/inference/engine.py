@@ -1205,7 +1205,7 @@ class InferenceEngine:
         n = len(blks)
         parts = []
         for j, h in enumerate(self._staging()):
-            view = h.numpy()
+            view = h.numpy()  # lint: allow(JIT502) — a view of pinned host memory, no copy
             for b, payload in enumerate(group):
                 view[b] = payload[j]
             t = torch.zeros((h.shape[1], _RESTORE_BATCH) + tuple(h.shape[2:]), dtype=h.dtype,

@@ -30,7 +30,10 @@ once (the carry's tokens and positions, a static output buffer).
 
 ``captures`` counts programs built: captures on the card, first uses on
 the CPU. It stays flat once ``prewarm`` has built every key, the
-counterpart of the reference's jit cache-size probe. The paged-decode
+counterpart of the reference's jit cache-size probe. Every table also
+adds each build to the process-wide ``CAPTURES``, which
+``lint.runtime.CompileWatch`` reads as the reference's watch reads XLA
+compiles. The paged-decode
 wrapper counts a launch where it runs, which for a graph is at capture;
 so each graph's launches are recorded at capture and added to
 ``paged_decode_launches`` on every replay.
@@ -39,11 +42,23 @@ so each graph's launches are recorded at capture and added to
 from __future__ import annotations
 
 import gc
+import threading
 from typing import Callable, Hashable
 
 import torch
 
 from ..ops import paged_attention as pa
+
+# programs built by every table of the process, monotone; tables may
+# build on several engines' loop threads at once
+CAPTURES = 0
+_captures_lock = threading.Lock()
+
+
+def _count_build() -> None:
+    global CAPTURES
+    with _captures_lock:
+        CAPTURES += 1
 
 
 class ProgramTable:
@@ -78,6 +93,7 @@ class ProgramTable:
         self._run_parked(self._fns[key])
         self._graphs[key] = None
         self.captures += 1
+        _count_build()
 
     def run(self, key: Hashable) -> None:
         """Run ``key`` once over the current buffers: replay its graph on
@@ -87,6 +103,7 @@ class ProgramTable:
             if key not in self._graphs:
                 self._graphs[key] = None
                 self.captures += 1
+                _count_build()
             self._fns[key]()
             return
         graph = self._graphs.get(key)
@@ -129,4 +146,5 @@ class ProgramTable:
             self._pool = graph.pool()
         self._graphs[key] = graph
         self.captures += 1
+        _count_build()
         return graph

@@ -233,7 +233,7 @@ def generate_speculative(
             choices, _ = _verify(target_params, t_cache, block, pos0[:, None] + steps[None],
                                  target_cfg)
             # one readback per round for both arrays
-            both = torch.cat([props, choices], dim=1).cpu().numpy()
+            both = torch.cat([props, choices], dim=1).cpu().numpy()  # lint: allow(JIT502) — the round's accept needs it
             props_h, choices_h = both[:, :k], both[:, k:]
             match = props_h == choices_h[:, :k]
             accepts = np.where(match.all(axis=1), k, match.argmin(axis=1))

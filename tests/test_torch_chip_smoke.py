@@ -531,6 +531,9 @@ def test_parallel_phase_rehearsed_on_the_cpu(monkeypatch, cpu_card, counting_lau
     for pool in ("bf16", "int8"):
         assert tp[pool]["streams_equal_plain"] and tp[pool]["graph_captures_after_prewarm"] == 0
         assert tp[pool]["launches"] == tfm.TINY.n_layers * tp[pool]["decode_steps"] > 0
+        watched = tp[pool]["watched"]  # the analysis phase's tripwire wave
+        assert watched["captures"] == watched["graph_captures_delta"] == 0
+        assert watched["paged_decode_launches"] == tfm.TINY.n_layers * watched["decode_steps"] > 0
     assert tp["bf16"]["steady"]["decode_steps"] > 0
     assert tp["bf16"]["built_by"] == "from_checkpoint(mesh=)"
     assert tp["seam"]["params_byte_equal"] and tp["seam"]["step"] == 1
@@ -538,3 +541,44 @@ def test_parallel_phase_rehearsed_on_the_cpu(monkeypatch, cpu_card, counting_lau
                                          "ring_vs_flash", "expert_parallel", "tp_engine"}
     assert pa.LAST_DISPATCH == {"impl": "reference", "tp": True}
     json.dumps(line)
+
+
+# -- a CPU rehearsal of the analysis phase ---------------------------------------
+def test_analysis_phase_rehearsed_on_the_cpu(counting_launches):
+    """The analysis phase's control flow and checks at TINY on the CPU: a
+    prewarmed engine's watched wave builds nothing and replays the paged
+    function ``n_layers`` times a step; SHD302 at ``model = 3`` only over
+    TINY's serving spec tree, the bench LM's pipeline and FSDP layouts
+    clean; SHD304 clean on the trainer's update and a decode program (on
+    meta tensors, TINY's config here), one finding on the seeded cast; the
+    gate's static legs at zero outside the baseline."""
+    from devspace_tpu_torch.inference import InferenceEngine
+    from devspace_tpu_torch.models import transformer as tfm
+
+    params = tfm.init_params(tfm.TINY, torch.Generator().manual_seed(0))
+    requests = tiny_serving_requests(tfm.TINY)
+    engine = InferenceEngine(params, tfm.TINY, device="cpu", max_slots=8, max_len=128)
+    cs.prewarm_engine(engine)
+    engine.start()
+    try:
+        wave = cs.watched_wave(engine, requests, "tiny")
+    finally:
+        engine.stop()
+    assert wave["captures"] == wave["graph_captures_delta"] == 0
+    assert wave["paged_decode_launches"] == tfm.TINY.n_layers * wave["decode_steps"] > 0
+    line = cs.phase_analysis(params, tfm.TINY, "cpu", {"tiny": wave})
+    assert line["phase"] == "analysis" and line["tripwire"] == {"tiny": wave}
+    sharding = line["sharding"]
+    assert sharding["serving_leaf_count"] == 3 + 9 * tfm.TINY.n_layers
+    assert sharding["model"]["3"]["rules"] == ["SHD302"]
+    assert all(sharding["model"][str(m)]["findings"] == 0 for m in (1, 2, 4, 8))
+    for name, axes in (("1f1b", {"pipe": 4}), ("interleaved", {"pipe": 4}),
+                       ("fsdp", {"data": 8})):
+        assert sharding[name]["mesh"] == axes and sharding[name]["findings"] == 0
+        assert sharding[name]["leaf_count"] > 0
+    donation = line["donation"]
+    assert donation["update"]["findings"] == donation["decode_program"]["findings"] == []
+    assert donation["seeded_cast"]["findings"] == ["SHD304"]
+    assert line["self_lint"]["outside_baseline"] == 0 and line["self_lint"]["files"] > 70
+    assert isinstance(line["static_gate_s"], float) and line["seconds"] >= line["static_gate_s"]
+    json.dumps(line)  # one JSON line

@@ -19,6 +19,9 @@ there is no CUDA device. Run on the card with
   stream equals a fresh engine's.
 - End to end: float32 TINY served through graphs at depth 1 and 2 equals
   greedy ``generate`` on the card, with and without a draft.
+- ``lint.runtime.CompileWatch`` counts the engine's real captures: every
+  program ``prewarm`` captures, none in the waves served after it, one
+  for a program key first reached after a ``reset()``.
 - With the host KV tier on an int8 pool, a spill and a restore after
   ``prewarm`` capture no graph and leave the pool's buffers where the
   graphs hold them: the chunks replayed after the restore decode the
@@ -35,6 +38,7 @@ import torch
 
 from devspace_tpu_torch.inference import InferenceEngine
 from devspace_tpu_torch.inference.engine import MODES
+from devspace_tpu_torch.lint.runtime import CompileWatch, RecompileError
 from devspace_tpu_torch.models import transformer as tfm
 from devspace_tpu_torch.ops import paged_attention as pa
 
@@ -295,3 +299,31 @@ def test_kv_tier_restore_decodes_through_the_graphs(dev):
     assert stats["host"]["kv_restore_hits"] == 3 and stats["host"]["kv_restore_fallbacks"] == 0
     assert stats["off"]["kv_restore_hits"] == 0
     assert streams["host"] == streams["off"]
+
+
+@pytest.mark.cuda
+def test_compile_watch_counts_captures_on_the_card(dev):
+    engine = make_engine(dev)
+    with CompileWatch("card") as watch:
+        engine.prewarm()
+        assert watch.count == engine.stats()["graph_captures"] == len(engine._programs.keys())
+        watch.reset()
+        engine.start()
+        try:
+            for h in [engine.submit(list(range(1, 9 + i)), 12) for i in range(3)]:
+                h.result(timeout=300)
+            assert watch.count == 0
+            assert engine.stats()["paged_decode_launches"] > 0
+        finally:
+            engine.stop()
+    watch.assert_no_recompiles()
+    # a table built without prewarm captures at first use, one key a capture
+    fresh = make_engine(dev)
+    watch = CompileWatch("first use").start()
+    key = fresh._programs.keys()[0]
+    fresh._programs.run(key)
+    fresh._programs.run(key)
+    torch.cuda.synchronize()
+    assert watch.stop() == 1 == fresh.stats()["graph_captures"]
+    with pytest.raises(RecompileError):
+        watch.assert_no_recompiles()

@@ -54,6 +54,11 @@ def test_every_module_imports_with_jax_blocked():
                  "serving.gateway", "serving.fleet", "serving.stub", "serving.autoscale",
                  "resilience.supervisor", "serve"):
         assert f"devspace_tpu_torch.{name}" in MODULES
+    for name in ("lint", "lint.engine", "lint.reporters", "lint.pysource",
+                 "lint.rules_concurrency", "lint.runtime", "lint.rules_hotpath",
+                 "lint.rules_sharding", "lint.rules_obs", "lint.rules_manifest",
+                 "lint.rules_docker", "generator", "generator.generator", "utils.topology"):
+        assert f"devspace_tpu_torch.{name}" in MODULES
 
 
 def imported_names(path: Path) -> list[str]:
@@ -73,6 +78,7 @@ def test_no_source_imports_jax_or_the_jax_package():
     files = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"] + [
         REPO / "scripts" / f"train_{name}_torch.py"
         for name in ("draft_pair", "resnet", "mnist", "long_context")] + [
+        REPO / "scripts" / "analysis_gate_torch.py"] + [
         REPO / "tests" / f"torch_parallel_{name}.py" for name in ("world", "workers")]
     bad = {
         str(f.relative_to(REPO)): name

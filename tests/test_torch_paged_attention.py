@@ -109,14 +109,18 @@ def test_no_silent_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tdevice.resolve_device("cuda")
     assert tdevice.resolve_device("cpu") == torch.device("cpu")
-    # a tensor on neither the CPU nor a CUDA device is refused, not
-    # quietly computed some other way
+    # meta tensors (shapes, no data) trace the plain version, as the
+    # sharding preflight runs a function (ops.dispatch.on_cuda): nothing
+    # is computed; a mix of devices is refused, not quietly computed
+    # some other way
     cpu = [torch.from_numpy(a) for a in make_inputs(1)]
     meta = [t.to("meta") for t in cpu]
-    with pytest.raises(ValueError):
-        tpa.paged_decode_attention(*meta)
+    out = tpa.paged_decode_attention(*meta)
+    assert out.device.type == "meta" and out.shape == cpu[0].shape
     with pytest.raises(ValueError):
         tpa.paged_decode_attention(cpu[0], *meta[1:])
+    with pytest.raises(ValueError):
+        tpa.paged_decode_attention(*cpu[:-1], meta[-1])
 
 
 @pytest.mark.parametrize(
