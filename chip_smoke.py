@@ -46,7 +46,18 @@ three paths:
   token count, to each replica's kernel launches and flat graph
   captures; one replica is SIGKILLed (a request routed to it is rerouted
   before its first byte) and restarted; a third replica's ``/readyz``
-  flips to 503 under an injected TTFT breach and comes back;
+  flips to 503 under an injected TTFT breach and comes back; then the
+  serving chaos harness (``chaos`` phase): two more replicas of that
+  checkpoint, with the host KV tier, take three scenarios of
+  scripts/chaos_serving_check_torch.py through the port's open-loop
+  ``LoadGenerator``: Poisson traffic with one replica SIGKILLed
+  mid-stream, chat waves through the gateway with the prefix-hot replica
+  SIGKILLed mid-wave and TTFT after recovery held to the healthy wave's,
+  and RAG traffic under two-phase placement (a live KVM1 migration
+  first) with the prefill-pool replica SIGKILLed at its first placement;
+  every request ends terminal, none hung, each stream held to the one a
+  replica serves alone for its prompt, a corrupted one only at a near
+  tie;
 - speculative serving: the target and draft LMs of
   scripts/train_draft_pair.py (target: vocab 32000, dim 1024, 8 layers,
   8 heads, ffn 2816; draft: dim 256, 2 layers, 4 heads, ffn 704; bf16)
@@ -119,6 +130,7 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import hashlib
 import itertools
 import json
 import math
@@ -273,6 +285,47 @@ RMS_BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-6)
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def child_pids() -> list:
+    """This process's live children (zombies left out), from /proc."""
+    me, out = str(os.getpid()), []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmd = f.read()
+        except OSError:
+            continue
+        # multiprocessing's resource tracker ends when this process does
+        if ppid == me and state != "Z" and b"resource_tracker" not in cmd:
+            out.append(int(entry))
+    return out
+
+
+def stop_children(grace_s: float = 10.0) -> list:
+    """SIGTERM every child still running (a phase that failed may leave
+    one: a replica mid-restart, a rank), SIGKILL what outlives
+    ``grace_s``, and reap them; returns their pids."""
+    import signal
+
+    pids = child_pids()
+    for pid in pids:
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(pid, signal.SIGTERM)
+    deadline = time.monotonic() + grace_s
+    while child_pids() and time.monotonic() < deadline:
+        time.sleep(0.1)
+    for pid in child_pids():
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(pid, signal.SIGKILL)
+    for pid in pids:
+        with contextlib.suppress(ChildProcessError):
+            os.waitpid(pid, 0)
+    return pids
 
 
 def card_line() -> str:
@@ -2581,7 +2634,7 @@ def histogram_quantile(value: dict, q: float) -> Optional[float]:
 def start_seconds(replica) -> dict:
     """A stopped replica's own start report: the engine build (the
     checkpoint's load) and prewarm seconds it printed."""
-    out = (replica.proc.stdout.read() or b"").decode(errors="replace")
+    out = replica.output()
     times = {}
     for key, pattern in (("load_s", r"engine built in ([0-9.]+)s"),
                          ("prewarm_s", r"prewarmed \d+ programs in ([0-9.]+)s")):
@@ -2756,15 +2809,7 @@ def phase_fleet(ckpt_dir: str, card: str, tie_bound: float, dev, model: str = "l
         assert retries == retries0 + 1, (retries0, retries)
         assert len(rerouted) == n_new
         stopped.append(old)
-        deadline = t_kill + FLEET["ready_timeout_s"]
-        while time.monotonic() < deadline:
-            cur = fleet.replica(victim)
-            if cur is not None and cur.pid != old.pid and fleet.all_healthy():
-                break
-            time.sleep(0.5)
-        else:
-            raise AssertionError(f"{victim} not restarted within {FLEET['ready_timeout_s']} s")
-        restart_s = time.monotonic() - t_kill
+        restart_s = wait_restarted(fleet, victim, old.pid, t_kill)
         restarted = fleet.replica(victim)
         again = stream_generate(restarted.base_url, traffic[0][1], n_new)
         restarted_health = get_json(restarted.base_url + "/healthz")[1]
@@ -2843,6 +2888,560 @@ def phase_fleet(ckpt_dir: str, card: str, tie_bound: float, dev, model: str = "l
     line.update({"near_ties": ties, "near_tie_bound": tie_bound})
     return line
 
+
+# -- the serving chaos harness on the card ---------------------------------------
+# Three scenarios of scripts/chaos_serving_check_torch.py (the reference's
+# traffic, the port's loadgen) on two Llama-2-7B replicas sharing the
+# card, started once: each prompt id mapped into the vocabulary, every
+# stream held to the stream one replica alone serves for its prompt.
+# Timeouts are the reference scenarios' (request, hang; seconds)
+CHAOS = {
+    "kill_mid_stream": {
+        "trace": {"seed": 11, "kind": "poisson", "duration_s": 3.0, "rate_rps": 15,
+                  "max_new_tokens": (24, 48)},
+        "request_timeout_s": 10.0, "hang_timeout_s": 25.0, "max_attempts": 2},
+    "router_kill_prefix_hot": {
+        "waves": (21, 22, 23),
+        "trace": {"kind": "chat", "duration_s": 2.0, "rate_rps": 10, "turns": (2, 3),
+                  "max_new_tokens": (16, 24), "prompt_len": (64, 192)},
+        "block_size": 64, "request_timeout_s": 10.0, "hang_timeout_s": 25.0,
+        "max_attempts": 4},
+    "disagg_kill_prefill": {
+        "trace": {"seed": 31, "kind": "rag", "duration_s": 2.5, "rate_rps": 10,
+                  "rag_contexts": 4, "rag_context_len": (512, 1024), "rag_long_fraction": 0.5,
+                  "max_new_tokens": (12, 24)},
+        "pool": "replica-1", "disagg_threshold_tokens": 32, "block_size": 64,
+        "request_timeout_s": 15.0, "hang_timeout_s": 30.0, "max_attempts": 4},
+    "in_flight": 8,
+}
+# the two changes to the reference scenarios' traffic
+CHAOS_CHANGED = [
+    {"scenario": "router-kill-prefix-hot", "field": "prompt_len", "reference": [4, 32],
+     "here": [64, 192],
+     "reason": "each session's first turn fills at least one 64-token block of the engine, "
+               "so the router's shadow index (at the engine's block size) sees the prefix"},
+    {"scenario": "disagg-kill-prefill", "field": "rag_context_len", "reference": [96, 128],
+     "here": [512, 1024],
+     "reason": "each context is 8-16 blocks of 64, so a chain migration is in flight long "
+               "enough to be killed; 96-128 tokens are one or two blocks at this block size"},
+]
+# the replicas' host KV tier: a kv_source pull lands in it
+CHAOS_ENV = {"DEVSPACE_KV_TIER": "host"}
+# the replica that serves each scenario's expected streams alone: the
+# one (a) does not kill, and (c)'s prefill pool, whose cache dies with it
+CHAOS_DIRECT = "replica-1"
+# (c)'s live migration before its kill: one fresh prompt of ten 64-token
+# blocks, 16 new tokens
+CHAOS_LIVE_TOKENS = 640
+CHAOS_LIVE_NEW = 16
+
+
+def in_vocab(trace: list, vocab: int) -> list:
+    """``trace`` with every prompt id mapped into ``[1, vocab)`` by
+    ``1 + (id - 1) % (vocab - 1)``: the loadgen draws ids from [1, 50000)
+    and the engine refuses ids outside its vocabulary. One map for every
+    event, so chat turns and RAG queries still share their prefixes."""
+    return [{**e, "prompt_ids": [1 + (t - 1) % (vocab - 1) for t in e["prompt_ids"]]}
+            for e in trace]
+
+
+def request_key(event: dict) -> tuple:
+    return tuple(event["prompt_ids"]), event["max_new_tokens"]
+
+
+def expected_streams(url: str, trace: list, workers: int) -> dict:
+    """{request_key: greedy stream} for each distinct request of
+    ``trace``, served by the replica at ``url`` alone."""
+    keys = sorted({request_key(e) for e in trace})
+    streams = run_concurrent(lambda k: stream_generate(url, list(k[0]), k[1]), keys, workers)
+    return dict(zip(keys, streams))
+
+
+def wait_restarted(fleet, name: str, old_pid: int, t_kill: float) -> float:
+    """Seconds from ``t_kill`` until ``name`` runs as a new process and the
+    whole fleet is healthy again; raises past the fleet's ready timeout."""
+    while time.monotonic() - t_kill < FLEET["ready_timeout_s"]:
+        cur = fleet.replica(name)
+        if cur is not None and cur.pid != old_pid and fleet.all_healthy():
+            return time.monotonic() - t_kill
+        time.sleep(0.5)
+    raise AssertionError(f"{name} not restarted within {FLEET['ready_timeout_s']} s")
+
+
+def wait_until(cond, timeout_s: float, what: str, interval: float = 0.02) -> None:
+    deadline = time.monotonic() + timeout_s
+    while not cond():
+        assert time.monotonic() < deadline, f"timed out after {timeout_s} s waiting for {what}"
+        time.sleep(interval)
+
+
+class ReplicaWatch:
+    """Each replica process's ``/healthz`` when it was first seen ready and
+    when it was last read (a killed one: just before its kill)."""
+
+    def __init__(self, fleet):
+        self.fleet = fleet
+        self.rows: dict = {}
+
+    def key(self, name: str) -> str:
+        return f"{name}:{self.fleet.replica(name).pid}"
+
+    def read(self, name: str) -> dict:
+        replica = self.fleet.replica(name)
+        health = get_json(replica.base_url + "/healthz")[1]
+        row = self.rows.setdefault(self.key(name), {"ready": health, "killed": False,
+                                                    "replica": replica})
+        row["last"] = health
+        return health
+
+    def seen(self) -> None:
+        """Register every replica not yet seen (after a start or restart)."""
+        for name in self.fleet.names():
+            if self.key(name) not in self.rows:
+                self.read(name)
+
+    def kill(self, name: str) -> int:
+        """Read ``name`` once more, SIGKILL it; returns its pid. A thread
+        records the seconds until the process is gone (``dead_after_s``):
+        until then its listening socket still accepts connections."""
+        self.read(name)
+        old = self.fleet.replica(name)
+        row = self.rows[self.key(name)]
+        row["killed"] = True
+        t0 = time.monotonic()
+        self.fleet.kill(name)
+
+        def reaped():
+            old.proc.wait()
+            row["dead_after_s"] = time.monotonic() - t0
+
+        threading.Thread(target=reaped, daemon=True).start()
+        return old.pid
+
+    def tokens(self, *names: str) -> int:
+        """The tokens these replicas have generated, read now."""
+        return sum(self.read(name)["tokens_generated"] for name in names)
+
+    def summary(self, dev) -> tuple[dict, int]:
+        """Per process: captures at ready and last, launches and tokens
+        between; none captured a graph after prewarm, and each that served
+        and was not killed ran the kernel (on the card: a killed one may
+        have been read at its first token, which prefill makes). Returns
+        (rows, launches)."""
+        out, launches = {}, 0
+        for key, row in self.rows.items():
+            first, last = row["ready"], row["last"]
+            n = last["paged_decode_launches"] - first["paged_decode_launches"]
+            tokens = last["tokens_generated"] - first["tokens_generated"]
+            assert last["graph_captures"] == first["graph_captures"] > 0, (key, first, last)
+            assert n > 0 or not tokens or row["killed"] or dev.type != "cuda", (key, last)
+            out[key] = {"graph_captures_ready": first["graph_captures"],
+                        "graph_captures_last": last["graph_captures"],
+                        "paged_decode_launches": n, "tokens": tokens, "served": tokens > 0,
+                        "killed": row["killed"], "dead_after_s": row.get("dead_after_s"),
+                        "output_bytes": row["replica"].output_bytes}
+            launches += n
+        return out, launches
+
+
+class AttemptLog:
+    """Every attempt of a scenario's requests, at the client and at the
+    gateway, and the kill, in seconds from the log's start: a hung or
+    failed outcome's report carries its own attempts."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.reset()
+
+    def reset(self) -> None:
+        """Start over (a new wave: its ids repeat the last one's)."""
+        with self.lock:
+            self.t0 = time.monotonic()
+            self.rows: list = []
+
+    def now(self) -> float:
+        return time.monotonic() - self.t0
+
+    def add(self, row: dict) -> dict:
+        with self.lock:
+            self.rows.append(row)
+        return row
+
+    def timed(self, side: str, key, fn, *args):
+        """``fn(*args)``, logged as one attempt under ``key``."""
+        row = self.add({"side": side, "key": key, "start_s": self.now()})
+        try:
+            return fn(*args)
+        except BaseException as e:
+            row["error"] = repr(e)[:160]
+            raise
+        finally:
+            row["end_s"] = self.now()
+
+    def of(self, event: dict) -> list:
+        keys = (event["id"], prompt_key(event["prompt_ids"]))
+        with self.lock:
+            return [r for r in self.rows if r.get("key") in keys or r["side"] == "kill"]
+
+
+def prompt_key(prompt: list) -> str:
+    return hashlib.blake2b(json.dumps(prompt).encode(), digest_size=8).hexdigest()
+
+
+def timed_loadgen(log: AttemptLog, *args, **kw):
+    """A ``LoadGenerator`` whose stream attempts ``log`` records."""
+    from devspace_tpu_torch.serving import LoadGenerator
+
+    class Timed(LoadGenerator):
+        def _stream_once(self, url, event, deadline):
+            return log.timed("client", event["id"], super()._stream_once, url, event, deadline)
+
+    return Timed(*args, **kw)
+
+
+def timed_gateway(log: AttemptLog, router):
+    """A started ``RoutingGateway`` whose upstream opens ``log`` records."""
+    from devspace_tpu_torch.serving.gateway import RoutingGateway
+
+    class Timed(RoutingGateway):
+        def _open_upstream(self, url, body, headers):
+            key = prompt_key(json.loads(body)["prompt_ids"])
+            return log.timed(f"gateway {url}", key, super()._open_upstream, url, body, headers)
+
+    gw = Timed(router, port=0)
+    gw.start()
+    return gw
+
+
+def engine_rows(fleet, event: dict) -> dict:
+    """Each live replica's request traces of ``event``'s shape (prompt
+    length, new tokens), from its ``/debug/requests``."""
+    out = {}
+    for name, url in fleet.targets().items():
+        try:
+            rows = get_json(url + "/debug/requests?limit=400", timeout=10)[1]["requests"]
+        except (OSError, KeyError, ValueError) as e:
+            out[name] = repr(e)[:160]
+            continue
+        out[name] = [{k: r[k] for k in ("outcome", "queue_wait_s", "ttft_s", "events")}
+                     for r in rows if r["prompt_len"] == len(event["prompt_ids"])
+                     and r["max_new_tokens"] == event["max_new_tokens"]]
+    return out
+
+
+def run_while(gen, trace: list, action) -> tuple:
+    """Replay ``trace`` through ``gen`` in a thread, run ``action()`` (the
+    kill) meanwhile; (report, action's result)."""
+    box = {}
+    th = threading.Thread(target=lambda: box.__setitem__("report", gen.run(trace)),
+                          daemon=True)
+    th.start()
+    try:
+        result = action()
+    finally:
+        th.join(timeout=gen.hang_timeout_s + gen.request_timeout_s + 60)
+    assert not th.is_alive(), "the loadgen did not finish"
+    return box["report"], result
+
+
+def held(scenario: str, report, trace: list, table: dict, corrupted: list,
+         log: AttemptLog, fleet) -> dict:
+    """The loadgen's report on ``trace``, with the failed and hung
+    outcomes' errors, arrival, attempts (``log``) and engine traces:
+    every request terminal, none hung; the corrupted ones kept for the
+    near-tie check."""
+    counts = report.counts()
+    by_id = {e["id"]: e for e in trace}
+    others = [{"id": o.id, "outcome": o.outcome, "attempts": o.attempts,
+               "latency_s": o.latency_s, "error": o.error[:160], "at_s": by_id[o.id]["at"],
+               "log": log.of(by_id[o.id]), "engine": engine_rows(fleet, by_id[o.id])}
+              for o in report.outcomes if o.outcome in ("failed", "hung")]
+    assert len(report.outcomes) == len(trace), (scenario, len(report.outcomes), len(trace))
+    assert counts["hung"] == 0, (scenario, counts, json.dumps(others))
+    for o in report.outcomes:
+        if o.outcome == "corrupted":
+            e = by_id[o.id]
+            corrupted.append({"scenario": scenario, "id": o.id, "prompt": e["prompt_ids"],
+                              "expected": table[request_key(e)],
+                              "received": o.received, "error": o.error})
+    return {**report.to_dict(), "failed_or_hung": others}
+
+
+def router_counters(router) -> dict:
+    return {name: fam["samples"][0][1] if len(fam["samples"]) == 1
+            else [[lb, v] for lb, v in fam["samples"]]
+            for name, fam in router.registry.snapshot().items()
+            if name.startswith("serving_router_") and fam["kind"] == "counter"}
+
+
+def chaos_kill_mid_stream(fleet, watch, cfg, corrupted: list) -> dict:
+    """(a) Poisson traffic straight to the replicas; replica-0 is
+    SIGKILLed once a stream from it has delivered a token."""
+    from devspace_tpu_torch.serving import TraceSpec, generate_trace
+
+    sc = CHAOS["kill_mid_stream"]
+    trace = in_vocab(generate_trace(TraceSpec(**sc["trace"])), cfg.vocab_size)
+    table = expected_streams(fleet.targets()[CHAOS_DIRECT], trace, CHAOS["in_flight"])
+    log = AttemptLog()
+    gen = timed_loadgen(log, fleet.targets, request_timeout_s=sc["request_timeout_s"],
+                        hang_timeout_s=sc["hang_timeout_s"], max_attempts=sc["max_attempts"],
+                        expected_fn=lambda e: table[request_key(e)])
+    victim = fleet.names()[0]
+    base = watch.tokens(victim)
+
+    def kill():
+        wait_until(lambda: watch.tokens(victim) > base, 60,
+                   f"a token from {victim}")
+        t = time.monotonic()
+        log.add({"side": "kill", "start_s": log.now(), "victim": victim})
+        return watch.kill(victim), t
+
+    log.reset()
+    report, (old_pid, t_kill) = run_while(gen, trace, kill)
+    out = held("kill-mid-stream", report, trace, table, corrupted, log, fleet)
+    healthy_s = wait_restarted(fleet, victim, old_pid, t_kill)
+    watch.seen()
+    assert out["counts"]["retried"] >= 1, ("no stream was cut", out)
+    return {"trace": sc["trace"], "requests": len(trace), "distinct": len(table),
+            "report": out, "victim": victim, "all_healthy_after_s": healthy_s,
+            "timeouts_s": [sc["request_timeout_s"], sc["hang_timeout_s"]],
+            "max_attempts": sc["max_attempts"]}
+
+
+def chaos_router_kill_prefix_hot(fleet, watch, cfg, corrupted: list) -> dict:
+    """(b) Three chat waves through the gateway; the replica holding the
+    most shadow blocks is SIGKILLed while wave 22 streams; wave 23's p99
+    TTFT must come back within the reference's bound of wave 21's."""
+    from devspace_tpu_torch.serving import TraceSpec, generate_trace
+    from devspace_tpu_torch.serving.router import PrefixRouter, RouterConfig
+
+    sc = CHAOS["router_kill_prefix_hot"]
+    router = PrefixRouter(replicas_fn=fleet.targets,
+                          config=RouterConfig(admission=False, block_size=sc["block_size"]))
+    log = AttemptLog()
+    gw = timed_gateway(log, router)
+    waves, reports = {}, {}
+    try:
+        for seed in sc["waves"]:
+            trace = in_vocab(generate_trace(TraceSpec(seed=seed, **sc["trace"])),
+                             cfg.vocab_size)
+            table = expected_streams(fleet.targets()[CHAOS_DIRECT], trace, CHAOS["in_flight"])
+            gen = timed_loadgen(
+                log, lambda: {"gw": gw.base_url}, request_timeout_s=sc["request_timeout_s"],
+                hang_timeout_s=sc["hang_timeout_s"], max_attempts=sc["max_attempts"],
+                expected_fn=lambda e, t=table: t[request_key(e)])
+            row = {"requests": len(trace), "distinct": len(table)}
+            log.reset()
+            if seed == sc["waves"][1]:
+                names = fleet.names()
+                base = watch.tokens(*names)
+
+                def kill():
+                    wait_until(lambda: watch.tokens(*names) > base, 60, "wave 22's first token")
+                    blocks = router.stats()["shadow_blocks"]
+                    hot = max(sorted(blocks), key=lambda n: blocks[n])
+                    t = time.monotonic()
+                    log.add({"side": "kill", "start_s": log.now(), "victim": hot})
+                    return hot, blocks, watch.kill(hot), t
+
+                report, (hot, blocks, old_pid, t_kill) = run_while(gen, trace, kill)
+                row["report"] = held(f"router-kill-prefix-hot/{seed}", report, trace, table,
+                                     corrupted, log, fleet)
+                row["all_healthy_after_s"] = wait_restarted(fleet, hot, old_pid, t_kill)
+                row.update(victim=hot, shadow_blocks=blocks)
+                watch.seen()
+            else:
+                report = gen.run(trace)
+                row["report"] = held(f"router-kill-prefix-hot/{seed}", report, trace, table,
+                                     corrupted, log, fleet)
+            reports[seed] = report
+            waves[str(seed)] = row
+        p99_healthy = reports[sc["waves"][0]].ttft_quantile(0.99)
+        p99_after = reports[sc["waves"][2]].ttft_quantile(0.99)
+        bound = max(2.5 * p99_healthy, p99_healthy + 0.25)
+        assert p99_after <= bound, ("p99 TTFT did not re-converge", p99_after, p99_healthy,
+                                    bound)
+        return {"trace": {**sc["trace"], "seeds": list(sc["waves"])}, "waves": waves,
+                "p99_ttft_healthy_s": p99_healthy, "p99_ttft_recovered_s": p99_after,
+                "p99_ttft_bound_s": bound, "router_retries":
+                sample_value(router.registry.snapshot(), "serving_router_retries_total"),
+                "router_counters": router_counters(router),
+                "timeouts_s": [sc["request_timeout_s"], sc["hang_timeout_s"]],
+                "max_attempts": sc["max_attempts"], "block_size": sc["block_size"]}
+    finally:
+        gw.stop()
+
+
+def disagg_live_migration(fleet, watch, cfg, config, corrupted: list) -> dict:
+    """One fresh prompt of CHAOS_LIVE_TOKENS through a gateway with
+    two-phase placement, before any kill: it prefills on the pool, the
+    other replica pulls its KVM1 chain and decodes, and the stream equals
+    the one the pool serves for it directly (or parts at a near tie)."""
+    from devspace_tpu_torch.serving.gateway import RoutingGateway
+    from devspace_tpu_torch.serving.router import PrefixRouter
+
+    pool = config.prefill_pool[0]
+    prompt = np.random.default_rng(15).integers(1, cfg.vocab_size, CHAOS_LIVE_TOKENS).tolist()
+    before = {n: watch.read(n) for n in fleet.names()}
+    router = PrefixRouter(replicas_fn=fleet.targets, config=config)
+    gw = RoutingGateway(router, port=0)
+    gw.start()
+    try:
+        got = stream_generate(gw.base_url, prompt, CHAOS_LIVE_NEW)
+        d = router.stats()["recent_decisions"][-1]
+    finally:
+        gw.stop()
+    after = {n: watch.read(n) for n in fleet.names()}
+    decode = d["replica"]
+    delta = {f: after[decode][f] - before[decode][f]
+             for f in ("kv_migrate_chains", "kv_migrate_blocks", "kv_migrate_bytes",
+                       "kv_migrate_failures")}
+    exported = after[pool]["kv_export_chains"] - before[pool]["kv_export_chains"]
+    assert d["prefill_replica"] == pool and decode != pool, d
+    assert delta["kv_migrate_chains"] >= 1 and delta["kv_migrate_bytes"] > 0, delta
+    assert delta["kv_migrate_failures"] == 0 and exported >= 1, (delta, exported)
+    direct = stream_generate(fleet.targets()[pool], prompt, CHAOS_LIVE_NEW)
+    if got != direct:
+        corrupted.append({"scenario": "disagg-live", "id": 0, "prompt": prompt,
+                          "expected": direct, "received": got, "error": "gateway stream"})
+    return {"prompt_tokens": len(prompt), "new_tokens": len(got), "decode_replica": decode,
+            "prefill_replica": pool, **delta, "export_chains": exported,
+            "stream_equals_direct": got == direct}
+
+
+def chaos_disagg_kill_prefill(fleet, watch, cfg, corrupted: list) -> dict:
+    """(c) Short chat and long RAG prompts through the gateway with
+    two-phase placement, ``replica-1`` the prefill pool; the pool is
+    SIGKILLed at the first two-phase placement. No request may fail, and
+    every failed migration counts one recompute fallback."""
+    from devspace_tpu_torch.serving import TraceSpec, generate_trace
+    from devspace_tpu_torch.serving.router import PrefixRouter, RouterConfig
+
+    sc = CHAOS["disagg_kill_prefill"]
+    pool = sc["pool"]
+    config = RouterConfig(admission=False, prefill_pool=(pool,), block_size=sc["block_size"],
+                          disagg_threshold_tokens=sc["disagg_threshold_tokens"])
+    live = disagg_live_migration(fleet, watch, cfg, config, corrupted)
+    trace = in_vocab(generate_trace(TraceSpec(**sc["trace"])), cfg.vocab_size)
+    table = expected_streams(fleet.targets()[CHAOS_DIRECT], trace, CHAOS["in_flight"])
+    start = {watch.key(n): watch.read(n) for n in fleet.names()}
+    router = PrefixRouter(replicas_fn=fleet.targets, config=config)
+    log = AttemptLog()
+    gw = timed_gateway(log, router)
+    try:
+        gen = timed_loadgen(
+            log, lambda: {"gw": gw.base_url}, request_timeout_s=sc["request_timeout_s"],
+            hang_timeout_s=sc["hang_timeout_s"], max_attempts=sc["max_attempts"],
+            expected_fn=lambda e: table[request_key(e)])
+
+        def kill():
+            wait_until(lambda: any(d.get("prefill_replica")
+                                   for d in router.stats()["recent_decisions"]),
+                       60, "the first two-phase placement", interval=0.01)
+            t = time.monotonic()
+            log.add({"side": "kill", "start_s": log.now(), "victim": pool})
+            return watch.kill(pool), t
+
+        log.reset()
+        report, (old_pid, t_kill) = run_while(gen, trace, kill)
+        out = held("disagg-kill-prefill", report, trace, table, corrupted, log, fleet)
+        assert out["counts"]["failed"] == 0, out
+        snap = router.registry.snapshot()
+        dispatches = sample_value(snap, "serving_router_prefill_dispatches_total")
+        assert dispatches >= 1, "no two-phase placement fired"
+        wait_until(lambda: router.stats()["prefill_tokens"] == {}, 20,
+                   "the router's in-flight prefill accounting to drain", interval=0.05)
+        healthy_s = wait_restarted(fleet, pool, old_pid, t_kill)
+        watch.seen()
+        # over the live fleet, since the scenario began: a process that
+        # started since counts from zero
+        failures = fallbacks = 0
+        for name in fleet.names():
+            now, before = watch.read(name), start.get(watch.key(name))
+            failures += now["kv_migrate_failures"] - (before or {}).get("kv_migrate_failures", 0)
+            fallbacks += now["kv_restore_fallbacks"] - (before or {}).get(
+                "kv_restore_fallbacks", 0)
+        assert failures == fallbacks, ("a failed migration was not degraded cleanly",
+                                       failures, fallbacks)
+        return {"live_migration": live, "trace": sc["trace"], "requests": len(trace),
+                "distinct": len(table), "report": out, "victim": pool,
+                "all_healthy_after_s": healthy_s,
+                "prefill_dispatches": dispatches,
+                "phase1_failures": sample_value(snap, "serving_router_prefill_failures_total"),
+                "migrate_failures": failures, "recompute_fallbacks": fallbacks,
+                "router_retries": sample_value(snap, "serving_router_retries_total"),
+                "router_counters": router_counters(router),
+                "disagg_threshold_tokens": sc["disagg_threshold_tokens"],
+                "block_size": sc["block_size"],
+                "timeouts_s": [sc["request_timeout_s"], sc["hang_timeout_s"]],
+                "max_attempts": sc["max_attempts"]}
+    finally:
+        gw.stop()
+
+
+def phase_chaos(ckpt_dir: str, card: str, tie_bound: float, dev, model: str = "llama2-7b",
+                cfg=tfm.LLAMA2_7B) -> dict:
+    """Three of the serving chaos scenarios (scripts/chaos_serving_check_torch.py)
+    on two Llama-2-7B torch replicas of the checkpoint sharing the card
+    (bf16, ``PREWARM=1``, 8 slots, the host KV tier), started once:
+    (a) kill-mid-stream, (b) router-kill-prefix-hot, (c)
+    disagg-kill-prefill, each with the reference's traffic through the
+    port's ``LoadGenerator``, a SIGKILL of a replica while streams flow
+    and a restart within the fleet's ready timeout. Every request ends
+    terminal, none hung; a ``corrupted`` one must have left its expected
+    stream at a near tie (``near_tie`` over the restored params, after
+    the fleet stops), each token it delivered the argmax of an eager
+    forward or a near tie there (``argmax_ties``), or the phase fails."""
+    from devspace_tpu_torch.serving import ReplicaFleet
+
+    line = {"phase": "chaos", "model": model, "card": card, "replicas": 2,
+            "max_slots": FLEET["max_slots"], "env": {**FLEET_SLO_ENV, **CHAOS_ENV},
+            "ready_timeout_s": FLEET["ready_timeout_s"], "in_flight": CHAOS["in_flight"],
+            "changed": CHAOS_CHANGED, "prompt_ids": "1 + (id - 1) % (vocab - 1)",
+            "sampled": "ignored by the server: every stream is greedy",
+            "expected": "each distinct (prompt, max_new_tokens) served by one replica alone, "
+                        f"{CHAOS['in_flight']} in flight, before its scenario (wave)",
+            "note": "a killed replica's counts die with it: its row is its last /healthz "
+                    "before the kill"}
+    fleet = ReplicaFleet(spec=replica_spec(ckpt_dir, model, **FLEET_SLO_ENV, **CHAOS_ENV),
+                         replicas=2, poll_interval=1.0)
+    watch = ReplicaWatch(fleet)
+    corrupted = []
+    t0 = time.monotonic()
+    try:
+        fleet.start()
+        line["fleet_start_s"] = time.monotonic() - t0
+        watch.seen()
+        for key, run in (("kill_mid_stream", chaos_kill_mid_stream),
+                         ("router_kill_prefix_hot", chaos_router_kill_prefix_hot),
+                         ("disagg_kill_prefill", chaos_disagg_kill_prefill)):
+            t = time.monotonic()
+            line[key] = run(fleet, watch, cfg, corrupted)
+            line[key]["seconds"] = time.monotonic() - t
+        for name in fleet.names():
+            watch.read(name)
+        line["replicas_seen"], line["paged_decode_launches"] = watch.summary(dev)
+    finally:
+        fleet.stop()
+    # a corrupted stream must have left its expected one at a near tie,
+    # and every token it delivered must be the argmax of an eager forward
+    # over its own prefix or a near tie there
+    ties = []
+    if corrupted:
+        params, _ = load_serving_params(ckpt_dir, cfg, device=dev)
+        for c in corrupted:
+            a, b = c["expected"], c["received"]
+            assert any(x != y for x, y in zip(a, b)), ("corrupted, not at a near tie", c)
+            ties.append({"scenario": c["scenario"], "id": c["id"],
+                         **near_tie(params, c["prompt"], a, b, tie_bound, cfg),
+                         "received": len(b), "received_near_ties":
+                         len(argmax_ties(params, cfg, c["prompt"], b, tie_bound))})
+        del params
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    line.update({"near_ties": ties, "near_tie_count": len(ties), "near_tie_bound": tie_bound,
+                 "seconds": time.monotonic() - t0})
+    return line
 
 # -- parallel/ over torch.distributed ------------------------------------------
 # examples/long-context/train.py's widths; its sequence of 32768 tokens is
@@ -3664,6 +4263,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         fleet_line = phase_fleet(ckpt_dir, card, engine_line["near_tie_bound"], dev)
         emit(fleet_line)
+        chaos_line = phase_chaos(ckpt_dir, card, engine_line["near_tie_bound"], dev)
+        emit(chaos_line)
         gc.collect()
         torch.cuda.empty_cache()
         # the same seed: the params the engines above served
@@ -3722,6 +4323,10 @@ def main() -> int:
             # replica's /healthz counts its replays
             by_path["fleet"] = fleet_line["paged_decode_launches"]
             err_by_path["fleet"] = err_by_path["serving"]
+            # the chaos phase's replicas, from each process's /healthz (a
+            # killed one's up to its last read before the kill)
+            by_path["chaos"] = chaos_line["paged_decode_launches"]
+            err_by_path["chaos"] = err_by_path["serving"]
         kernels.append({
             "name": f"paged_decode[{variant} pool]",
             "route": "cuda",
@@ -3834,4 +4439,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        if left := stop_children():
+            print(f"chip_smoke: stopped child processes left running: {left}", file=sys.stderr)
+    sys.exit(rc)

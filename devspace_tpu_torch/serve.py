@@ -107,6 +107,7 @@ from .obs import events as obs_events
 from .obs import slo as obs_slo
 from .obs.metrics import get_registry
 from .obs.tracing import get_tracer
+from .serving.gateway import LISTEN_BACKLOG
 
 CONFIGS = {"tiny": tfm.TINY, "llama2-7b": tfm.LLAMA2_7B, "llama2-13b": tfm.LLAMA2_13B}
 BLOCK_SIZE = 64  # the engine's paged-KV block, in tokens
@@ -475,10 +476,15 @@ def make_handler(server: Server):
     return Handler
 
 
+class _HTTPServer(http.server.ThreadingHTTPServer):
+    request_queue_size = LISTEN_BACKLOG
+
+
 def make_http_server(server: Server, host: str = "0.0.0.0", port: int = 8000):
-    """A ThreadingHTTPServer for ``server`` (port 0 picks a free one);
-    the caller runs ``serve_forever`` and ``shutdown``."""
-    return http.server.ThreadingHTTPServer((host, port), make_handler(server))
+    """A ThreadingHTTPServer for ``server`` (port 0 picks a free one) whose
+    accept queue holds the gateway's ``LISTEN_BACKLOG`` connections; the
+    caller runs ``serve_forever`` and ``shutdown``."""
+    return _HTTPServer((host, port), make_handler(server))
 
 
 def kv_tier_budget(cfg: tfm.TransformerConfig, max_slots: int) -> int:

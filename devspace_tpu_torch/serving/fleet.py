@@ -77,6 +77,10 @@ FLEET_METRIC_FAMILIES = (
      "Scale-down decisions applied (all victims drained first)", "sum"),
 )
 
+# what a Replica keeps of its process's output (stdout and stderr): the
+# first and the last this many bytes
+OUTPUT_KEEP_BYTES = 64 << 10
+
 PROBE_READY = "ready"
 PROBE_ALIVE = "alive"  # running but not routable: draining or SLO brownout
 PROBE_DEAD = "dead"
@@ -112,7 +116,12 @@ class ReplicaSpec:
 
 
 class Replica:
-    """One serving subprocess: process handle + HTTP probe surface."""
+    """One serving subprocess: process handle + HTTP probe surface.
+
+    A thread reads the process's output as it comes and keeps its first
+    and its last ``OUTPUT_KEEP_BYTES`` (:meth:`output`): a pipe nobody
+    reads fills at 64 KiB, and the replica's next write (a log line, a
+    handler's traceback) then blocks the thread that makes it."""
 
     def __init__(self, name: str, spec: ReplicaSpec, port: int,
                  proc: subprocess.Popen):
@@ -120,6 +129,33 @@ class Replica:
         self.spec = spec
         self.port = port
         self.proc = proc
+        self.output_bytes = 0  # everything the process wrote so far
+        self._head = bytearray()
+        self._tail = bytearray()
+        self._tail_lock = threading.Lock()
+        self._drain = threading.Thread(
+            target=self._read_output, daemon=True,
+            name=f"replica-output-{name}")
+        self._drain.start()
+
+    def _read_output(self) -> None:
+        for chunk in iter(lambda: self.proc.stdout.read1(65536), b""):
+            with self._tail_lock:
+                self.output_bytes += len(chunk)
+                room = OUTPUT_KEEP_BYTES - len(self._head)
+                self._head += chunk[:max(0, room)]
+                self._tail += chunk[max(0, room):]
+                del self._tail[:-OUTPUT_KEEP_BYTES]
+
+    def output(self) -> str:
+        """What the process wrote (all of it once it has exited), its
+        middle left out past twice ``OUTPUT_KEEP_BYTES``."""
+        if not self.alive():
+            self._drain.join(timeout=5.0)
+        with self._tail_lock:
+            skipped = self.output_bytes - len(self._head) - len(self._tail)
+            gap = f"\n[{skipped} bytes left out]\n".encode() if skipped else b""
+            return (bytes(self._head) + gap + bytes(self._tail)).decode(errors="replace")
 
     @property
     def base_url(self) -> str:
@@ -196,10 +232,8 @@ class Replica:
             self.proc.wait(timeout=5.0)
 
 
-def spawn_replica(name: str, spec: ReplicaSpec) -> Replica:
-    """Launch one replica on a free port and wait for /readyz. Raises
-    ``RuntimeError`` (with captured process output) on startup failure —
-    the supervisor's restart ladder owns retrying."""
+def launch_replica(name: str, spec: ReplicaSpec) -> Replica:
+    """Start one replica process on a free port; it is not ready yet."""
     port = free_port()
     env = dict(os.environ)
     env.update(spec.env)
@@ -208,20 +242,41 @@ def spawn_replica(name: str, spec: ReplicaSpec) -> Replica:
         spec.command(port), env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
     )
-    replica = Replica(name, spec, port, proc)
+    return Replica(name, spec, port, proc)
+
+
+def wait_ready(replica: Replica,
+               abort: Optional[threading.Event] = None) -> Replica:
+    """Wait for ``replica``'s /readyz. Raises ``RuntimeError`` (with
+    captured process output) if the process exits first; if its
+    ``ready_timeout_s`` passes or ``abort`` is set, stops the process and
+    raises."""
+    spec, proc = replica.spec, replica.proc
     deadline = time.monotonic() + spec.ready_timeout_s
     while time.monotonic() < deadline:
         if proc.poll() is not None:
-            out = (proc.stdout.read() or b"").decode(errors="replace")
+            out = replica.output()
             raise RuntimeError(
-                f"replica {name} exited during startup "
+                f"replica {replica.name} exited during startup "
                 f"(code {proc.returncode}): {out[-500:]}")
+        if abort is not None and abort.is_set():
+            replica.kill()
+            proc.wait(timeout=5.0)
+            raise RuntimeError(f"replica {replica.name}: start aborted")
         if replica.probe() == PROBE_READY:
             return replica
         time.sleep(0.02)
     replica.shutdown(grace_s=1.0)
     raise RuntimeError(
-        f"replica {name} not ready after {spec.ready_timeout_s:.1f}s")
+        f"replica {replica.name} not ready after {spec.ready_timeout_s:.1f}s")
+
+
+def spawn_replica(name: str, spec: ReplicaSpec,
+                  abort: Optional[threading.Event] = None) -> Replica:
+    """Launch one replica on a free port and wait for /readyz. Raises
+    ``RuntimeError`` (with captured process output) on startup failure —
+    the supervisor's restart ladder owns retrying."""
+    return wait_ready(launch_replica(name, spec), abort)
 
 
 class ReplicaFleet:
@@ -257,6 +312,10 @@ class ReplicaFleet:
         self._next_idx = 0
         self._replicas: dict = {}  # name -> Replica (live handles)
         self._started: set = set()  # names that started at least once
+        # every process launched and not seen exited, ready or not: a
+        # restart in flight when stop() comes has no handle yet
+        self._launched: list = []
+        self._closing = threading.Event()
         self._lock = threading.RLock()
         self.supervisor = SessionSupervisor(
             restart=RESTART_ALWAYS,
@@ -293,7 +352,13 @@ class ReplicaFleet:
     # -- service wiring ------------------------------------------------------
     def _add_service(self, name: str) -> None:
         def factory():
-            replica = spawn_replica(name, self.spec)
+            with self._lock:
+                if self._closing.is_set():
+                    raise RuntimeError("fleet is stopping")
+                replica = launch_replica(name, self.spec)
+                self._launched = [
+                    r for r in self._launched if r.alive()] + [replica]
+            wait_ready(replica, abort=self._closing)
             with self._lock:
                 restart = name in self._started
                 self._started.add(name)
@@ -342,10 +407,15 @@ class ReplicaFleet:
         self.supervisor.start()
 
     def stop(self) -> None:
+        with self._lock:
+            self._closing.set()  # no launch after this; a start aborts
         self.supervisor.stop()
         # supervisor.stop() tears down RUNNING/RESTARTING services; sweep
-        # anything it missed (e.g. degraded replicas keep a dead handle)
-        for replica in self.handles():
+        # anything it missed: degraded replicas keep a dead handle, and a
+        # restart still waiting for /readyz has none yet
+        with self._lock:
+            launched = list(self._launched)
+        for replica in launched:
             replica.shutdown(grace_s=1.0)
 
     # -- views ---------------------------------------------------------------

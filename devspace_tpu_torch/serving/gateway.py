@@ -30,8 +30,12 @@ Endpoints: ``POST /generate`` (routed proxy), ``GET /healthz``,
 ``/readyz``, ``/metrics`` (the ``serving_router_*`` catalog),
 ``/debug/router`` (live stats + recent decisions).
 
-The port's copy of ``devspace_tpu/serving/gateway.py``, with the same behaviour; it
-imports nothing of the JAX package.
+The port's copy of ``devspace_tpu/serving/gateway.py``; it imports nothing
+of the JAX package. One difference: the proxy forwards whatever the
+replica has streamed so far, where the reference's waits for 8 KiB or
+the stream's end, which holds a token stream back until it completes
+(its first token arrives with its last), and its accept queue holds
+``LISTEN_BACKLOG`` connections, not socketserver's 5.
 """
 
 from __future__ import annotations
@@ -49,6 +53,10 @@ from .router import ADMIT, QUEUE, REJECT, PrefixRouter
 
 # endpoints proxied verbatim to the routed replica
 _HOP_HEADERS = {"host", "content-length", "connection"}
+# the accept queue: a burst of clients (a wave of requests, the retries
+# after a replica dies) overflows socketserver's default of 5, and a
+# dropped connection waits out its SYN's retransmits (1, 3, 7 s)
+LISTEN_BACKLOG = 128
 
 
 class RoutingGateway:
@@ -365,7 +373,10 @@ class RoutingGateway:
                             self.send_header("Content-Length", clen)
                         self.end_headers()
                         while True:
-                            chunk = upstream.read(8192)
+                            # read1: what has arrived, up to 8 KiB. read()
+                            # would wait for 8 KiB or the end, holding a
+                            # token stream back until it completes
+                            chunk = upstream.read1(8192)
                             if not chunk:
                                 break
                             forwarded = True
@@ -409,6 +420,9 @@ class RoutingGateway:
                     else:
                         router.observe_chain(replica, prompt_ids)
 
-        httpd = ThreadingHTTPServer((host, port), Handler)
+        class Server(ThreadingHTTPServer):
+            request_queue_size = LISTEN_BACKLOG
+
+        httpd = Server((host, port), Handler)
         httpd.daemon_threads = True
         return httpd

@@ -145,6 +145,95 @@ def test_stub_fleet_restarts_a_killed_replica():
         fleet.stop()
 
 
+@dataclasses.dataclass
+class SlowRestartSpec(ReplicaSpec):
+    """The stub at first; every later launch a process that writes its pid
+    to ``pid_file`` and never becomes ready (a restart still loading)."""
+
+    pid_file: str = ""
+    launches: int = 0
+
+    def command(self, port: int) -> list:
+        self.launches += 1
+        if self.launches == 1:
+            return super().command(port)
+        return [sys.executable, "-c",
+                "import os, sys, time; open(sys.argv[1], 'w').write(str(os.getpid())); "
+                "time.sleep(120)", self.pid_file]
+
+
+def process_gone(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().split(")")[-1].split()[0] == "Z"
+    except FileNotFoundError:
+        return True
+
+
+def test_stub_fleet_stop_ends_a_restart_in_flight(tmp_path):
+    """A replica SIGKILLed just before stop(): its restart is still waiting
+    for /readyz when stop() comes, and stop() ends that process too."""
+    pid_file = tmp_path / "pid"
+    spec = SlowRestartSpec(env={"STUB_TOKEN_DELAY_S": "0.002"}, ready_timeout_s=60.0,
+                           pid_file=str(pid_file))
+    fleet = stub_fleet(replicas=1, spec=spec, poll_interval=0.05)
+    fleet.start()
+    try:
+        fleet.kill(fleet.names()[0])
+        wait_for(lambda: pid_file.exists() and pid_file.read_text(), msg="the restart's launch")
+        pid = int(pid_file.read_text())
+        assert not process_gone(pid)
+    finally:
+        t0 = time.monotonic()
+        fleet.stop()
+    wait_for(lambda: process_gone(pid), timeout=10.0, msg="the restart's process to end")
+    assert time.monotonic() - t0 < 15.0
+
+
+# a replica that writes 200 KB to its stderr on each GET /noisy
+NOISY_SERVER = """
+import http.server, json, sys
+class H(http.server.BaseHTTPRequestHandler):
+    def log_message(self, *a):
+        pass
+    def do_GET(self):
+        if self.path == "/noisy":
+            sys.stderr.write("noise " * 34000 + "\\n")
+            sys.stderr.flush()
+        body = json.dumps({"ok": True}).encode()
+        self.send_response(200)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+http.server.ThreadingHTTPServer(("127.0.0.1", int(sys.argv[1])), H).serve_forever()
+"""
+
+
+@dataclasses.dataclass
+class NoisySpec(ReplicaSpec):
+    def command(self, port: int) -> list:
+        return [sys.executable, "-c", NOISY_SERVER, str(port)]
+
+
+def test_replica_output_is_read_while_it_runs():
+    """A replica's output pipe is read as it comes: past the pipe's 64 KiB
+    an unread replica's next write blocks, and so does the request that
+    makes it. The fleet keeps the output's first and last 64 KiB."""
+    fleet = ReplicaFleet(spec=NoisySpec(), replicas=1, poll_interval=0.1)
+    fleet.start()
+    try:
+        replica = fleet.replica(fleet.names()[0])
+        for _ in range(3):
+            with urllib.request.urlopen(replica.base_url + "/noisy", timeout=5) as resp:
+                assert json.loads(resp.read()) == {"ok": True}
+        wait_for(lambda: replica.output_bytes >= 3 * 204001, msg="the output read")
+        out = replica.output()
+        assert out.startswith("noise noise") and out.endswith("noise \n")
+        assert "bytes left out]" in out and len(out) < 140000
+    finally:
+        fleet.stop()
+
+
 # -- torch replicas behind the gateway ----------------------------------------
 @dataclasses.dataclass
 class CpuReplicaSpec(ReplicaSpec):

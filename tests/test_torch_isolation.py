@@ -52,7 +52,7 @@ def test_every_module_imports_with_jax_blocked():
     for name in ("obs", "obs.metrics", "obs.tracing", "obs.events", "obs.request_trace",
                  "obs.slo", "obs.fleet", "obs.collector", "serving", "serving.router",
                  "serving.gateway", "serving.fleet", "serving.stub", "serving.autoscale",
-                 "resilience.supervisor", "serve"):
+                 "serving.loadgen", "resilience.supervisor", "serve"):
         assert f"devspace_tpu_torch.{name}" in MODULES
     for name in ("lint", "lint.engine", "lint.reporters", "lint.pysource",
                  "lint.rules_concurrency", "lint.runtime", "lint.rules_hotpath",
@@ -78,7 +78,8 @@ def test_no_source_imports_jax_or_the_jax_package():
     files = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"] + [
         REPO / "scripts" / f"train_{name}_torch.py"
         for name in ("draft_pair", "resnet", "mnist", "long_context")] + [
-        REPO / "scripts" / "analysis_gate_torch.py"] + [
+        REPO / "scripts" / f"{name}_torch.py"
+        for name in ("analysis_gate", "chaos_serving_check", "chaos_check")] + [
         REPO / "tests" / f"torch_parallel_{name}.py" for name in ("world", "workers")]
     bad = {
         str(f.relative_to(REPO)): name
