@@ -97,7 +97,9 @@ Last, parallel/ over torch.distributed, inside a world of one NCCL rank
 step (``{"data": 1, "model": 1}``, the tensor-parallel spec) and (b)
 through FSDP, 3 AdamW steps each, against the step without a mesh
 (losses and updates within 1e-3, the flash and loss kernels launched as
-the step count predicts); (c) the long-context example's widths (dim
+the step count predicts; FSDP gathers one layer at a time, so its peak
+memory exceeds the mesh step's by at most the LM head plus one layer's
+gathered weights); (c) the long-context example's widths (dim
 2048, 16 layers, 16 heads, 8 KV heads, ffn 5504, vocab 32000, bf16)
 through its script's ``build`` (ring attention, the vocab-parallel loss,
 remat) on one sequence of 4096 tokens, the 32768 of the example over
@@ -105,7 +107,12 @@ its 8-ring; (d) ring attention (eight 512-key sub-blocks) and Ulysses
 against the flash kernel on bf16 ``[1, 4096, 16, 128]``; (e) the MoE at
 Mixtral-8x7B's widths, 2 layers, with ``moe_ffn`` as its expert layer,
 3 AdamW steps at 2 x 2049 tokens, ``moe_ffn`` held to
-``moe_ffn_reference``.
+``moe_ffn_reference``; then the 1F1B and interleaved pipelines, and the
+tensor-parallel 7B engine over ``{"model": 1}``; (f) the FSDP run's
+train state saved from the mesh and restored, AdamW moments byte for
+byte, onto the tensor-parallel layout, whose next step's loss is FSDP's;
+(g) the kv_tier phase's waves on the tensor-parallel engine with the host
+tier, streams, tier counters and KVM1 export equal to the plain engine's.
 
 Then the analysis tooling (``analysis`` phase, devspace_tpu_torch/lint):
 one more wave of the smoke requests on the plain 7B engine and on the
@@ -176,8 +183,14 @@ from devspace_tpu_torch.parallel.ring_attention import ring_attention
 from devspace_tpu_torch.parallel.sequence_parallel import ulysses_attention
 from devspace_tpu_torch.ops import paged_attention as pa
 from devspace_tpu_torch.training import data as tdata
+from devspace_tpu_torch.training import checkpoint as tckpt
 from devspace_tpu_torch.training import trainer as ttrainer
-from devspace_tpu_torch.training.checkpoint import save_checkpoint
+from devspace_tpu_torch.inference.prefix_cache import fingerprint_chain
+from devspace_tpu_torch.training.checkpoint import (
+    restore_checkpoint,
+    save_checkpoint,
+    sharded_template,
+)
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
 import analysis_gate_torch as gate_script  # noqa: E402
@@ -1266,10 +1279,25 @@ def chain_blocks(engine, prompt, n) -> list:
     return blks
 
 
+TIER_COUNTERS = ("kv_spill_blocks", "kv_restore_hits", "kv_restore_fallbacks",
+                 "recompute_tokens_saved")
+
+
+def chain_export(engine, prompt) -> dict:
+    """The stopped engine's KVM1 envelope of ``prompt``'s full blocks
+    (``export_kv_chain``, served inline): its blocks, bytes and blake2b."""
+    envelope = engine.export_kv_chain(fingerprint_chain(prompt, engine.block_size)[-1])
+    assert envelope is not None
+    return {"blocks": len(kvt.unpack_chain_envelope(envelope)), "bytes": len(envelope),
+            "blake2b": hashlib.blake2b(envelope, digest_size=32).hexdigest()}
+
+
 def kv_pool_run(params, cfg, dev, sizes, waves, kv_dtype, tie_bound) -> tuple[dict, list]:
     """The waves on fresh engines with the tier off, then on; the checks
-    of the tier-on run. Returns the pool's line and the tier-off wave 4
-    stream."""
+    of the tier-on run, whose streams, tier counters and KVM1 export of
+    the shared chain are the line's ``reference`` (the tensor-parallel
+    engine's replay is held to them). Returns the pool's line and the
+    tier-off wave 4 stream."""
     pool = "int8" if kv_dtype else "bf16"
     n_blocks = sizes["shared"] // sizes["block_size"]
     runs, launches = {}, 0
@@ -1288,6 +1316,8 @@ def kv_pool_run(params, cfg, dev, sizes, waves, kv_dtype, tie_bound) -> tuple[di
         assert st["requests_failed"] == 0
         launches += sum(w["launches"] for w in runs[tier])
         if tier == "host":
+            # before the device and host profiles, which rewrite pool blocks
+            export = chain_export(engine, waves[0])
             tier_st, device = st, tier_group_device_ms(engine) if dev.type == "cuda" else {}
             host_parts = tier_host_profile(engine, n_blocks)
         del engine
@@ -1324,6 +1354,9 @@ def kv_pool_run(params, cfg, dev, sizes, waves, kv_dtype, tie_bound) -> tuple[di
                                    "recompute_tokens_saved", "kv_restores",
                                    "kv_restores_overlapped", "kv_tier_entries",
                                    "kv_tier_resident_bytes")},
+        "export": export,
+        "reference": {"streams": [w["tokens"] for w in runs["host"]],
+                      "counters": {k: tier_st[k] for k in TIER_COUNTERS}, "export": export},
     }, off["tokens"]
 
 
@@ -2927,11 +2960,18 @@ CHAOS_CHANGED = [
 ]
 # the replicas' host KV tier: a kv_source pull lands in it
 CHAOS_ENV = {"DEVSPACE_KV_TIER": "host"}
+# the chaos gateways' bounds on a replica's silence: the engine's server
+# sends a stream's headers once the engine has queued the request, and
+# answers a phase-1 prefill of the scenarios' longest prompt in well under
+# a second; a replica silent past them is taken for dead, and the gateway
+# reroutes the stream or degrades the placement to unified
+CHAOS_GATEWAY_TIMEOUTS = {"header_timeout_s": 3.0, "prefill_timeout_s": 5.0}
 # the replica that serves each scenario's expected streams alone: the
 # one (a) does not kill, and (c)'s prefill pool, whose cache dies with it
 CHAOS_DIRECT = "replica-1"
 # (c)'s live migration before its kill: one fresh prompt of ten 64-token
-# blocks, 16 new tokens
+# blocks (drawn from this seed), 16 new tokens
+CHAOS_LIVE_SEED = 15
 CHAOS_LIVE_TOKENS = 640
 CHAOS_LIVE_NEW = 16
 
@@ -3000,20 +3040,27 @@ class ReplicaWatch:
             if self.key(name) not in self.rows:
                 self.read(name)
 
-    def kill(self, name: str) -> int:
+    def kill(self, name: str, log: Optional["AttemptLog"] = None) -> int:
         """Read ``name`` once more, SIGKILL it; returns its pid. A thread
         records the seconds until the process is gone (``dead_after_s``):
-        until then its listening socket still accepts connections."""
+        until then its listening socket still accepts connections. With
+        ``log``, a ``kill`` row there holds when the kill began, when the
+        signal went out and when the process was gone."""
+        mark = log.add({"side": "kill", "start_s": log.now(), "victim": name}) if log else {}
         self.read(name)
         old = self.fleet.replica(name)
         row = self.rows[self.key(name)]
         row["killed"] = True
         t0 = time.monotonic()
         self.fleet.kill(name)
+        if log:
+            mark["signalled_s"] = log.now()
 
         def reaped():
             old.proc.wait()
             row["dead_after_s"] = time.monotonic() - t0
+            if log:
+                mark["dead_s"] = log.now()
 
         threading.Thread(target=reaped, daemon=True).start()
         return old.pid
@@ -3100,7 +3147,8 @@ def timed_loadgen(log: AttemptLog, *args, **kw):
 
 
 def timed_gateway(log: AttemptLog, router):
-    """A started ``RoutingGateway`` whose upstream opens ``log`` records."""
+    """A started ``RoutingGateway`` whose upstream opens and phase-1
+    prefills ``log`` records."""
     from devspace_tpu_torch.serving.gateway import RoutingGateway
 
     class Timed(RoutingGateway):
@@ -3108,7 +3156,18 @@ def timed_gateway(log: AttemptLog, router):
             key = prompt_key(json.loads(body)["prompt_ids"])
             return log.timed(f"gateway {url}", key, super()._open_upstream, url, body, headers)
 
-    gw = Timed(router, port=0)
+        def _phase1_prefill(self, decision, body, headers):
+            row = log.add({"side": f"prefill {decision.prefill_replica}",
+                           "key": prompt_key(json.loads(body)["prompt_ids"]),
+                           "start_s": log.now()})
+            try:
+                kv_source = super()._phase1_prefill(decision, body, headers)
+            finally:
+                row["end_s"] = log.now()
+            row["ok"] = kv_source is not None
+            return kv_source
+
+    gw = Timed(router, port=0, **CHAOS_GATEWAY_TIMEOUTS)
     gw.start()
     return gw
 
@@ -3193,8 +3252,7 @@ def chaos_kill_mid_stream(fleet, watch, cfg, corrupted: list) -> dict:
         wait_until(lambda: watch.tokens(victim) > base, 60,
                    f"a token from {victim}")
         t = time.monotonic()
-        log.add({"side": "kill", "start_s": log.now(), "victim": victim})
-        return watch.kill(victim), t
+        return watch.kill(victim, log), t
 
     log.reset()
     report, (old_pid, t_kill) = run_while(gen, trace, kill)
@@ -3241,8 +3299,7 @@ def chaos_router_kill_prefix_hot(fleet, watch, cfg, corrupted: list) -> dict:
                     blocks = router.stats()["shadow_blocks"]
                     hot = max(sorted(blocks), key=lambda n: blocks[n])
                     t = time.monotonic()
-                    log.add({"side": "kill", "start_s": log.now(), "victim": hot})
-                    return hot, blocks, watch.kill(hot), t
+                    return hot, blocks, watch.kill(hot, log), t
 
                 report, (hot, blocks, old_pid, t_kill) = run_while(gen, trace, kill)
                 row["report"] = held(f"router-kill-prefix-hot/{seed}", report, trace, table,
@@ -3281,10 +3338,10 @@ def disagg_live_migration(fleet, watch, cfg, config, corrupted: list) -> dict:
     from devspace_tpu_torch.serving.router import PrefixRouter
 
     pool = config.prefill_pool[0]
-    prompt = np.random.default_rng(15).integers(1, cfg.vocab_size, CHAOS_LIVE_TOKENS).tolist()
+    prompt = np.random.default_rng(CHAOS_LIVE_SEED).integers(1, cfg.vocab_size, CHAOS_LIVE_TOKENS).tolist()
     before = {n: watch.read(n) for n in fleet.names()}
     router = PrefixRouter(replicas_fn=fleet.targets, config=config)
-    gw = RoutingGateway(router, port=0)
+    gw = RoutingGateway(router, port=0, **CHAOS_GATEWAY_TIMEOUTS)
     gw.start()
     try:
         got = stream_generate(gw.base_url, prompt, CHAOS_LIVE_NEW)
@@ -3339,8 +3396,7 @@ def chaos_disagg_kill_prefill(fleet, watch, cfg, corrupted: list) -> dict:
                                    for d in router.stats()["recent_decisions"]),
                        60, "the first two-phase placement", interval=0.01)
             t = time.monotonic()
-            log.add({"side": "kill", "start_s": log.now(), "victim": pool})
-            return watch.kill(pool), t
+            return watch.kill(pool, log), t
 
         log.reset()
         report, (old_pid, t_kill) = run_while(gen, trace, kill)
@@ -3513,12 +3569,18 @@ def rel_loss_err(a: list, b: list) -> float:
 def _lm_runs(cfg, dev, base, batches, mesh) -> dict:
     """The bench LM's steps without a mesh, through the mesh step
     (``{"data": 1, "model": 1}``, the TP spec) and through FSDP, each from
-    ``base``: losses, ms per step after the first, the params after, and
-    each mesh run's flash and loss launches."""
+    ``base``: losses, ms per step after the first, the params after, each
+    mesh run's flash and loss launches, and the peak memory of its steps
+    above what was allocated before the run was built (its params,
+    grads, moments, activations and, for FSDP, gathered weights); for
+    FSDP also the largest number of gathered bytes alive at once, and its
+    step and train state for the elastic part."""
     opt = ttrainer.adamw(TRAIN_LR)
     spec = tfm.param_partition_spec(cfg)
     runs = {}
     for name in ("plain", "mesh", "fsdp"):
+        sync(dev)
+        before = torch.cuda.memory_allocated()
         params = trainable(base, dev)
         reset_train_counts()
         if name == "fsdp":
@@ -3539,21 +3601,45 @@ def _lm_runs(cfg, dev, base, batches, mesh) -> dict:
                 step = ttrainer.make_lm_train_step(tfm.forward, cfg, opt)
             state = ttrainer.init_train_state(params, opt)
         rows = [shard_batch(b, mesh) for b in batches] if name != "plain" else batches
+        sync(dev)
+        torch.cuda.reset_peak_memory_stats()
         state, losses, step_ms, _ = timed_steps(step, state, rows, 1)
         runs[name] = {"losses": scalar_losses(losses), "step_ms": step_ms,
-                      "launches": train_counts(), "params": state["params"]}
+                      "launches": train_counts(), "params": state["params"],
+                      "peak_gb": (torch.cuda.max_memory_allocated() - before) / 1e9}
         if name == "fsdp":  # gathered back at one rank: the shards are the leaves
-            runs[name]["params"] = pmesh.gather_tree(state["params"],
-                                                     pfsdp.fsdp_spec(base, mesh), mesh)
+            f_spec = pfsdp.fsdp_spec(base, mesh)
+            runs[name]["params"] = pmesh.gather_tree(state["params"], f_spec, mesh)
+            runs[name]["gathered_peak_gb"] = fstep.stats["gathered_peak_bytes"] / 1e9
+            runs[name]["state"] = {"step": fstep, "state": state, "spec": f_spec,
+                                   "batch": rows[-1], "mesh": mesh}
         del state
     return runs
+
+
+def fsdp_gathered_bound(params, mesh) -> int:
+    """Bytes of the LM head plus one layer's gathered (FSDP-sharded)
+    leaves: what the layer-by-layer FSDP step may hold gathered at once."""
+    spec = pfsdp.fsdp_spec(params, mesh)
+
+    def gathered(tree, specs):
+        return sum(x.numel() * x.element_size()
+                   for x, s in zip(pmesh.tree_leaves(tree), pmesh.spec_leaves(specs, tree))
+                   if pmesh.spec_axes(s))
+
+    return (gathered(params["lm_head"], spec["lm_head"])
+            + gathered(params["layers"][0], spec["layers"][0]))
 
 
 def parallel_lm(dev) -> dict:
     """(a) the bench LM at 8 x 2048 through ``make_lm_train_step(mesh=
     {"data": 1, "model": 1}, param_spec=param_partition_spec(cfg))`` and
     (b) through ``make_fsdp_train_step``, 3 AdamW steps each, against the
-    step without a mesh on the same params and tokens."""
+    step without a mesh on the same params and tokens. FSDP gathers one
+    layer at a time: its peak memory exceeds the mesh step's by no more
+    than the LM head plus one layer's gathered leaves, and so does what
+    it holds gathered at once. The FSDP run's state goes on to the
+    elastic part (``fsdp_state``)."""
     cfg = BENCH_LM
     mesh = pmesh.create_mesh({"data": 1, "model": 1}, dev)
     base = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
@@ -3573,12 +3659,81 @@ def parallel_lm(dev) -> dict:
                                                                          update_err)
         out[name] = {"losses": r["losses"], "loss_rel_err": loss_err,
                      "update_rel_err": update_err, "launches": r["launches"],
-                     "step_ms": statistics.median(r["step_ms"])}
-    out["plain"] = {"losses": runs["plain"]["losses"],
+                     "step_ms": statistics.median(r["step_ms"]), "step_ms_each": r["step_ms"],
+                     "peak_gb": r["peak_gb"]}
+    bound = fsdp_gathered_bound(base, mesh) / 1e9
+    fsdp = out["fsdp"]
+    fsdp.update({"gathered_peak_gb": runs["fsdp"]["gathered_peak_gb"],
+                 "gathered_bound_gb": bound,
+                 "peak_gb_over_mesh": fsdp["peak_gb"] - out["mesh"]["peak_gb"]})
+    assert 0 < fsdp["gathered_peak_gb"] <= bound, (fsdp["gathered_peak_gb"], bound)
+    assert fsdp["peak_gb_over_mesh"] <= bound, (fsdp["peak_gb"], out["mesh"]["peak_gb"], bound)
+    out["plain"] = {"losses": runs["plain"]["losses"], "peak_gb": runs["plain"]["peak_gb"],
                     "step_ms": statistics.median(runs["plain"]["step_ms"])}
+    out["fsdp_state"] = runs["fsdp"].pop("state")
     del runs["mesh"], runs["fsdp"]
     out["pipeline"] = parallel_pipelines(dev, cfg, base, batches, runs["plain"])
     return out
+
+
+def parallel_elastic(dev, fsdp: dict) -> dict:
+    """(f) elastic restore: the FSDP run's train state after its steps is
+    saved from the mesh (``save_checkpoint(mesh=)``) and restored, AdamW
+    moments included, onto the mesh step's TP layout
+    (``param_partition_spec``) through a train-state
+    ``sharded_template``; every moment block equals the saved moment cut
+    by its parameter's spec, byte for byte. One mesh step from the
+    restored state and one more FSDP step from the state before the save
+    give the same loss within PARALLEL_REL."""
+    cfg, mesh, state = BENCH_LM, fsdp["mesh"], fsdp["state"]
+    tmp = tempfile.mkdtemp(prefix="elastic-")
+    path = os.path.join(tmp, f"step_{PARALLEL['steps']:08d}")
+    try:
+        sync(dev)
+        t0 = time.monotonic()
+        save_checkpoint(path, {**state, "step": PARALLEL["steps"]}, mesh=mesh,
+                        spec_tree=fsdp["spec"])
+        save_s = time.monotonic() - t0
+        spec = tfm.param_partition_spec(cfg)
+        logical = tfm.init_params(cfg, torch.Generator(), device="meta")
+        t0 = time.monotonic()
+        restored = restore_checkpoint(path, sharded_template(
+            {"params": logical, "opt_state": ttrainer.adamw(TRAIN_LR), "step": 0}, mesh, spec))
+        sync(dev)
+        restore_s = time.monotonic() - t0
+        assert restored["step"] == PARALLEL["steps"]
+        saved = torch.load(os.path.join(path, tckpt.OPT_FILE), weights_only=True,
+                           map_location="cpu")
+        pos = {n: i for i, n in enumerate(saved["param_names"])}
+        opt = restored["opt_state"]
+        specs = tckpt._named_specs(restored["params"], spec)
+        held = [p for g in opt.param_groups for p in g["params"]]
+        moment_bytes = 0
+        for name, p in zip(tckpt.param_names(restored["params"], opt), held, strict=True):
+            for key, value in opt.state[p].items():
+                want = saved["state"][pos[name]][key]
+                if want.dim():
+                    want = pmesh.shard_tensor(want, specs[name], mesh)
+                want = want.to(value.device)
+                assert value.dtype == want.dtype and torch.equal(
+                    bits(value.reshape(-1)), bits(want.reshape(-1))), (name, key)
+                moment_bytes += value.numel() * value.element_size()
+        reset_train_counts()
+        mesh_step = ttrainer.make_lm_train_step(tfm.forward, cfg, ttrainer.adamw(TRAIN_LR),
+                                                mesh=mesh, param_spec=spec)
+        _, loss_tp = mesh_step(restored, fsdp["batch"])
+        _, _, loss_fsdp = fsdp["step"](state["params"], state["opt_state"], fsdp["batch"])
+        launches = train_counts()
+        losses = scalar_losses([loss_tp, loss_fsdp])
+        rel = rel_loss_err(losses[1:], losses[:1])
+        assert rel <= PARALLEL_REL, (losses, rel)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"saved_from": "fsdp", "restored_onto": "tp", "step": restored["step"],
+            "moments_byte_equal": True, "moment_gb": moment_bytes / 1e9,
+            "save_s": save_s, "restore_s": restore_s,
+            "loss_restored_tp": losses[0], "loss_fsdp": losses[1], "loss_rel_err": rel,
+            "launches": launches}
 
 
 def parallel_long_context(dev) -> dict:
@@ -3957,14 +4112,60 @@ def parallel_tp_engine(dev, serving: dict) -> dict:
     return out
 
 
+def parallel_tp_kv_tier(dev, serving: dict) -> dict:
+    """(g) the host KV tier under tensor-parallel serving: the kv_tier
+    phase's four waves on Llama-2-7B over ``mesh={"model": 1}`` with
+    ``kv_tier="host"`` on a bf16 pool, the params restored through
+    ``from_checkpoint(mesh=)``, prewarmed: the streams, the tier counters
+    and the KVM1 export of the shared chain equal the plain tier-on
+    engine's (``serving["kv_tier"]``), nothing is captured after
+    ``prewarm`` and paged decode runs on local heads."""
+    ref = serving["kv_tier"]
+    cfg, sizes = serving["cfg"], ref["sizes"]
+    mesh = pmesh.create_mesh({"model": 1}, dev)
+    waves = kv_tier_waves(cfg, sizes)
+    engine = InferenceEngine.from_checkpoint(
+        serving["checkpoint"], cfg, mesh=mesh, max_slots=sizes["max_slots"],
+        max_len=sizes["max_len"], block_size=sizes["block_size"], n_blocks=sizes["n_blocks"],
+        kv_tier="host", kv_tier_bytes=sizes["tier_bytes"])
+    warm = prewarm_engine(engine)
+    impl = "cuda" if engine.device.type == "cuda" else "reference"
+    assert pa.LAST_DISPATCH == {"impl": impl, "tp": True}, pa.LAST_DISPATCH
+    engine.start()
+    try:
+        reset_counts()
+        runs = run_waves(engine, waves, sizes["new_tokens"])
+        assert pa.LAUNCHES == 0, f"{pa.LAUNCHES} launches outside the graphs"
+        st = engine.stats()
+    finally:
+        engine.stop()
+    assert st["graph_captures"] == warm["captures"], "a graph was captured after prewarm"
+    assert st["requests_failed"] == 0
+    streams = [w["tokens"] for w in runs]
+    assert streams == ref["streams"], (streams, ref["streams"])
+    counters = {k: st[k] for k in TIER_COUNTERS}
+    assert counters == ref["counters"], (counters, ref["counters"])
+    export = chain_export(engine, waves[0])
+    assert export == ref["export"], (export, ref["export"])
+    del engine
+    gc.collect()
+    return {"mesh": {"model": 1}, "built_by": "from_checkpoint(mesh=)", "kv_pool": "bf16",
+            "prewarm": warm, "graph_captures_after_prewarm": 0, "streams_equal_plain": True,
+            "counters_equal_plain": True, **counters, "kv_spill_bytes": st["kv_spill_bytes"],
+            "export_byte_equal_plain": True, "export": export,
+            "wave4_ttft_s": runs[3]["ttft_s"], "launches": sum(w["launches"] for w in runs)}
+
+
 def phase_parallel(dev, card, serving: dict) -> dict:
     """parallel/ on the card inside one world-of-one process group
     (NCCL on the card; gloo when rehearsed on the CPU): (a)-(e) above,
     then part 2: ``pipeline`` (the 1F1B and interleaved steps beside (a)'s
     plain step) and ``tp_engine`` over ``serving`` (the Llama-2-7B params,
     the plain engines' requests and streams, their steady ms a step and
-    the int8_weights phase's checkpoint); ``part_seconds`` times each
-    part."""
+    the int8_weights phase's checkpoint); then (f) ``elastic`` (the FSDP
+    run's train state restored onto the TP layout) and (g)
+    ``tp_engine.kv_tier`` (the kv_tier phase's waves over the mesh, held
+    to ``serving["kv_tier"]``); ``part_seconds`` times each part."""
     with pmesh.distributed(dev):
         out = {"phase": "parallel", "card": card,
                "backend": torch.distributed.get_backend(),
@@ -3983,12 +4184,15 @@ def phase_parallel(dev, card, serving: dict) -> dict:
 
         out["lm_mesh"] = part("lm_mesh_and_pipeline", parallel_lm, dev)
         out["pipeline"] = out["lm_mesh"].pop("pipeline")
+        out["elastic"] = part("elastic", parallel_elastic, dev, out["lm_mesh"].pop("fsdp_state"))
         out["lm_mesh"]["data2_gloo"] = part("data2_gloo", parallel_two_ranks,
                                             out["lm_mesh"]["mesh"]["losses"], dev)
         out["long_context"] = part("long_context", parallel_long_context, dev)
         out["ring_vs_flash"] = part("ring_vs_flash", parallel_ring_vs_flash, dev)
         out["expert_parallel"] = part("expert_parallel", parallel_moe, dev)
         out["tp_engine"] = part("tp_engine", parallel_tp_engine, dev, serving)
+        out["tp_engine"]["kv_tier"] = part("tp_engine_kv_tier", parallel_tp_kv_tier, dev,
+                                           serving)
         out["part_seconds"] = parts
         out["seconds"] = time.monotonic() - t0
     return out
@@ -4247,6 +4451,8 @@ def main() -> int:
     int8_ref = int8_line.pop("reference")
     emit(int8_line)
     kv_line = phase_kv_tier(params, dev, card, engine_line["near_tie_bound"])
+    kv_ref = {"sizes": KV_TIER, **kv_line["bf16"].pop("reference")}
+    kv_line["int8"].pop("reference")
     emit(kv_line)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4272,7 +4478,8 @@ def main() -> int:
         serving = {"cfg": tfm.LLAMA2_7B, "params": params,
                    "requests": serving_requests(tfm.LLAMA2_7B), "results": results,
                    "int8_requests": int8_ref["requests"], "int8_results": int8_ref["results"],
-                   "steady_ms": engine_line["steady"]["ms_per_step"], "checkpoint": ckpt_dir}
+                   "steady_ms": engine_line["steady"]["ms_per_step"], "checkpoint": ckpt_dir,
+                   "kv_tier": kv_ref}
         parallel_line = phase_parallel(dev, card, serving)
         emit(parallel_line)
         tripwire = {"llama2-7b": plain_wave,
@@ -4290,7 +4497,7 @@ def main() -> int:
                   parallel_line[part]["launches"][name]
                   for part, sub in (("lm_mesh", "mesh"), ("lm_mesh", "fsdp"),
                                     ("expert_parallel", None), ("pipeline", "1f1b"),
-                                    ("pipeline", "interleaved")))
+                                    ("pipeline", "interleaved"), ("elastic", None)))
         for name in TRAIN_KERNELS}
     tp_paths = {pool: parallel_line["tp_engine"][pool]["launches"] for pool in ("bf16", "int8")}
 
@@ -4308,6 +4515,10 @@ def main() -> int:
         # from the checkpoint on the mesh)
         by_path["tp_engine"] = tp_paths[variant]
         err_by_path["tp_engine"] = err_by_path["serving"]
+        if variant == "bf16":
+            # the kv_tier phase's waves on the tensor-parallel engine
+            by_path["tp_engine_kv_tier"] = parallel_line["tp_engine"]["kv_tier"]["launches"]
+            err_by_path["tp_engine_kv_tier"] = err_by_path["serving"]
         # the waves the analysis phase watched for captures: the plain
         # engine's (bf16) and the TP engine's on each pool
         by_path["analysis"] = sum(wave["paged_decode_launches"] for name, wave in tripwire.items()

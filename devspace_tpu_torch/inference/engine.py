@@ -86,12 +86,19 @@ a ``mesh`` (below).
   the same gathered logits; the two inputs that are not, the arrival of
   requests and the moment a readback happens to be ready, are pinned:
   requests enter at rank 0 of the model axis, which at the top of every
-  scheduler iteration broadcasts the new ones and its stop flag over a
-  gloo group beside the collectives' (the other ranks submit nothing
-  and follow), and the window drains only when it is full, never on a
-  readback found ready. The decode chunk and spec round graphs hold the
-  NCCL all-reduces; the constructor runs one over the axis, so its
-  communicator exists before the first capture.
+  scheduler iteration broadcasts the new ones, the KV chain exports
+  asked of it and its stop flag over a gloo group beside the
+  collectives' (the other ranks submit nothing and follow), and the
+  window drains only when it is full, never on a readback found ready.
+  The decode chunk and spec round graphs hold the NCCL all-reduces; the
+  constructor runs one over the axis, so its communicator exists before
+  the first capture. The host KV tier lives on rank 0 of the axis: a
+  KVT1 payload carries every KV head, so a spill or an export gathers
+  the ranks' heads of each block to rank 0 over the gloo group, and a
+  restore scatters each rank its heads; every decision that rests on
+  rank 0's tier alone (a payload missing or corrupt, an eviction from
+  its byte budget, a KVM1 pull's result) reaches the other ranks in a
+  broadcast at the step that takes it (``_tier_follow``).
 
 Every decode step's and every verification block's attention runs
 through the paged-decode CUDA kernel when the engine lives on the card
@@ -454,8 +461,9 @@ class InferenceEngine:
     card, gloo on the CPU). Every rank builds the engine and calls
     ``prewarm``/``start``/``stop`` alike; ``submit`` belongs to rank 0 of
     the axis (``RuntimeError`` elsewhere), whose requests every other
-    rank mirrors (``self.mirrored``). The host KV tier does not run under
-    a mesh (``ValueError``).
+    rank mirrors (``self.mirrored``). With a host KV tier, rank 0 of the
+    axis holds it (its counters are a one-process engine's); the other
+    ranks' tier stays empty, and ``export_kv_chain`` is rank 0's.
 
     ``metrics`` turns the telemetry (``obs/``) on or off: on by default,
     ``DEVSPACE_ENGINE_METRICS=off`` turns it off. When on,
@@ -580,16 +588,19 @@ class InferenceEngine:
         # the host KV tier (inference/kv_tier.py): None when off, and every
         # tier path below is gated on it
         self.kv_tier_mode = resolve_kv_tier(kv_tier)
-        if self.kv_tier_mode != "off" and mesh is not None:
-            raise ValueError("the host KV tier does not run under a mesh (kv_tier='off')")
         self._kv_tier: Optional[HostKVTier] = None
+        # under a multi-rank mesh: the digests rank 0's tier dropped since
+        # its last decision reached the other ranks (``_tier_follow``)
+        self._tier_evicted: list[str] = []
         # the tier's pinned staging (``_staging``) and the event of the last
         # restore's upload from it
         self._stage: Optional[list[torch.Tensor]] = None
         self._stage_uploaded: Optional[torch.cuda.Event] = None
         if self.kv_tier_mode != "off" and self.prefix_cache_enabled:
             disk_dir = None
-            if self.kv_tier_mode == "host+disk":
+            # under a multi-rank mesh only rank 0 of the axis stores
+            # payloads; the other ranks' tier stays empty
+            if self.kv_tier_mode == "host+disk" and self._leader:
                 disk_dir = kv_tier_dir or os.path.join(
                     tempfile.gettempdir(), f"devspace-kv-tier-{os.getpid()}")
             self._kv_tier = HostKVTier(max_bytes=kv_tier_bytes, disk_dir=disk_dir)
@@ -887,7 +898,8 @@ class InferenceEngine:
                 timed("_".join(map(str, key)), partial(self._programs.build, key))
             if self._kv_tier is not None:
                 R = _RESTORE_BATCH
-                L, Hkv, D = self.cfg.n_layers, self.cfg.n_kv_heads, self.cfg.head_dim
+                cfg = self._local_cfg
+                L, Hkv, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
                 zq = np.zeros((L, Hkv, self.block_size, D), np.int8)
                 zs = np.zeros((L, Hkv, self.block_size), np.float32)
                 timed("kv_restore_scatter", partial(
@@ -1167,7 +1179,8 @@ class InferenceEngine:
         allocation. Waits for the last restore's upload from it first:
         the host may rewrite it only once that copy has run."""
         if self._stage is None:
-            L, Hkv, D = self.cfg.n_layers, self.cfg.n_kv_heads, self.cfg.head_dim
+            cfg = self._local_cfg
+            L, Hkv, D = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
             q = (_RESTORE_BATCH, L, Hkv, self.block_size, D)
             self._stage = [torch.empty(shape, dtype=dtype, pin_memory=self.device.type == "cuda")
                            for shape, dtype in ((q, torch.int8), (q[:-1], torch.float32)) * 2]
@@ -1226,17 +1239,22 @@ class InferenceEngine:
         if not items:
             return
         t0 = time.monotonic()
-        spilled = 0
+        sizes = []
         R = _RESTORE_BATCH
         for lo in range(0, len(items), R):
             group = items[lo: lo + R]
-            kq, ks, vq, vs = self._gather_blocks([blk for _, blk in group])
+            parts = self._heads_to_leader(self._gather_blocks([blk for _, blk in group]))
+            if parts is None:
+                continue  # a follower: rank 0 of the axis stores the payloads
+            kq, ks, vq, vs = parts
             for n, (digest, _) in enumerate(group):
                 payload = pack_kv_payload(kq[n], ks[n], vq[n], vs[n])
                 self._kv_tier.put(digest, payload)
-                self.kv_spill_blocks += 1
-                self.kv_spill_bytes += len(payload)
-                spilled += len(payload)
+                sizes.append(len(payload))
+        sizes = self._tier_follow({"sizes": sizes})["sizes"]
+        spilled = sum(sizes)
+        self.kv_spill_blocks += len(sizes)
+        self.kv_spill_bytes += spilled
         self.kv_spill_s += time.monotonic() - t0
         log.debug("kv tier: spilled %d blocks, %d bytes", len(items), spilled)
         _events.emit("kv_tier", "spill", blocks=len(items), bytes=spilled)
@@ -1244,11 +1262,69 @@ class InferenceEngine:
     def _on_tier_evict(self, digest: str) -> None:
         """The tier aged out or lost a payload: prune the matching spilled
         radix node (and its subtree's payloads) so no match promises a
-        restore the tier cannot honour."""
+        restore the tier cannot honour. Under a multi-rank mesh rank 0
+        records the digest for its next ``_tier_follow``, whose followers
+        prune the same node."""
+        if self._control is not None and self._leader:
+            self._tier_evicted.append(digest)
         dropped, freed = self._prefix_cache.drop_spilled(digest)
         self._free_blocks.extend(freed)
         for d in dropped:
             self._kv_tier.discard(d)
+
+    def _tier_follow(self, info: dict) -> dict:
+        """A decision of the tier, which under a multi-rank mesh lives on
+        rank 0 of the model axis alone: rank 0's ``info``, with the
+        digests its tier dropped meanwhile, goes to every rank of the axis
+        (the other ranks pass anything), and each other rank prunes what
+        rank 0's tier dropped, so every rank's radix tree and free list
+        stay the same. ``info`` as it is without a mesh."""
+        if self._control is None:
+            return info
+        plan = [{**info, "evicted": self._tier_evicted} if self._leader else None]
+        self._tier_evicted = []
+        dist.broadcast_object_list(plan, src=self._leader_rank, group=self._control)
+        if not self._leader:
+            for digest in plan[0]["evicted"]:
+                self._on_tier_evict(digest)
+        return plan[0]
+
+    def _heads_to_leader(self, parts: list[np.ndarray]) -> Optional[list[np.ndarray]]:
+        """A group's block-major arrays of this rank's KV heads (``[n, L,
+        Hkv_local, ...]``) joined along the heads on rank 0 of the model
+        axis: a KVT1 payload carries every head. None on the other ranks;
+        ``parts`` as they are without a mesh."""
+        if self._control is None:
+            return parts
+        out = []
+        for a in parts:
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            bufs = ([torch.empty_like(t) for _ in range(dist.get_world_size(self._control))]
+                    if self._leader else None)
+            dist.gather(t, bufs, dst=self._leader_rank, group=self._control)
+            out.append(torch.cat(bufs, dim=2).numpy() if self._leader else None)  # lint: allow(JIT502) — host tensors of the gloo group, no readback
+        return out if self._leader else None
+
+    def _heads_from_leader(self, group: list[tuple], n: int) -> list[tuple]:
+        """``n`` unpacked payloads ``(kq, ks, vq, vs)`` of every head, which
+        rank 0 of the model axis holds, cut to each rank's KV heads: this
+        rank's part of each, as ``_restore_group`` takes them. ``group``
+        as it is without a mesh."""
+        if self._control is None:
+            return group
+        cfg = self._local_cfg
+        q = (n, cfg.n_layers, cfg.n_kv_heads, self.block_size, cfg.head_dim)
+        mine = []
+        for j, (shape, dtype) in enumerate(((q, torch.int8), (q[:-1], torch.float32)) * 2):
+            recv = torch.empty(shape, dtype=dtype)
+            chunks = None
+            if self._leader:
+                whole = torch.from_numpy(np.stack([payload[j] for payload in group]))
+                chunks = [c.contiguous()
+                          for c in whole.chunk(dist.get_world_size(self._control), dim=2)]
+            dist.scatter(recv, chunks, src=self._leader_rank, group=self._control)
+            mine.append(recv.numpy())  # lint: allow(JIT502) — a host tensor of the gloo group, no readback
+        return list(zip(*mine))
 
     def _match_prefix(self, prompt: list[int]) -> tuple[list[int], list[str]]:
         """The longest run of cached full prompt blocks, capped so that at
@@ -1302,38 +1378,30 @@ class InferenceEngine:
         remote = [d for d in spilled if self._prefix_cache.remote_source(d) is not None]
         if remote:
             self._migrate_remote(slot_idx, remote)
-        chain = []
-        for digest in spilled:
-            try:
-                payload = self._kv_tier.get(digest)
-                parsed = unpack_kv_payload(payload) if payload is not None else None
-            except Exception:  # noqa: BLE001 — any host-tier fault => recompute
-                parsed = None
-            if parsed is None:
-                self.kv_restore_fallbacks += 1
-                dropped, freed = self._prefix_cache.drop_spilled(digest)
-                self._free_blocks.extend(freed)
-                self._kv_tier.discard(digest)
-                for d in dropped:
-                    self._kv_tier.discard(d)
-                log.warning("kv tier: restore fell back to recompute at digest %s "
-                            "(slot %d, %d nodes pruned)", digest[:16], slot_idx, len(dropped))
-                slot_req = self.slots[slot_idx].req
-                _events.emit(
-                    "kv_tier", "restore_fallback", level="warn",
-                    trace_id=_req_trace_id(slot_req) if slot_req is not None else None,
-                    slot=slot_idx, digest=digest[:16], pruned=len(dropped),
-                )
-                break
-            chain.append(parsed)
-        if not chain:
+        chain, fail = [], None
+        if self._leader:  # under a multi-rank mesh only rank 0 holds payloads
+            for digest in spilled:
+                try:
+                    payload = self._kv_tier.get(digest)
+                    parsed = unpack_kv_payload(payload) if payload is not None else None
+                except Exception:  # noqa: BLE001 — any host-tier fault => recompute
+                    parsed = None
+                if parsed is None:
+                    fail = digest
+                    break
+                chain.append(parsed)
+        found = self._tier_follow({"blocks": len(chain), "fail": fail})
+        if found["fail"] is not None:
+            self._restore_fallback(slot_idx, found["fail"])
+        n = found["blocks"]
+        if not n:
             self.kv_restore_s += time.monotonic() - t0
             return 0
-        blks = [self._pop_block() for _ in chain]
+        blks = [self._pop_block() for _ in range(n)]
         try:
-            for lo in range(0, len(chain), _RESTORE_BATCH):
-                self._restore_group(blks[lo: lo + _RESTORE_BATCH],
-                                    chain[lo: lo + _RESTORE_BATCH])
+            for lo in range(0, n, _RESTORE_BATCH):
+                hi = min(n, lo + _RESTORE_BATCH)
+                self._restore_group(blks[lo: hi], self._heads_from_leader(chain[lo: hi], hi - lo))
         except Exception:
             self._free_blocks.extend(blks)  # their nodes stay spilled
             raise
@@ -1373,6 +1441,24 @@ class InferenceEngine:
         )
         return restored
 
+    def _restore_fallback(self, slot_idx: int, digest: str) -> None:
+        """The payload of ``digest`` was missing or corrupt: prune its node
+        and subtree, so the rest of the prompt is recomputed."""
+        self.kv_restore_fallbacks += 1
+        dropped, freed = self._prefix_cache.drop_spilled(digest)
+        self._free_blocks.extend(freed)
+        self._kv_tier.discard(digest)
+        for d in dropped:
+            self._kv_tier.discard(d)
+        log.warning("kv tier: restore fell back to recompute at digest %s "
+                    "(slot %d, %d nodes pruned)", digest[:16], slot_idx, len(dropped))
+        slot_req = self.slots[slot_idx].req
+        _events.emit(
+            "kv_tier", "restore_fallback", level="warn",
+            trace_id=_req_trace_id(slot_req) if slot_req is not None else None,
+            slot=slot_idx, digest=digest[:16], pruned=len(dropped),
+        )
+
     # -- KV migration -------------------------------------------------------
     def _mark_remote_chain(self, prompt: list[int], source: str) -> None:
         """Record that every full prompt block the radix tree does not
@@ -1398,20 +1484,27 @@ class InferenceEngine:
         trace = getattr(req, "_obs_trace", None) if req is not None else None
         trace_id = trace.trace_id if trace is not None else None
         t0 = time.monotonic()
-        try:
-            envelope = self._migrate_client().fetch(source, remote[-1])
-            imported = set(import_chain(self._kv_tier, envelope))
-        except Exception as e:  # noqa: BLE001 — any fault => recompute
+        pulled: dict = {}
+        if self._leader:  # under a multi-rank mesh rank 0 pulls, and tells the others
+            try:
+                envelope = self._migrate_client().fetch(source, remote[-1])
+                pulled = {"imported": import_chain(self._kv_tier, envelope),
+                          "bytes": len(envelope)}
+            except Exception as e:  # noqa: BLE001 — any fault => recompute
+                pulled = {"reason": type(e).__name__}
+        pulled = self._tier_follow(pulled)
+        if "reason" in pulled:
             self.kv_migrate_s += time.monotonic() - t0
             self.kv_migrate_failures += 1
             log.warning("kv migration from %s failed (slot %d, %d blocks): %s",
-                        source, slot_idx, len(remote), type(e).__name__)
+                        source, slot_idx, len(remote), pulled["reason"])
             _events.emit(
                 "kv_tier", "migrate_failed", level="warn", trace_id=trace_id, slot=slot_idx,
                 source=source, digest=remote[-1][:16], blocks=len(remote),
-                reason=type(e).__name__,
+                reason=pulled["reason"],
             )
             return
+        imported = set(pulled["imported"])
         promoted = 0
         for d in remote:
             # past a gap a node is unrestorable (its ancestors miss first)
@@ -1423,7 +1516,7 @@ class InferenceEngine:
         self.kv_migrate_s += now - t0
         self.kv_migrate_chains += 1
         self.kv_migrate_blocks += promoted
-        self.kv_migrate_bytes += len(envelope)
+        self.kv_migrate_bytes += pulled["bytes"]
         if self._kv_migrate_hist is not None:
             self._kv_migrate_hist.observe(now - t0)
         if trace is not None:
@@ -1434,7 +1527,7 @@ class InferenceEngine:
                    source=source, blocks=promoted, trace_id=trace_id)
         _events.emit(
             "kv_tier", "migrate", trace_id=trace_id, slot=slot_idx, source=source,
-            blocks=promoted, requested=len(remote), bytes=len(envelope),
+            blocks=promoted, requested=len(remote), bytes=pulled["bytes"],
             seconds=round(now - t0, 6),
         )
 
@@ -1443,9 +1536,12 @@ class InferenceEngine:
         peer's migration pull (the server's ``GET /kv/chain/<digest>``).
         Thread-safe: the request goes through a mailbox to the scheduler
         thread, the only one that may read the pool, cache and tier; with
-        no scheduler running it is served inline. None for an unknown
-        digest, with the tier off, or on timeout."""
-        if self._kv_tier is None:
+        no scheduler running it is served inline. Under a multi-rank mesh
+        it belongs to rank 0 of the axis, whose next plan carries it to
+        every rank (each gathers its heads of the resident blocks), and it
+        needs the schedulers running. None for an unknown digest, with the
+        tier off, on timeout, or under a mesh elsewhere or stopped."""
+        if self._kv_tier is None or not self._leader:
             return None
         if self._thread is not None and self._thread.is_alive():
             box: dict = {"done": threading.Event(), "envelope": None}
@@ -1453,22 +1549,33 @@ class InferenceEngine:
             if not box["done"].wait(timeout):
                 return None
             return box["envelope"]
+        if self._control is not None:
+            return None
         return self._serve_kv_export(digest)
 
-    def _service_kv_exports(self) -> None:
-        """Drain the export mailbox (scheduler thread, between iterations)."""
+    def _export_requests(self) -> list:
+        """The mailbox's ``(digest, box)`` requests, drained."""
+        requests = []
         while True:
             try:
-                digest, box = self._kv_export_requests.get_nowait()
+                requests.append(self._kv_export_requests.get_nowait())
             except queue.Empty:
-                return
+                return requests
+
+    def _service_kv_exports(self, requests: list) -> None:
+        """Serve export requests (scheduler thread, between iterations);
+        under a multi-rank mesh every rank serves the plan's, the other
+        ranks with no box to answer."""
+        for digest, box in requests:
+            envelope = None
             try:
-                box["envelope"] = self._serve_kv_export(digest)
+                envelope = self._serve_kv_export(digest)
             except Exception:  # noqa: BLE001 — a failed export is a 404
                 log.exception("kv chain export failed")
-                box["envelope"] = None
             finally:
-                box["done"].set()
+                if box is not None:
+                    box["envelope"] = envelope
+                    box["done"].set()
 
     def _serve_kv_export(self, digest: str) -> Optional[bytes]:
         """Build the envelope: resident blocks gathered device->host as a
@@ -1481,20 +1588,25 @@ class InferenceEngine:
         payloads: dict[str, bytes] = {}
         for lo in range(0, len(resident), _RESTORE_BATCH):
             group = resident[lo: lo + _RESTORE_BATCH]
-            kq, ks, vq, vs = self._gather_blocks([blk for _, blk in group])
+            parts = self._heads_to_leader(self._gather_blocks([blk for _, blk in group]))
+            if parts is None:
+                continue  # a follower: rank 0 of the axis packs the envelope
+            kq, ks, vq, vs = parts
             for n, (d, _) in enumerate(group):
                 payloads[d] = pack_kv_payload(kq[n], ks[n], vq[n], vs[n])
         blocks = []
-        for d, blk in chain:
-            payload = payloads.get(d) if blk >= 0 else self._kv_tier.get(d)
-            if payload is None:
-                break  # a gap: nothing below it is restorable
-            blocks.append((d, payload))
-        if not blocks:
+        if self._leader:
+            for d, blk in chain:
+                payload = payloads.get(d) if blk >= 0 else self._kv_tier.get(d)
+                if payload is None:
+                    break  # a gap: nothing below it is restorable
+                blocks.append((d, payload))
+        n = self._tier_follow({"blocks": len(blocks)})["blocks"]
+        if not n:
             return None
         self.kv_export_chains += 1
-        _events.emit("kv_tier", "migrate_export", digest=digest[:16], blocks=len(blocks))
-        return pack_chain_envelope(blocks)
+        _events.emit("kv_tier", "migrate_export", digest=digest[:16], blocks=n)
+        return pack_chain_envelope(blocks) if self._leader else None
 
     def _reset_pool(self) -> None:
         """Zeroed pool and fresh allocator state after a failed dispatch.
@@ -2132,8 +2244,9 @@ class InferenceEngine:
     def _sync_plan(self) -> bool:
         """One scheduler iteration's plan under a multi-rank mesh: rank 0
         of the axis broadcasts the requests submitted since the last plan
-        (their arguments) and whether it stops; every rank queues the
-        same requests in the same order. True to stop."""
+        (their arguments), the KV chain exports asked of it meanwhile and
+        whether it stops; every rank queues the same requests in the same
+        order and serves the same exports. True to stop."""
         if self._leader:
             new = self._inbox_head
             self._inbox_head = []
@@ -2142,11 +2255,15 @@ class InferenceEngine:
                     new.append(self._inbox.get_nowait())
                 except queue.Empty:
                     break
+            exports = self._export_requests()
             plan = [{"stop": self._stop.is_set(),
-                     "requests": [{f: getattr(r, f) for f in _PLAN_FIELDS} for r in new]}]
+                     "requests": [{f: getattr(r, f) for f in _PLAN_FIELDS} for r in new],
+                     "exports": [digest for digest, _ in exports]}]
         else:
             plan = [None]
         dist.broadcast_object_list(plan, src=self._leader_rank, group=self._control)
+        if not self._leader:
+            exports = [(digest, None) for digest in plan[0]["exports"]]
         if not self._leader:
             new = []
             for args in plan[0]["requests"]:
@@ -2157,6 +2274,8 @@ class InferenceEngine:
             self.mirrored.extend(new)
         for req in new:
             self.pending.put(req)
+        if exports:
+            self._service_kv_exports(exports)
         return plan[0]["stop"]
 
     def _note_iter(self, t_iter: float) -> None:
@@ -2188,8 +2307,8 @@ class InferenceEngine:
             elif self._stop.is_set():
                 break
             t_iter = time.monotonic()
-            if not self._kv_export_requests.empty():
-                self._service_kv_exports()
+            if self._control is None and not self._kv_export_requests.empty():
+                self._service_kv_exports(self._export_requests())
             self._admit_pending()
             prefilling = [i for i, s in enumerate(self.slots) if s.req is not None and not s.ready]
             ready = [i for i, s in enumerate(self.slots) if s.req is not None and s.ready]

@@ -12,7 +12,21 @@ Failure discipline (what keeps chaos runs at zero corrupted streams):
 - connect/first-byte failure → the replica is dead or saturating; the
   gateway **reroutes** the request (avoiding every replica already
   tried this attempt), counting ``serving_router_retries_total`` and
-  emitting ``router.retry_rerouted``. The client never notices.
+  emitting ``router.retry_rerouted``. The client never notices. A
+  replica can also take the connection and stay silent: one killed
+  while its process still tears down keeps its listening socket until
+  the teardown ends, and the kernel accepts the connection into its
+  backlog with nothing behind it, so the gateway waits for as long as
+  its timeout lets it. ``header_timeout_s`` bounds how long
+  a streamed request waits for a replica's response headers before it
+  counts as such a failure; set it where the replicas answer at once
+  (the engine's server sends a stream's headers when the engine has
+  queued the request). By default the request's timeout applies, as in
+  the reference, which suits replicas that answer only after a queue or
+  a prefill (the stub). ``prefill_timeout_s`` bounds the same way how
+  long a two-phase placement waits for its prefill pool's answer: past
+  it, phase 1 counts as failed and the request degrades to unified
+  placement, as for any other phase-1 failure.
 - failure **after** payload bytes were forwarded → the gateway must NOT
   retry (replaying would duplicate tokens into the half-written client
   stream — exactly the corruption the loadgen hunts). It drops the
@@ -40,10 +54,12 @@ the stream's end, which holds a token stream back until it completes
 
 from __future__ import annotations
 
+import http.client
 import json
 import threading
 import time
 import urllib.error
+import urllib.parse
 import urllib.request
 from typing import Callable, Optional
 
@@ -75,10 +91,14 @@ class RoutingGateway:
         request_timeout_s: float = 30.0,
         queue_poll_s: float = 0.05,
         clock: Callable[[], float] = time.monotonic,
+        header_timeout_s: Optional[float] = None,
+        prefill_timeout_s: Optional[float] = None,
     ):
         self.router = router
         self.host = host
         self.request_timeout_s = request_timeout_s
+        self.header_timeout_s = header_timeout_s
+        self.prefill_timeout_s = prefill_timeout_s
         self.queue_poll_s = queue_poll_s
         self._clock = clock
         self._sleep = time.sleep  # injectable for the QUEUE re-poll test
@@ -162,10 +182,29 @@ class RoutingGateway:
         )
 
     def _open_upstream(self, url: str, body: bytes, headers: dict):
-        req = urllib.request.Request(
-            url + "/generate", data=body,
-            headers={"Content-Type": "application/json", **headers})
-        return urllib.request.urlopen(req, timeout=self.request_timeout_s)
+        """POST ``body`` to the replica's ``/generate`` -> its response,
+        once the headers are in. A streamed request waits at most
+        ``header_timeout_s`` for them (then ``TimeoutError``) and reads
+        its stream under ``request_timeout_s``; a status outside 2xx
+        raises ``HTTPError``, as ``urlopen`` does."""
+        streamed = self.header_timeout_s is not None and json.loads(body).get("stream")
+        target = urllib.parse.urlsplit(url)
+        conn = http.client.HTTPConnection(
+            target.hostname, target.port,
+            timeout=self.header_timeout_s if streamed else self.request_timeout_s)
+        try:
+            conn.request("POST", "/generate", body,
+                         {"Content-Type": "application/json", **headers})
+            sock = conn.sock  # the response reads through it
+            upstream = conn.getresponse()
+        except BaseException:
+            conn.close()
+            raise
+        sock.settimeout(self.request_timeout_s)
+        if not 200 <= upstream.status < 300:
+            raise urllib.error.HTTPError(url + "/generate", upstream.status, upstream.reason,
+                                         upstream.headers, upstream)
+        return upstream
 
     def _phase1_prefill(self, decision, body: bytes,
                         headers: dict) -> Optional[str]:
@@ -173,7 +212,9 @@ class RoutingGateway:
         ``decision.prefill_replica`` and return that replica's base URL
         (the decode request's ``kv_source``). ANY failure returns None —
         the request degrades to unified placement and the decode replica
-        prefills locally; nothing is ever half-migrated."""
+        prefills locally; nothing is ever half-migrated. A pool silent
+        past ``prefill_timeout_s`` (default: the request's timeout) is
+        such a failure."""
         router = self.router
         name = decision.prefill_replica
         tokens = max(0, decision.prompt_tokens - decision.overlap_tokens)
@@ -189,7 +230,7 @@ class RoutingGateway:
                 url + "/prefill", data=body,
                 headers={"Content-Type": "application/json", **headers})
             with urllib.request.urlopen(
-                    req, timeout=self.request_timeout_s) as resp:
+                    req, timeout=self.prefill_timeout_s or self.request_timeout_s) as resp:
                 resp.read()
         except (OSError, urllib.error.URLError) as e:
             router.prefill_complete(name, tokens, ok=False)

@@ -48,7 +48,18 @@ Meshes (``parallel/mesh.py``; the reference's Orbax does both for a
   shape and dtype, the mesh and its spec). A restore into it maps the
   full logical array from the file, as every restore does, and keeps
   this rank's block on the mesh's device, so a checkpoint saved at one
-  layout (one process, a pipe mesh, FSDP) restores at another.
+  layout (one process, a pipe mesh, FSDP) restores at another. For a
+  whole train state (``{"params", "opt_state": an optimizer factory,
+  "step"}``) the template holds this rank's parameter blocks and the
+  optimizer built over them; the restore fills the blocks in place and
+  cuts each saved moment by its parameter's spec into this rank's block
+  (the inverse of the save's gather), so training resumes with its
+  moments on the new mesh.
+- **Layouts.** The pipeline's stacked layouts
+  (``parallel/pipeline.py``: ``{"stages"}`` ``[S, K, ...]`` or
+  ``[V, S, K, ...]``) and the flat ``{"layers"}`` tree are one model:
+  a restore into a template of another layout re-stacks the saved
+  params and moments to it.
 - **Saves from a mesh.** ``save_checkpoint(..., mesh=, spec_tree=)`` (and
   ``CheckpointManager(mesh=, spec_tree=)``) gathers a state sharded over
   any axes (``pipe``, ``model``, FSDP's ``data``) to its logical arrays,
@@ -64,7 +75,7 @@ import json
 import os
 import shutil
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Optional
 
 import torch
@@ -154,17 +165,28 @@ def param_names(params: Any, optimizer: torch.optim.Optimizer) -> list[str]:
 class ShardedLeaf:
     """A restore template's leaf on a mesh: the logical array's ``shape``
     and ``dtype``, and the block of it under ``spec`` that this rank
-    keeps, on ``mesh.device``."""
+    keeps, on ``mesh.device``; ``target``, where set, is the tensor the
+    block is copied into (a train state's parameter, which its optimizer
+    holds)."""
 
     shape: tuple
     dtype: torch.dtype
     mesh: Any
     spec: Any
+    target: Optional[torch.Tensor] = field(default=None, compare=False)
 
-    def block(self, saved: torch.Tensor) -> torch.Tensor:
+    def cut(self, saved: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``saved`` (a view)."""
         from ..parallel.mesh import shard_tensor
 
-        x = shard_tensor(saved, self.spec, self.mesh).to(self.mesh.device, self.dtype)
+        return shard_tensor(saved, self.spec, self.mesh)
+
+    def block(self, saved: torch.Tensor) -> torch.Tensor:
+        if self.target is not None:
+            with torch.no_grad():
+                self.target.copy_(self.cut(saved))
+            return self.target
+        x = self.cut(saved).to(self.mesh.device, self.dtype)
         x = x.contiguous()
         return x.clone() if x.untyped_storage().nbytes() != x.nbytes else x
 
@@ -176,11 +198,107 @@ def sharded_template(state: Any, mesh, spec_tree: Any = None) -> Any:
     device="meta")``); ``spec_tree`` is a spec tree over it
     (``PartitionSpec`` at a node covers its subtree; ``None`` replicates
     everything). ``restore_checkpoint(path, template)`` then returns this
-    rank's blocks, each a fresh tensor on ``mesh.device``."""
-    from ..parallel.mesh import map_with_spec
+    rank's blocks, each a fresh tensor on ``mesh.device``.
 
-    return map_with_spec(lambda x, s: ShardedLeaf(tuple(x.shape), x.dtype, mesh, s), state,
-                         spec_tree)
+    A train state ``{"params", "opt_state", "step"}`` whose ``opt_state``
+    is an optimizer factory (``trainer.adamw(lr)``) gives a train-state
+    template: its params' blocks are allocated here (trainable, on
+    ``mesh.device``), ``opt_state`` is the factory's optimizer over them
+    (in ``trainer.param_leaves`` order, as ``init_train_state``), and a
+    full restore fills the blocks in place, binds each parameter's saved
+    moments cut to its block, and returns the step saved."""
+    from ..parallel.mesh import map_with_spec, shard_tensor, tree_leaves
+
+    if not is_train_state(state):
+        return map_with_spec(lambda x, s: ShardedLeaf(tuple(x.shape), x.dtype, mesh, s), state,
+                             spec_tree)
+    factory = state["opt_state"]
+    if isinstance(factory, torch.optim.Optimizer) or not callable(factory):
+        raise ValueError("a train-state template's opt_state is an optimizer factory "
+                         "(trainer.adamw(lr)): its optimizer is built over the blocks")
+
+    def leaf(x, s):
+        shape = shard_tensor(torch.empty(x.shape, device="meta"), s, mesh).shape
+        block = torch.empty(shape, dtype=x.dtype, device=mesh.device, requires_grad=True)
+        return ShardedLeaf(tuple(x.shape), x.dtype, mesh, s, block)
+
+    params = map_with_spec(leaf, state["params"], spec_tree)
+    blocks = [x.target for x in tree_leaves(params)]
+    return {"params": params, "opt_state": factory(blocks), "step": state.get("step", 0)}
+
+
+def _leaf_names(tree: Any, prefix: str = "") -> dict:
+    """Leaf name (as ``_flatten`` names it) -> leaf, for any leaf type."""
+    if isinstance(tree, dict):
+        return {n: x for k, v in tree.items() for n, x in _leaf_names(v, f"{prefix}{k}.").items()}
+    if isinstance(tree, (list, tuple)):
+        return {n: x for i, v in enumerate(tree)
+                for n, x in _leaf_names(v, f"{prefix}{i}.").items()}
+    return {prefix[:-1]: tree}
+
+
+# -- layouts: the flat tree and the pipeline's stacked ones ----------------------
+def _layout(params: Any) -> Optional[tuple]:
+    """``("flat",)``, ``("1f1b", S)``, ``("interleaved", V, S)`` or None
+    (not a transformer tree) from a tree's structure and its ``wq``
+    shape."""
+    if not isinstance(params, dict):
+        return None
+    if isinstance(params.get("layers"), (list, tuple)):
+        return ("flat",)
+    stages = params.get("stages")
+    if not isinstance(stages, dict) or "wq" not in stages:
+        return None
+    shape = tuple(stages["wq"].shape)
+    return ("1f1b", shape[0]) if len(shape) == 4 else ("interleaved", shape[0], shape[1])
+
+
+def _to_layout(tree: dict, have: tuple, want: tuple) -> dict:
+    """A transformer tree re-stacked from layout ``have`` to ``want``."""
+    from ..parallel import pipeline
+
+    if have[0] == "1f1b":
+        tree = pipeline.transformer_unstage_params(tree)
+    elif have[0] == "interleaved":
+        tree = pipeline.transformer_uninterleave_params(tree)
+    if want[0] == "1f1b":
+        tree = pipeline.transformer_stage_params(tree, want[1])
+    elif want[0] == "interleaved":
+        tree = pipeline.transformer_interleaved_stage_params(tree, want[2], want[1])
+    return tree
+
+
+def _relayout_moments(path: str, opt: dict, skeleton: Any, have: tuple, want: tuple,
+                      new_names: list) -> dict:
+    """A saved optimizer state dict with each parameter's moments moved
+    as ``_to_layout`` moves the params (whose new leaf names are
+    ``new_names``): a moment shaped like its parameter is re-stacked with
+    it; a scalar one (AdamW's ``step``), the same for every parameter,
+    is given to each new one."""
+    if len(opt["param_groups"]) != 1:
+        raise ValueError(f"{path}: a restore across layouts needs one param group")
+    group = {**opt["param_groups"][0], "params": list(range(len(new_names)))}
+    out = {**opt, "state": {}, "param_groups": [group], "param_names": list(new_names)}
+    if not opt["state"]:
+        return out
+    names = list(opt["param_names"])
+    entries = [opt["state"].get(i) for i in range(len(names))]
+    keys = set(entries[0] or ())
+    if any(e is None or set(e) != keys for e in entries):
+        raise ValueError(f"{path}: a restore across layouts needs every parameter's moments")
+    moved: dict = {}
+    for key in keys:
+        values = {n: e[key] for n, e in zip(names, entries)}
+        first = values[names[0]]
+        if all(v.dim() == 0 for v in values.values()):
+            if any(not torch.equal(v, first) for v in values.values()):
+                raise ValueError(f"{path}: moment {key!r} differs between parameters")
+            moved[key] = {n: first.clone() for n in new_names}
+        else:
+            moved[key] = _leaf_names(_to_layout(_unflatten(skeleton, values), have, want))
+    out["state"] = {i: {k: moved[k][n].contiguous() for k in keys}
+                    for i, n in enumerate(new_names)}
+    return out
 
 
 def _named_specs(params: Any, spec_tree: Any) -> dict:
@@ -388,10 +506,13 @@ def _fill(saved: Any, template: Any, where: str) -> Any:
 
 
 def _bind_moments(path: str, meta: dict, saved: dict, optimizer: torch.optim.Optimizer,
-                  params: Any) -> None:
+                  params: Any, leaves: Optional[dict] = None) -> None:
     """Load ``saved`` (an optimizer state dict written with its names)
     into ``optimizer``, each parameter's moments going to the template's
-    parameter of the same name, wherever the optimizer holds it."""
+    parameter of the same name, wherever the optimizer holds it. A
+    parameter whose template leaf (``leaves``: name -> leaf) is a
+    ``ShardedLeaf`` gets each saved moment shaped like the logical array
+    cut to its block, by the spec the save gathered it by."""
     if meta["version"] < 2 or "param_names" not in saved:
         raise ValueError(
             f"{path}: a version {meta['version']} train state keys its optimizer moments "
@@ -420,6 +541,11 @@ def _bind_moments(path: str, meta: dict, saved: dict, optimizer: torch.optim.Opt
             entry = saved["state"].get(pos[names[j]])
             if entry is None:
                 continue
+            leaf = (leaves or {}).get(names[j])
+            if isinstance(leaf, ShardedLeaf):
+                entry = {key: leaf.cut(v).contiguous().clone()
+                         if torch.is_tensor(v) and v.dim() and tuple(v.shape) == leaf.shape else v
+                         for key, v in entry.items()}
             for key, value in entry.items():
                 if value.dim() and tuple(value.shape) != tuple(tensors[j].shape):
                     raise ValueError(f"{path}: moment {key!r} of {names[j]!r} has shape "
@@ -468,6 +594,11 @@ def restore_checkpoint(path: str, template: Optional[Any] = None, partial: bool 
     flat = torch.load(os.path.join(path, PARAMS_FILE), weights_only=True, mmap=True,
                       map_location="cpu")
     params = _unflatten(meta["tree"], flat)
+    t_params = template.get("params") if train and template is not None else template
+    have, want = _layout(params), _layout(t_params)
+    relayout = have is not None and want is not None and have != want
+    if relayout:
+        params = _to_layout(params, have, want)
     if template is None:
         if not train:
             return params
@@ -481,8 +612,13 @@ def restore_checkpoint(path: str, template: Optional[Any] = None, partial: bool 
     if "opt_state" in template:
         opt = torch.load(os.path.join(path, OPT_FILE), weights_only=True, map_location="cpu")
         target = template["opt_state"]
+        if relayout:
+            opt = _relayout_moments(path, opt, meta["tree"], have, want, list(_leaf_names(params)))
         if isinstance(target, torch.optim.Optimizer):
-            _bind_moments(path, meta, opt, target, template.get("params"))
+            # the restored params: a train-state template's targets, the
+            # tensors its optimizer holds
+            _bind_moments(path, meta, opt, target, out.get("params", t_params),
+                          _leaf_names(t_params))
             opt = target
         out["opt_state"] = opt
     if "step" in template:

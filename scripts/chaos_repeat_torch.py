@@ -4,15 +4,18 @@ chip_smoke.py's ``chaos`` phase runs (a) kill-mid-stream and (b)
 router-kill-prefix-hot once each and stops at the first hung request.
 This script builds the kernels, saves the random 7B checkpoint
 (seed 0), starts the same two-replica fleet and runs (a) once, then (b)
-``DIAG_B_REPEATS`` times (default 3), recording instead of failing:
+``DIAG_B_REPEATS`` times (default 3) and (c) disagg-kill-prefill
+``DIAG_C_REPEATS`` times (default 0; each repeat after the first with
+fresh seeds for its trace and its live migration's prompt, which the
+fleet has not cached yet), recording instead of failing:
 each wave's outcome counts, the kill's offset in its wave, how long the
-victim's port kept accepting connections, every client attempt and every
-gateway upstream open with their times, and each replica's request
-traces. One JSON line per wave on stdout; everything in the JSON file
+victim's port kept accepting connections, every client attempt, every
+gateway upstream open and phase-1 prefill with their times, and each
+replica's request traces. One JSON line per wave on stdout; everything in the JSON file
 ``CHAOS_REPEAT_OUT`` names (default ``runs/chaos_repeat.json``). Needs
 the card::
 
-    DIAG_B_REPEATS=10 python3 scripts/chaos_repeat_torch.py
+    DIAG_B_REPEATS=10 DIAG_C_REPEATS=4 python3 scripts/chaos_repeat_torch.py
 """
 import json
 import os
@@ -33,6 +36,7 @@ from devspace_tpu_torch.serving import router as rt
 
 OUT = os.environ.get("CHAOS_REPEAT_OUT", os.path.join(cs.REPO_ROOT, "runs", "chaos_repeat.json"))
 REPEATS = int(os.environ.get("DIAG_B_REPEATS", "3"))
+C_REPEATS = int(os.environ.get("DIAG_C_REPEATS", "0"))
 rec = {"waves": [], "events": [], "errors": []}
 T0 = time.monotonic()
 cur = {}
@@ -66,12 +70,12 @@ lg.LoadGenerator.run = run
 _kill = cs.ReplicaWatch.kill
 
 
-def kill(self, name):
+def kill(self, name, log=None):
     cur["t_kill"] = now()
     cur["victim"] = name
     url = self.fleet.replica(name).base_url
     cur["probe"] = {"url": url}
-    pid = _kill(self, name)
+    pid = _kill(self, name, log)
     threading.Thread(target=port_probe, args=(url, cur["probe"]), daemon=True).start()
     return pid
 
@@ -176,6 +180,7 @@ def held(scenario, report, trace, table, corrupted, log=None, fleet=None):
     wave = {"timeline": tl, "probe": dict(cur.get("probe") or {}),
             "scenario": scenario, "t_start": cur.get("t_start"), "t_kill": cur.get("t_kill"),
             "victim": cur.get("victim"), "counts": report.counts(), "outcomes": outs,
+            "attempt_log": list(log.rows) if log is not None else None,
             "replicas": reqs,
             "router": router.stats() if router is not None else None}
     rec["waves"].append(wave)
@@ -221,12 +226,18 @@ def main():
         FLEET["fleet"] = fleet
         watch = cs.ReplicaWatch(fleet)
         corrupted = []
+        c_runs = 0
         try:
             fleet.start()
             print("fleet up", now(), flush=True)
             watch.seen()
             for key, fn in [("a", cs.chaos_kill_mid_stream)] + [
-                    ("b", cs.chaos_router_kill_prefix_hot)] * REPEATS:
+                    ("b", cs.chaos_router_kill_prefix_hot)] * REPEATS + [
+                    ("c", cs.chaos_disagg_kill_prefill)] * C_REPEATS:
+                if key == "c" and c_runs:
+                    cs.CHAOS_LIVE_SEED += 1
+                    cs.CHAOS["disagg_kill_prefill"]["trace"]["seed"] += 100
+                c_runs += key == "c"
                 try:
                     out = fn(fleet, watch, cs.tfm.LLAMA2_7B, corrupted)
                     print(key, "ok", now(), json.dumps({k: v for k, v in out.items()

@@ -299,6 +299,7 @@ def cpu_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
     monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a, **k: 0)
 
     def breakdown(step_fn, *args, **kwargs):
         step_fn()
@@ -468,8 +469,14 @@ def test_parallel_phase_rehearsed_on_the_cpu(monkeypatch, cpu_card, counting_lau
     and ``from_checkpoint(mesh={"model": 1})`` on the smoke requests and a
     steady burst of 4 x 24, and ``InferenceEngine(mesh=)`` on an int8
     pool with four short prompts, each stream equal to a plain CPU
-    engine's.
-    Timings are host-clock stand-ins; every kernel counter is put back."""
+    engine's. The new parts: FSDP's gathered peak within the head plus
+    one layer, the FSDP state restored onto the TP layout with its
+    moments byte for byte and the same next loss, and the kv_tier waves
+    (TINY_KV_TIER, bf16 pool) on ``from_checkpoint(mesh=, kv_tier=
+    "host")`` equal to a plain CPU tier engine's streams, counters and
+    KVM1 export.
+    Timings and peak memory are host-clock and zero stand-ins; every
+    kernel counter is put back."""
     import dataclasses
 
     import torch.distributed as dist
@@ -490,9 +497,12 @@ def test_parallel_phase_rehearsed_on_the_cpu(monkeypatch, cpu_card, counting_lau
     int8_requests = [(rng.integers(1, 256, n).tolist(), 16, {}) for n in (7, 20, 30, 50)]
     _, _, int8_results = tiny_serving_reference(tmp_path, "int8", int8_requests)
     save_checkpoint(str(tmp_path / "step_00000001"), params)
+    tier_line, _ = cs.kv_pool_run(params, tfm.TINY, torch.device("cpu"), TINY_KV_TIER,
+                                  cs.kv_tier_waves(tfm.TINY, TINY_KV_TIER), None, 0.5)
     serving = {"cfg": tfm.TINY, "params": params, "requests": requests, "results": results,
                "int8_requests": int8_requests, "int8_results": int8_results,
-               "steady_ms": 1.0, "checkpoint": str(tmp_path)}
+               "steady_ms": 1.0, "checkpoint": str(tmp_path),
+               "kv_tier": {"sizes": TINY_KV_TIER, **tier_line["reference"]}}
 
     tiny = dataclasses.replace(tfm.TINY, dtype=torch.float32)
     monkeypatch.setattr(cs, "BENCH_LM", tiny)
@@ -514,6 +524,15 @@ def test_parallel_phase_rehearsed_on_the_cpu(monkeypatch, cpu_card, counting_lau
         r = line["lm_mesh"][name]
         assert r["launches"] == flash
         assert r["loss_rel_err"] <= cs.PARALLEL_REL and r["update_rel_err"] <= cs.PARALLEL_REL
+    fsdp = line["lm_mesh"]["fsdp"]  # the gathered bytes are counted on the CPU too
+    layer = sum(x.numel() * 4 for x in cs.pmesh.tree_leaves(
+        tfm.init_params(tiny, torch.Generator(), device="meta")["layers"][0]) if x.numel() >= 1024)
+    assert fsdp["gathered_bound_gb"] == (tiny.dim * tiny.vocab_size * 4 + layer) / 1e9
+    assert 0 < fsdp["gathered_peak_gb"] <= fsdp["gathered_bound_gb"]
+    elastic = line["elastic"]
+    assert elastic["moments_byte_equal"] and elastic["step"] == cs.PARALLEL["steps"]
+    assert elastic["loss_rel_err"] <= cs.PARALLEL_REL
+    assert elastic["launches"] == {k: 2 * v // cs.PARALLEL["steps"] for k, v in flash.items()}
     two = line["lm_mesh"]["data2_gloo"]  # two spawned processes, half the rows each
     assert two["loss_rel_err_vs_world1"] <= cs.PARALLEL_REL and len(two["losses"]) == 3
     assert line["long_context"]["seq"] == 256 and len(line["long_context"]["losses"]) == 3
@@ -535,10 +554,16 @@ def test_parallel_phase_rehearsed_on_the_cpu(monkeypatch, cpu_card, counting_lau
         assert watched["captures"] == watched["graph_captures_delta"] == 0
         assert watched["paged_decode_launches"] == tfm.TINY.n_layers * watched["decode_steps"] > 0
     assert tp["bf16"]["steady"]["decode_steps"] > 0
+    tier = tp["kv_tier"]
+    assert tier["streams_equal_plain"] and tier["counters_equal_plain"]
+    assert tier["export_byte_equal_plain"] and tier["export"]["blocks"] == 4
+    assert tier["kv_restore_hits"] == 4 and tier["recompute_tokens_saved"] == 32
+    assert tier["graph_captures_after_prewarm"] == 0 and tier["launches"] > 0
     assert tp["bf16"]["built_by"] == "from_checkpoint(mesh=)"
     assert tp["seam"]["params_byte_equal"] and tp["seam"]["step"] == 1
-    assert set(line["part_seconds"]) == {"lm_mesh_and_pipeline", "data2_gloo", "long_context",
-                                         "ring_vs_flash", "expert_parallel", "tp_engine"}
+    assert set(line["part_seconds"]) == {"lm_mesh_and_pipeline", "elastic", "data2_gloo",
+                                         "long_context", "ring_vs_flash", "expert_parallel",
+                                         "tp_engine", "tp_engine_kv_tier"}
     assert pa.LAST_DISPATCH == {"impl": "reference", "tp": True}
     json.dumps(line)
 

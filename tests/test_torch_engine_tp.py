@@ -128,17 +128,6 @@ def test_indivisible_kv_heads_raise(world, which):
         assert msg == (want if which == "target" else "draft " + want)
 
 
-def test_tp_refuses_the_host_kv_tier(params_np):
-    from devspace_tpu_torch.parallel.mesh import create_mesh, distributed
-
-    cfg = ttfm.TransformerConfig(**TINY32, dtype=torch.float32)
-    with distributed("cpu"):
-        mesh = create_mesh({"model": 1}, device="cpu")
-        with pytest.raises(ValueError, match="does not run under a mesh"):
-            InferenceEngine(params_from_numpy(params_np, "cpu"), cfg, max_slots=2, max_len=32,
-                            mesh=mesh, kv_tier="host")
-
-
 def test_paged_attention_records_tp(monkeypatch):
     from devspace_tpu_torch.ops import paged_attention as tpa
 

@@ -79,7 +79,8 @@ def test_no_source_imports_jax_or_the_jax_package():
         REPO / "scripts" / f"train_{name}_torch.py"
         for name in ("draft_pair", "resnet", "mnist", "long_context")] + [
         REPO / "scripts" / f"{name}_torch.py"
-        for name in ("analysis_gate", "chaos_serving_check", "chaos_check")] + [
+        for name in ("analysis_gate", "chaos_serving_check", "chaos_check",
+                     "fsdp_step_profile", "chaos_repeat", "port_teardown_probe")] + [
         REPO / "tests" / f"torch_parallel_{name}.py" for name in ("world", "workers")]
     bad = {
         str(f.relative_to(REPO)): name

@@ -4,8 +4,11 @@ The live tests of tests/test_serving_router.py and
 tests/test_serving_disagg.py that drive the loadgen, run on the port's
 loadgen, fleet, router and gateway: the routed replica killed mid-stream
 reroutes with zero corrupted outcomes (chaos), the RAG trace shape, the
-gateway forwarding each token as it arrives, the gateway's and the
-server's accept queues holding a burst, a live two-phase placement that migrates the chain and keeps the stream
+gateway forwarding each token as it arrives, a streamed request
+rerouted from a replica that accepts and never answers (a killed one
+still tearing down) and a two-phase placement degraded from such a
+prefill pool, the gateway's and the server's accept queues
+holding a burst, a live two-phase placement that migrates the chain and keeps the stream
 exact, and the prefill-pool replica killed mid-migration degrading every
 orphaned migration cleanly (chaos). The chaos-marked tests are run three
 times by scripts/chaos_check_torch.py.
@@ -174,6 +177,100 @@ def test_gateway_forwards_each_token_as_it_arrives():
         if gw is not None:
             gw.stop()
         fleet.stop()
+
+
+@pytest.mark.parametrize("streamed", [True, False])
+def test_gateway_reroutes_a_replica_that_accepts_and_never_answers(streamed):
+    """A replica killed while its process still tears down keeps its
+    listening socket: the kernel completes the gateway's connect into
+    the backlog, and nothing answers until the teardown ends (a socket
+    that listens and never accepts is that state). With ``header_timeout_s`` a streamed
+    request gives up on it after that timeout and reroutes to the live
+    replica, long before a client's 10 s read timeout; a request that
+    does not stream keeps the request's timeout (a replica answers it
+    only when it is done), so it still waits."""
+    import socket
+
+    from devspace_tpu_torch.serving.gateway import RoutingGateway
+
+    fleet = fast_fleet(replicas=1)
+    fleet.start()
+    gw = None
+    with socket.socket() as hole:
+        hole.bind(("127.0.0.1", 0))
+        hole.listen(8)
+        dead = f"http://127.0.0.1:{hole.getsockname()[1]}"
+        try:
+            wait_for(lambda: len(fleet.targets()) == 1, msg="the live replica")
+            # least_loaded breaks the tie by name: the dead one is picked first
+            router = PrefixRouter(replicas_fn=lambda: {"a-dead": dead, **fleet.targets()},
+                                  config=RouterConfig(policy="least_loaded"))
+            gw = RoutingGateway(router, port=0, request_timeout_s=4.0, header_timeout_s=0.5)
+            gw.start()
+            body = {"prompt_ids": SHORT, "max_new_tokens": 8, "stream": streamed}
+            req = urllib.request.Request(gw.base_url + "/generate",
+                                         data=json.dumps(body).encode())
+            t0 = time.monotonic()
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                raw = resp.read()
+            elapsed = time.monotonic() - t0
+            want = [token_at(SHORT, i) for i in range(8)]
+            if streamed:
+                lines = [json.loads(line) for line in raw.splitlines()]
+                assert [m["token"] for m in lines[:-1]] == want and lines[-1] == {"done": True}
+                assert elapsed < 3.0, elapsed
+            else:
+                assert json.loads(raw)["tokens"] == want
+                assert elapsed >= 4.0, elapsed
+            assert router.m_retries.value == 1
+        finally:
+            if gw is not None:
+                gw.stop()
+            fleet.stop()
+
+
+def test_gateway_degrades_a_prefill_pool_that_accepts_and_never_answers():
+    """Phase 1 of a two-phase placement whose pool accepts the connect
+    and never answers (a socket that listens and never accepts) gives up
+    after ``prefill_timeout_s``: the request degrades to unified
+    placement on the live replica, its stream exact, long before a
+    client's 10 s read timeout, and the router counts one phase-1
+    failure and releases the pool's prefill tokens."""
+    import socket
+
+    from devspace_tpu_torch.serving.gateway import RoutingGateway
+
+    fleet = fast_fleet(replicas=1)
+    fleet.start()
+    gw = None
+    with socket.socket() as hole:
+        hole.bind(("127.0.0.1", 0))
+        hole.listen(8)
+        dead = f"http://127.0.0.1:{hole.getsockname()[1]}"
+        try:
+            wait_for(lambda: len(fleet.targets()) == 1, msg="the live replica")
+            router = PrefixRouter(
+                replicas_fn=lambda: {"pool": dead, **fleet.targets()},
+                config=RouterConfig(prefill_pool=("pool",), disagg_threshold_tokens=32))
+            gw = RoutingGateway(router, port=0, request_timeout_s=30.0,
+                                header_timeout_s=0.5, prefill_timeout_s=0.5)
+            gw.start()
+            prompt = list(range(96))
+            t0 = time.monotonic()
+            lines = gw_stream(gw, prompt, 5)
+            elapsed = time.monotonic() - t0
+            assert [m["token"] for m in lines[:-1]] == [token_at(prompt, i) for i in range(5)]
+            assert lines[-1] == {"done": True}
+            assert elapsed < 3.0, elapsed
+            d = router.stats()["recent_decisions"][-1]
+            assert d["prefill_replica"] == "pool" and d["replica"] != "pool", d
+            assert router.m_prefill_failures.value == 1
+            wait_for(lambda: router.stats()["prefill_tokens"] == {},
+                     msg="prefill tokens drained")
+        finally:
+            if gw is not None:
+                gw.stop()
+            fleet.stop()
 
 
 def connected_before_accept(port: int, n: int = 64) -> int:

@@ -30,6 +30,8 @@ from devspace_tpu_torch.parallel.mesh import (
     shard_tensor,
     shard_tree,
     sharding,
+    spec_leaves,
+    tree_leaves,
 )
 from devspace_tpu_torch.parallel.ring_attention import ring_attention
 from devspace_tpu_torch.parallel.sequence_parallel import ulysses_attention
@@ -388,6 +390,59 @@ def fsdp_lm_step(params_np: dict, cfg_kwargs: dict, tokens, lr: float) -> dict:
             "grads": tree_np(gather_tree(grads, spec, mesh))}
 
 
+def fsdp_layerwise_steps(params_np: dict, cfg_kwargs: dict, tokens, lr: float, steps: int,
+                         remat: bool = False) -> dict:
+    """``steps`` SGD steps of the TINY LM through ``make_fsdp_train_step``
+    (every leaf of 1024 elements or more sharded over ``data``) -> the
+    losses, the params after, the largest number of gathered bytes alive
+    at once in each step, and the bytes of the gathered leaves: the
+    embedding, the head, each layer's, and all of them together."""
+    from functools import partial
+
+    mesh = cpu_mesh({"data": -1})
+    cfg = ttfm.TransformerConfig(**cfg_kwargs, dtype=torch.float32)
+    params = params_from_numpy(params_np, "cpu", trainable=True)
+    forward = partial(ttfm.forward, remat=True) if remat else ttfm.forward
+    step, shards, opt = fsdp.make_fsdp_train_step(ttrainer.lm_loss(forward, cfg),
+                                                  ttrainer.sgd(lr, momentum=0.0), mesh, params)
+    spec = fsdp.fsdp_spec(params, mesh)
+    batch = data_parallel.shard_batch(t(tokens), mesh)
+    losses, peaks = [], []
+    for _ in range(steps):
+        shards, opt, loss = step(shards, opt, batch)
+        losses.append(float(loss))
+        peaks.append(step.stats["gathered_peak_bytes"])
+
+    def gathered_bytes(tree, specs):
+        return sum(x.numel() * x.element_size()
+                   for x, s in zip(tree_leaves(tree), spec_leaves(specs, tree)) if any(s))
+
+    return {"losses": losses, "peaks": peaks, "layerwise": step.stats["layerwise"],
+            "params": tree_np(gather_tree(shards, spec, mesh)),
+            "bytes": {"embed": gathered_bytes(params["embed"], spec["embed"]),
+                      "lm_head": gathered_bytes(params["lm_head"], spec["lm_head"]),
+                      "layers": [gathered_bytes(lyr, s)
+                                 for lyr, s in zip(params["layers"], spec["layers"])],
+                      "whole": gathered_bytes(params, spec)}}
+
+
+def fsdp_mlp_peak(params_np: dict, xs, ys) -> dict:
+    """One Adam(1e-2) step of the MLP tree (no ``layers``) at min_size 64:
+    its loss, the params after, the gathered peak and the bytes of its
+    gathered leaves."""
+    mesh = cpu_mesh({"data": -1})
+    params = {k: t(v).requires_grad_() for k, v in params_np.items()}
+    step, shards, opt = fsdp.make_fsdp_train_step(_fsdp_loss, ttrainer.adam(1e-2), mesh, params,
+                                                  min_size=64)
+    spec = fsdp.fsdp_spec(params, mesh, min_size=64)
+    shards, opt, loss = step(shards, opt,
+                             data_parallel.shard_batch({"x": t(xs), "y": t(ys)}, mesh))
+    whole = sum(params[k].numel() * 4 for k in params if any(spec[k]))
+    return {"peak": step.stats["gathered_peak_bytes"], "layerwise": step.stats["layerwise"],
+            "whole": whole, "loss": float(loss),
+            "params": {k: v.numpy() for k, v in gather_tree(shards, spec, mesh).items()}}
+
+
 def noop() -> int:
     return dist.get_rank()
 
@@ -647,3 +702,132 @@ def mesh_save_case(root: str, kind: str, params_np: dict, cfg_kwargs: dict, toke
     return {"complete": sorted(os.listdir(path)),
             "params": tree_np(gather_tree(state["params"], spec, mesh)),
             "moments": _gathered_moments(state["opt_state"], state["params"], spec, mesh)}
+
+
+# -- elastic restore of a train state -------------------------------------------
+def elastic_save(root: str, kind: str, params_np: dict, cfg_kwargs: dict, tokens,
+                 lr: float) -> dict:
+    """One AdamW step of the TINY LM with the train state sharded over
+    FSDP's ``data`` (``kind="fsdp"``) or staged over ``pipe`` (the 1F1B
+    step, two micro-batches), a save from the mesh to
+    ``root/step_00000001``, then the uninterrupted run's next step ->
+    that step's loss and the saved logical moments by name."""
+    from devspace_tpu_torch.training import checkpoint as tckpt
+
+    mesh = cpu_mesh({"data": -1} if kind == "fsdp" else {"pipe": -1})
+    cfg = ttfm.TransformerConfig(**cfg_kwargs, dtype=torch.float32)
+    params = params_from_numpy(params_np, "cpu", trainable=True)
+    opt = ttrainer.adamw(lr)
+    if kind == "fsdp":
+        fstep, shards, fopt = fsdp.make_fsdp_train_step(ttrainer.lm_loss(ttfm.forward, cfg), opt,
+                                                        mesh, params)
+        spec = fsdp.fsdp_spec(params, mesh)
+        rows = data_parallel.shard_batch(t(tokens), mesh)
+
+        def step(state, rows):
+            shards, fopt, loss = fstep(state["params"], state["opt_state"], rows)
+            return {"params": shards, "opt_state": fopt, "step": state["step"] + 1}, loss
+
+        state = {"params": shards, "opt_state": fopt, "step": 0}
+    else:
+        spec = pipeline.pipeline_param_specs("pipe")
+        local = shard_tree(pipeline.transformer_stage_params(params, mesh.size("pipe")), spec,
+                           mesh)
+        state = ttrainer.init_train_state(local, opt)
+        rows = t(tokens.reshape(2, -1, tokens.shape[-1]))
+        step = pipeline.make_pipeline_lm_train_step(mesh, cfg, opt, 2)
+    state, _ = step(state, rows)
+    tckpt.save_checkpoint(f"{root}/step_00000001", state, mesh=mesh, spec_tree=spec)
+    moments = {name: {k: v.copy() for k, v in entry.items()}  # before the next step moves them
+               for name, entry in _gathered_moments(state["opt_state"], state["params"], spec,
+                                                    mesh).items()}
+    _, loss = step(state, rows)
+    return {"loss": float(loss), "moments": moments}
+
+
+def elastic_restore(path: str, axis: str, cfg_kwargs: dict, tokens, lr: float) -> dict:
+    """The saved train state restored with every rank on ``axis`` through
+    a train-state ``sharded_template`` (``model``: ``{"data": 1, "model":
+    -1}``, the TP spec and the mesh step; ``data``: FSDP's spec and
+    step), then one step -> its loss, the step restored, each
+    parameter's spec and this rank's moment blocks."""
+    from devspace_tpu_torch.training import checkpoint as tckpt
+
+    mesh = cpu_mesh({"data": 1, "model": -1} if axis == "model" else {"data": -1})
+    cfg = ttfm.TransformerConfig(**cfg_kwargs, dtype=torch.float32)
+    logical = ttfm.init_params(cfg, torch.Generator(), device="meta")
+    opt = ttrainer.adamw(lr)
+    if axis == "model":
+        spec = ttfm.param_partition_spec(cfg, "model")
+    else:
+        spec = fsdp.fsdp_spec(logical, mesh)
+    template = tckpt.sharded_template({"params": logical, "opt_state": opt, "step": 0}, mesh,
+                                      spec)
+    state = tckpt.restore_checkpoint(path, template)
+    names = tckpt.param_names(state["params"], state["opt_state"])
+    specs = tckpt._named_specs(state["params"], spec)
+    moments = {names[i]: {k: v.numpy().copy() for k, v in entry.items()}
+               for i, entry in state["opt_state"].state_dict()["state"].items()}
+    restored_step = state["step"]
+    rows = data_parallel.shard_batch(t(tokens), mesh)
+    if axis == "model":
+        step = ttrainer.make_lm_train_step(ttfm.forward, cfg, opt, mesh=mesh, param_spec=spec)
+        state, loss = step(state, rows)
+    else:
+        fstep, _, _ = fsdp.make_fsdp_train_step(
+            ttrainer.lm_loss(ttfm.forward, cfg), opt, mesh,
+            ttfm.init_params(cfg, torch.Generator().manual_seed(0)))
+        _, _, loss = fstep(state["params"], state["opt_state"], rows)
+    return {"index": mesh.index(axis), "loss": float(loss), "step": restored_step,
+            "moments": moments, "specs": {n: tuple(s) for n, s in specs.items()}}
+
+
+# -- the host KV tier under tensor-parallel serving ------------------------------
+TIER_KEYS = ("kv_spill_blocks", "kv_spill_bytes", "kv_restore_hits", "kv_restore_fallbacks",
+             "recompute_tokens_saved", "prefix_hit_tokens", "kv_tier_spilled_nodes",
+             "kv_tier_remote_nodes", "kv_migrate_chains", "kv_migrate_blocks",
+             "kv_migrate_bytes", "kv_migrate_failures", "kv_export_chains", "requests_failed")
+
+
+def engine_tp_tier(params_np: dict, cfg_kwargs: dict, reqs: list, waves: list, engine_kw: dict,
+                   tier: str, tier_dir=None, exports=(), pulls=()) -> dict:
+    """``InferenceEngine(mesh={"model": all ranks})`` with the host KV tier
+    ``tier`` (the disk level under ``tier_dir``), float32, prewarmed:
+    rank 0 serves ``reqs`` in ``waves`` (each wave finishing before the
+    next), then each request of ``pulls`` (with its ``kv_source``)
+    alone, then exports the KVM1 chain of each prompt of ``exports``
+    through the running schedulers -> the streams (rank 0's, or those the rank
+    mirrored), the tier and migration counters, the envelopes (rank 0),
+    the graph captures before and after the traffic, and the pool's KV
+    heads on this rank."""
+    from devspace_tpu_torch.inference import InferenceEngine
+    from devspace_tpu_torch.inference.prefix_cache import fingerprint_chain
+
+    mesh = cpu_mesh({"model": -1})
+    cfg = ttfm.TransformerConfig(**cfg_kwargs, dtype=torch.float32)
+    kw = dict(engine_kw, mesh=mesh, kv_tier=tier)
+    if tier_dir is not None:
+        kw["kv_tier_dir"] = f"{tier_dir}/rank{dist.get_rank()}"
+    engine = InferenceEngine(params_from_numpy(params_np, "cpu"), cfg, **kw)
+    engine.prewarm()
+    captures = engine.stats()["graph_captures"]
+    engine.start()
+    leader = mesh.index("model") == 0
+    streams, envelopes = [], []
+    try:
+        if leader:
+            for lo, hi in waves:
+                handles = [engine.submit(**r) for r in reqs[lo:hi]]
+                streams.extend(h.result(timeout=120) for h in handles)
+            for r in pulls:
+                streams.append(engine.submit(**r).result(timeout=120))
+            envelopes = [engine.export_kv_chain(fingerprint_chain(p, kw["block_size"])[-1],
+                                                timeout=60) for p in exports]
+    finally:
+        engine.stop()
+    if not leader:
+        streams = [list(r.tokens) for r in engine.mirrored]
+    st = engine.stats()
+    return {"streams": streams, "stats": {k: st[k] for k in TIER_KEYS},
+            "envelopes": envelopes, "captures": (captures, st["graph_captures"]),
+            "pool_heads": engine.pool["k"].shape[2], "tier_entries": st["kv_tier_entries"]}
