@@ -89,6 +89,16 @@ ViT-B/16 at batch 128 x 224^2; and Mixtral-8x7B's widths at 2 layers
 (batch 2 x 2048 tokens, AdamW) through flash attention at D = 128 and
 the loss kernel, each with its launch counts.
 
+Then the deploy path (``deploy`` phase): a torch project scaffolded by
+the port's generator (the torch Dockerfile and ``chart-gpu``), whose
+``.devspace/config.yaml`` is examples/jax-mnist's with a ``gpu`` block of
+one worker and one card, is loaded by the port's config loader,
+preflighted by its project lint (no error) and rendered by its chart
+renderer; the rendered StatefulSet's container command (torchrun, its
+pod index 0, pod 0's address 127.0.0.1) runs here and trains the MNIST
+example over an NCCL world of one through the loss kernel, one launch a
+step, the loss at step 100 below the mnist_train phase's bound.
+
 The RMSNorm kernel lies on no model's path (as in the JAX package); it is
 built, held against its plain version and timed.
 
@@ -157,6 +167,7 @@ import urllib.request
 
 import numpy as np
 import torch
+import yaml
 import torch.nn.functional as F
 
 from devspace_tpu_torch import serve
@@ -166,6 +177,9 @@ from devspace_tpu_torch.inference import quantization as wq
 from devspace_tpu_torch.inference import kv_tier as kvt
 from devspace_tpu_torch.inference import speculative as spec
 from devspace_tpu_torch import lint
+from devspace_tpu_torch.deploy.chart import ChartDeployer
+from devspace_tpu_torch.generator import generator as scaffold
+from devspace_tpu_torch.lint import rules_gpu
 from devspace_tpu_torch.lint.runtime import CompileWatch
 from devspace_tpu_torch.models import mlp, moe, resnet, vit
 from devspace_tpu_torch.models import transformer as tfm
@@ -196,6 +210,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
 import analysis_gate_torch as gate_script  # noqa: E402
 import train_draft_pair_torch as pair_script  # noqa: E402
 import train_long_context_torch as long_script  # noqa: E402
+
+REPO_ROOT = str(Path(__file__).resolve().parent)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, dense bf16
 # on the tensor cores, float32 outside them
@@ -2031,6 +2047,186 @@ def phase_mnist_train(dev, card) -> dict:
             "imgs_per_s": MNIST["batch"] * MNIST["steps"] / elapsed, "xent_launches": launches}
 
 
+# -- the deploy path: a scaffolded torch project, preflighted, rendered, run --------
+EXAMPLE_CONFIG = Path(REPO_ROOT) / "examples" / "jax-mnist" / ".devspace" / "config.yaml"
+DEPLOY = {"gpu": {"workers": 1, "perWorker": 1}, "steps": MNIST["steps"],
+          "check_step": MNIST["check_step"], "below": MNIST["below"], "master_port": 29500,
+          "timeout_s": 300}
+DEPLOY_TRAIN_PY = """\
+\"\"\"The MNIST example's entry point in a scaffolded torch project: the
+port's scripts/train_mnist_torch.py, then the losses it logged and the
+loss kernel's launch count, each on a line of its own.\"\"\"
+import json
+import sys
+
+import torch
+
+sys.path[:0] = [{repo!r}, {scripts!r}]
+
+import train_mnist_torch  # noqa: E402
+from devspace_tpu_torch.ops import losses  # noqa: E402
+
+print(f"torch {{torch.__version__}}", flush=True)
+logged = train_mnist_torch.main()
+print("losses " + json.dumps(logged), flush=True)
+print(f"xent_launches {{losses.LAUNCHES}}", flush=True)
+"""
+
+
+def deploy_project(root: str, args: list, gpu: dict) -> None:
+    """The project the deploy phase runs, in ``root``: ``train.py``, the
+    port's scaffold for it (the torch Dockerfile and ``chart-gpu``) and
+    ``.devspace/config.yaml``, which is examples/jax-mnist's config with
+    its ``tpu`` block replaced by ``gpu`` and the chart's ``command``
+    value by ``args`` (``[train.py, --steps, N]``)."""
+    with open(os.path.join(root, "train.py"), "w") as fh:
+        fh.write(DEPLOY_TRAIN_PY.format(repo=REPO_ROOT, scripts=str(Path(REPO_ROOT) / "scripts")))
+    language = scaffold.detect_language(root)
+    assert language == "torch", language
+    scaffold.create_dockerfile(root, language)
+    scaffold.create_chart(root, language)
+    with open(EXAMPLE_CONFIG) as fh:
+        example = yaml.safe_load(fh)
+    config = {"version": example["version"], "gpu": gpu,
+              **{k: v for k, v in example.items() if k not in ("version", "tpu")}}
+    (deployment,) = config["deployments"]
+    values = deployment["chart"]["values"]
+    values.pop("command")
+    values["args"] = args
+    os.makedirs(os.path.join(root, ".devspace"))
+    with open(os.path.join(root, ".devspace", "config.yaml"), "w") as fh:
+        yaml.safe_dump(config, fh, sort_keys=False)
+
+
+def free_port(preferred: int) -> int:
+    """``preferred`` where it can be bound on this host, else a free port."""
+    import socket
+
+    for port in (preferred, 0):
+        with socket.socket() as sock:
+            try:
+                sock.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return sock.getsockname()[1]
+    raise RuntimeError("no free port")
+
+
+def pod_command(sts: dict, node_rank: int, master_port: int, workdir: str) -> tuple:
+    """The rendered StatefulSet's container as a command on this host:
+    ``(argv, env, substitutions)``. The substitutions, and only they: the
+    pod index (``node_rank``) for a ``NODE_RANK`` from the pod-index
+    label, ``127.0.0.1`` for ``--master-addr``, ``master_port`` for
+    ``--master-port`` where it differs, ``workdir`` for ``workingDir``,
+    and ``python -m torch.distributed.run`` for ``torchrun`` where the
+    console script is not on ``PATH``. ``$(VAR)`` references in the
+    command are expanded from the container's env, as the kubelet does."""
+    (c,) = sts["spec"]["template"]["spec"]["containers"]
+    subs = [f"workingDir {c['workingDir']} -> {workdir}"]
+    env = {}
+    for e in c.get("env") or []:
+        field = ((e.get("valueFrom") or {}).get("fieldRef") or {}).get("fieldPath")
+        if field == rules_gpu.POD_INDEX_FIELD:
+            env[e["name"]] = str(node_rank)
+            subs.append(f"{e['name']} {field} -> {node_rank}")
+        elif "value" in e:
+            env[e["name"]] = str(e["value"])
+        else:
+            raise AssertionError(f"env {e} has no value this host can give")
+    argv = []
+    for arg in [str(a) for a in c["command"] + c["args"]]:
+        arg = re.sub(r"\$\((\w+)\)", lambda m: env[m.group(1)], arg)
+        flag, eq, value = arg.partition("=")
+        if eq and flag == "--master-addr" and value != "127.0.0.1":
+            subs.append(f"{arg} -> --master-addr=127.0.0.1")
+            arg = "--master-addr=127.0.0.1"
+        elif eq and flag == "--master-port" and value != str(master_port):
+            subs.append(f"{arg} -> --master-port={master_port}")
+            arg = f"--master-port={master_port}"
+        argv.append(arg)
+    if argv[0] == "torchrun" and shutil.which("torchrun") is None:
+        argv[:1] = [sys.executable, "-m", "torch.distributed.run"]
+        subs.append(f"torchrun -> {sys.executable} -m torch.distributed.run")
+    return argv, env, subs
+
+
+def run_pod(argv: list, env: dict, workdir: str) -> subprocess.Popen:
+    """Start a pod's command on this host, its output piped."""
+    return subprocess.Popen(argv, cwd=workdir, env={**os.environ, **env}, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+
+
+def pod_result(proc: subprocess.Popen, timeout_s: float) -> dict:
+    """A pod's exit code and what its train.py printed: the world line,
+    the logged losses, ``done`` and the loss kernel's launches."""
+    try:
+        out, _ = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+        raise AssertionError(f"the pod ran past {timeout_s} s:\n{out[-4000:]}") from None
+    lines = out.splitlines()
+    world = next((ln for ln in lines if ln.startswith("device: ")), None)
+    losses = next((json.loads(ln[7:]) for ln in lines if ln.startswith("losses ")), None)
+    launches = next((int(ln.split()[1]) for ln in lines if ln.startswith("xent_launches ")),
+                    None)
+    return {"rc": proc.returncode, "world": world, "losses": losses, "launches": launches,
+            "done": "done" in lines, "tail": out[-4000:]}
+
+
+def phase_deploy(dev, card) -> dict:
+    """The deploy path on the card: a torch project scaffolded by the
+    port's generator (``deploy_project``) is loaded by the port's config
+    loader and preflighted by ``collect_project_findings`` (no error),
+    rendered by ``ChartDeployer.render_manifests``, and its StatefulSet's
+    container runs here (``pod_command``): torchrun starts the MNIST
+    trainer, which forms an NCCL world of one through
+    ``parallel.mesh.distributed()`` and trains ``DEPLOY["steps"]`` steps
+    through the loss kernel, one launch a step, with the loss at step 100
+    below the mnist_train phase's bound. Rehearsed on the CPU with
+    ``--device cpu`` added (gloo, and no kernel launches)."""
+    t0 = time.monotonic()
+    root = tempfile.mkdtemp(prefix="deploy-")
+    try:
+        deploy_project(root, ["train.py", "--steps", str(DEPLOY["steps"])], DEPLOY["gpu"])
+        project = lint.load_project(root)
+        findings, n_objects = lint.collect_project_findings(project)
+        errors = [f"{f.rule_id} {f.legacy()}" for f in findings if f.severity == lint.ERROR]
+        assert not errors, errors
+        (deployment,) = project.config.deployments
+        deployer = ChartDeployer(None, deployment, project.namespace, base_dir=project.root)
+        docs = deployer.render_manifests(gpu=project.config.gpu)
+        (sts,) = [d for d in docs if d["kind"] == "StatefulSet"]
+        argv, env, subs = pod_command(sts, 0, free_port(DEPLOY["master_port"]), root)
+        if dev.type == "cpu":
+            argv.append("--device=cpu")
+            subs.append("--device=cpu appended (the CPU rehearsal)")
+        for sub in subs:
+            print(f"deploy: substituted {sub}", flush=True)
+        print(f"deploy: {' '.join(argv)}", flush=True)
+        t = time.monotonic()
+        pod = pod_result(run_pod(argv, env, root), DEPLOY["timeout_s"])
+        run_s = time.monotonic() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    assert pod["rc"] == 0 and pod["done"], pod["tail"]
+    backend = pmesh.backend_for(dev)
+    assert pod["world"] and pod["world"].endswith(f"backend {backend}, world 1"), pod["tail"]
+    losses = pod["losses"]
+    at = losses[DEPLOY["check_step"] // 100]
+    assert at < DEPLOY["below"], f"loss {at} at step {DEPLOY['check_step']}"
+    # the plain path on the CPU launches no kernel
+    want = DEPLOY["steps"] if dev.type == "cuda" else 0
+    assert pod["launches"] == want, (pod["launches"], want)
+    return {"phase": "deploy", "card": card, "gpu": DEPLOY["gpu"], "objects": n_objects,
+            "findings": [f"{f.rule_id} {f.legacy()}" for f in findings],
+            "kinds": sorted(d["kind"] for d in docs), "argv": argv, "env": env,
+            "substitutions": subs, "world": pod["world"], "steps": DEPLOY["steps"],
+            "losses_every_100": losses, "loss_at_check_step": at,
+            "xent_launches": pod["launches"], "run_s": run_s,
+            "seconds": time.monotonic() - t0}
+
+
 def vit_train_flop_per_image(hidden: int, depth: int, mlp_dim: int, patch: int, image: int,
                              classes: int) -> float:
     """3 x the forward's matrix-product flops (2 a multiply-add) of one
@@ -2596,7 +2792,6 @@ FLEET_SLO_ENV = {"DEVSPACE_SLO_TTFT_P99_S": "10"}
 # meets, a 3 s short window evaluated every 0.2 s
 SLO_GATE_ENV = {"DEVSPACE_SLO_TTFT_P99_S": "0.000001", "DEVSPACE_SLO_SHORT_WINDOW_S": "3",
                 "DEVSPACE_SLO_INTERVAL_S": "0.2", "MAX_SLOTS": "1", "PREWARM": "0"}
-REPO_ROOT = str(Path(__file__).resolve().parent)
 
 
 def replica_spec(ckpt_dir: str, model: str, **env):
@@ -4402,6 +4597,8 @@ def main() -> int:
     emit(moe_line)
     gc.collect()
     torch.cuda.empty_cache()
+    deploy_line = phase_deploy(dev, card)
+    emit(deploy_line)
 
     attn_parity = phase_short_attention_parity(dev)
     emit({"phase": "short_attention_parity", "card": card, "f32_tol": [F32_RTOL, F32_ATOL],
@@ -4588,6 +4785,7 @@ def main() -> int:
                                          "train_pair": pair_line["xent_launches"],
                                          "resnet50": resnet_line["xent_launches"],
                                          "mnist": mnist_line["xent_launches"],
+                                         "deploy": deploy_line["xent_launches"],
                                          "vit": vit_line["xent_launches"],
                                          "moe": moe_line["launches"][name],
                                          "parallel": parallel_launches[name]}

@@ -1,8 +1,10 @@
 """The port's preflight analyzer: a rule-engine lint subsystem.
 
 The port's own copy and torch counterpart of ``devspace_tpu/lint/``:
-rendered-manifest structure (DS1xx), static sharding checks over the
-port's ``PartitionSpec`` trees (SHD3xx), Dockerfile checks for the card
+rendered-manifest structure (DS1xx), the GPU job invariants of a
+project's ``gpu`` block over its rendered ``chart-gpu`` (TPU201-205,
+``rules_gpu``), static sharding checks over the port's ``PartitionSpec``
+trees (SHD3xx), Dockerfile checks for the card
 (IMG4xx), the torch hot-path rules (JIT5xx, PY500), the concurrency
 rules (CON6xx) and the observability catalogs (OBS7xx), as registered
 rules with stable ids producing structured findings, reportable as text,
@@ -10,10 +12,10 @@ JSON, or SARIF 2.1.0. ``lint.runtime`` holds the dynamic halves:
 ``CompileWatch`` over graph captures, ``OrderedLock`` and
 ``LockOrderMonitor``.
 
-Not ported: ``lint/project.py`` (``collect_project_findings``,
-``has_errors``) renders a project's deployments through the CLI's
-config and chart renderer, and ``lint/rules_tpu.py`` checks TPU slice
-invariants over the CLI's ``tpu:`` config; the port has neither.
+``lint.project`` is the preflight of a torch project:
+``collect_project_findings(load_project(root))`` loads its config and
+renders its deployments through the port's own loader and chart
+renderer, then runs every pack above that applies; ``has_errors`` gates.
 """
 
 from .engine import (
@@ -27,13 +29,16 @@ from .engine import (
     LintContext,
     Rule,
     count_by_severity,
+    lint_chart_findings,
     lint_docs,
+    render_failure,
     rule,
     run_rules,
 )
 
 # importing the packs registers their rules
 from . import rules_manifest  # noqa: E402,F401
+from . import rules_gpu  # noqa: E402,F401  (TPU201-205)
 from . import rules_sharding  # noqa: E402,F401
 from . import rules_docker  # noqa: E402,F401
 from . import pysource  # noqa: E402,F401  (PY500)
@@ -52,6 +57,7 @@ from .rules_sharding import (
     sharding_preflight,
     tree_shardings,
 )
+from .project import collect_project_findings, has_errors, load_project
 from . import reporters
 
 __all__ = [
@@ -64,18 +70,23 @@ __all__ = [
     "Finding",
     "LintContext",
     "Rule",
+    "collect_project_findings",
     "collect_python_sources",
     "count_by_severity",
     "donation_preflight",
     "extract_lock_graph",
     "filter_findings",
+    "has_errors",
+    "lint_chart_findings",
     "lint_docs",
     "lint_dockerfile",
     "lint_obs_catalogs",
     "lint_python_sources",
     "load_metric_catalogs",
+    "load_project",
     "mesh_axes_for_tpu",
     "parse_rule_filter",
+    "render_failure",
     "reporters",
     "rule",
     "rule_selected",

@@ -5,13 +5,13 @@ The port of ``examples/jax-mnist/train.py``: the MLP ``(512, 256, 10)``
 on ``synthetic_mnist`` batches of 256 with Adam 1e-3 over a ``data``
 mesh of every rank (each rank takes its rows of the batch, the
 gradients are averaged over the axis), rank 0 printing the example's
-``step N loss X (R imgs/s)`` line every 100 steps and ``done``. One
-process is a world of one; ``torchrun`` starts more. Runs on the card
-unless ``--device cpu`` is given; imports nothing of JAX.
+``step N loss X (R imgs/s)`` line every 100 steps (``--log-every``) and
+``done``. One process is a world of one; ``torchrun`` starts more. Runs
+on the card unless ``--device cpu`` is given; imports nothing of JAX.
 
 Usage::
 
-    python scripts/train_mnist_torch.py [--device cpu] [--steps 1000]
+    python scripts/train_mnist_torch.py [--device cpu] [--steps 1000] [--log-every 100]
     torchrun --nproc-per-node N scripts/train_mnist_torch.py
 """
 
@@ -35,6 +35,7 @@ from devspace_tpu_torch.training.trainer import adam, init_train_state, make_cla
 LEARNING_RATE = 1e-3
 BATCH_SIZE = 256
 STEPS = 1000
+LOG_EVERY = 100
 
 
 def main(argv=None) -> list:
@@ -42,6 +43,8 @@ def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--steps", type=int, default=STEPS)
+    ap.add_argument("--log-every", type=int, default=LOG_EVERY,
+                    help="steps between loss lines")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     if dev.type == "cuda":  # one card a rank (torchrun's LOCAL_RANK)
@@ -52,7 +55,8 @@ def main(argv=None) -> list:
         mesh = create_mesh({"data": -1}, dev)
         lead = dist.get_rank() == 0
         if lead:
-            print(f"device: {dev}, mesh {mesh.shape}", flush=True)
+            print(f"device: {dev}, mesh {mesh.shape}, backend {dist.get_backend()}, "
+                  f"world {dist.get_world_size()}", flush=True)
         model = MLP(features=(512, 256, 10), device=dev)
         optimizer = adam(LEARNING_RATE)
         state = init_train_state(model, optimizer)
@@ -61,7 +65,7 @@ def main(argv=None) -> list:
         t0 = time.time()
         for i in range(args.steps):
             state, loss = step_fn(state, shard_batch(next(batch_iter), mesh))
-            if i % 100 == 0:
+            if i % args.log_every == 0:
                 losses.append(loss.item())  # lint: allow(JIT502) — the log line's readback
                 if lead:
                     print(f"step {i:4d} loss {losses[-1]:.4f} "

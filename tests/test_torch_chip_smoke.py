@@ -389,6 +389,27 @@ def test_zoo_phases_rehearsed_on_the_cpu(monkeypatch, cpu_card, few_torch_thread
     json.dumps(line)
 
 
+def test_deploy_phase_rehearsed_on_the_cpu(monkeypatch):
+    """The deploy phase's control flow and checks on the CPU: the project
+    scaffolded, loaded, preflighted (no finding) and rendered by the port,
+    the StatefulSet's container run through torchrun with only the
+    phase's substitutions (and ``--device=cpu``), a gloo world of one
+    training the MNIST example to step 100 with no kernel launched."""
+    monkeypatch.setitem(cs.DEPLOY, "steps", 101)
+    line = cs.phase_deploy(torch.device("cpu"), "cpu")
+    assert line["findings"] == [] and line["objects"] == 3
+    assert line["kinds"] == ["PodDisruptionBudget", "Service", "StatefulSet"]
+    assert line["argv"][:6] == ["torchrun", "--nnodes=1", "--nproc-per-node=1",
+                                "--node-rank=0", "--master-addr=127.0.0.1",
+                                f"--master-port={line['argv'][5].split('=')[1]}"]
+    assert line["argv"][6:] == ["train.py", "--steps", "101", "--device=cpu"]
+    assert line["env"] == {"NODE_RANK": "0"} and len(line["substitutions"]) == 4
+    assert line["world"].endswith("backend gloo, world 1")
+    assert len(line["losses_every_100"]) == 2 and line["loss_at_check_step"] < 1e-3
+    assert line["xent_launches"] == 0
+    json.dumps(line)
+
+
 # -- a CPU rehearsal of the fleet phase -----------------------------------------
 def test_fleet_phase_rehearsed_on_the_cpu(monkeypatch, tmp_path):
     """The fleet phase's control flow and checks at TINY on the CPU: two

@@ -1,11 +1,13 @@
 """The port's scaffold (devspace_tpu_torch/generator/): language detection
 with a torch sniff, the Dockerfile and chart each language gets, and the
-GPU chart rendered through the JAX package's chart renderer
-(``devspace_tpu.deploy.chart.render_chart``) at one and two workers:
-clean and equal under both packages' DS1xx packs, NODE_RANK from the pod
-index, ``nvidia.com/gpu`` at ``perWorker``, torchrun's flags from the
-values. The torch Dockerfile is clean under the port's image pack, which
-flags the GPU image faults it exists for."""
+GPU chart rendered through the port's own chart renderer
+(``devspace_tpu_torch.deploy.chart.render_chart``) at one and two
+workers, its sizes from the ``gpu`` render context: equal to the JAX
+package's renderer on the same context, clean under both packages' DS1xx
+packs and the port's GPU job rules, NODE_RANK from the pod index,
+``nvidia.com/gpu`` at ``perWorker``, torchrun's flags from the context.
+The torch Dockerfile is clean under the port's image pack, which flags
+the GPU image faults it exists for."""
 
 import os
 
@@ -13,8 +15,10 @@ import pytest
 
 import devspace_tpu.lint as jlint
 import devspace_tpu_torch.lint as tlint
-from devspace_tpu.deploy.chart import render_chart
+from devspace_tpu.deploy.chart import render_chart as jrender_chart
 from devspace_tpu.generator import generator as jgen
+from devspace_tpu_torch.config.latest import GPUConfig
+from devspace_tpu_torch.deploy.chart import gpu_context, render_chart
 from devspace_tpu_torch.generator import generator as gen
 from devspace_tpu_torch.lint import lint_dockerfile
 
@@ -78,17 +82,21 @@ def test_shared_templates_equal_the_reference():
             assert a.read() == b.read(), rel
 
 
-def rendered(values: dict) -> list:
-    return render_chart(GPU_CHART, release_name="app", namespace="ml", values=values)
+def rendered(values: dict, gpu: GPUConfig = None, render=render_chart) -> list:
+    return render(GPU_CHART, release_name="app", namespace="ml", values=values,
+                  extra_context={"gpu": gpu_context(gpu)})
 
 
 @pytest.mark.parametrize("workers, per_worker", [(1, 1), (2, 4)])
 def test_gpu_chart_renders_and_lints_clean(workers, per_worker):
-    docs = rendered({"gpu": {"workers": workers, "perWorker": per_worker},
-                     "persistence": {"volumes": [{"name": "ckpt", "size": "50Gi"}],
-                                     "mounts": [{"name": "ckpt", "mountPath": "/ckpt"}]}})
+    gpu = GPUConfig(workers=workers, per_worker=per_worker)
+    values = {"persistence": {"volumes": [{"name": "ckpt", "size": "50Gi"}],
+                              "mounts": [{"name": "ckpt", "mountPath": "/ckpt"}]}}
+    docs = rendered(values, gpu)
+    # the JAX package's renderer gives the same objects on the same context
+    assert docs == rendered(values, gpu, render=jrender_chart)
     assert sorted(d["kind"] for d in docs) == ["PodDisruptionBudget", "Service", "StatefulSet"]
-    got = tlint.lint_docs(docs, artifact="chart-gpu")
+    got = tlint.lint_docs(docs, gpu=gpu, artifact="chart-gpu")
     want = jlint.lint_docs(docs, artifact="chart-gpu", categories={"manifest", "hygiene"})
     assert got == [] and want == [] and jlint.lint_docs(docs) == []
     sts = next(d for d in docs if d["kind"] == "StatefulSet")

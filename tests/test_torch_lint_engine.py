@@ -20,7 +20,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CON_FIXTURES = os.path.join(REPO, "tests", "fixtures", "analysis")
 
 PORT_IDS = (
-    ["DS101", "DS102", "DS103", "DS104", "DS105", "DS106", "DS150"]
+    ["DS100", "DS101", "DS102", "DS103", "DS104", "DS105", "DS106", "DS150"]
+    + [f"TPU20{i}" for i in range(1, 6)]
     + [f"SHD30{i}" for i in range(5)] + [f"IMG40{i}" for i in range(1, 5)]
     + ["PY500"] + [f"JIT50{i}" for i in range(5)] + [f"CON60{i}" for i in range(5)]
     + [f"OBS70{i}" for i in range(9)]
