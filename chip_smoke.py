@@ -99,6 +99,17 @@ pod index 0, pod 0's address 127.0.0.1) runs here and trains the MNIST
 example over an NCCL world of one through the loss kernel, one launch a
 step, the loss at step 100 below the mnist_train phase's bound.
 
+Then the same project applied to a cluster (``cluster`` phase): the
+port's CLI, each call a process in the project's dir against the port's
+fake cluster (``DEVSPACE_FAKE_BACKEND``) — ``deploy`` (the lint
+preflight, the fake builder, the chart applied, its pods synthesized, the
+rollout waited for and the release recorded), ``status deployments`` and
+``print --manifests`` (the documents it applied) — then the applied
+StatefulSet's command runs in worker 0 through the fake's
+``exec_stream``, with ``NODE_RANK`` from the pod's env as the fake
+synthesized it, and trains the MNIST example on the card as the deploy
+phase does; ``purge`` leaves the fake empty.
+
 The RMSNorm kernel lies on no model's path (as in the JAX package); it is
 built, held against its plain version and timed.
 
@@ -153,6 +164,7 @@ import json
 import math
 import os
 import re
+import shlex
 import shutil
 import statistics
 import subprocess
@@ -177,7 +189,7 @@ from devspace_tpu_torch.inference import quantization as wq
 from devspace_tpu_torch.inference import kv_tier as kvt
 from devspace_tpu_torch.inference import speculative as spec
 from devspace_tpu_torch import lint
-from devspace_tpu_torch.deploy.chart import ChartDeployer
+from devspace_tpu_torch.deploy.chart import RELEASE_CONFIGMAP_PREFIX, ChartDeployer
 from devspace_tpu_torch.generator import generator as scaffold
 from devspace_tpu_torch.lint import rules_gpu
 from devspace_tpu_torch.lint.runtime import CompileWatch
@@ -2112,21 +2124,26 @@ def free_port(preferred: int) -> int:
     raise RuntimeError("no free port")
 
 
-def pod_command(sts: dict, node_rank: int, master_port: int, workdir: str) -> tuple:
+def pod_command(sts: dict, node_rank: int, master_port: int, workdir: str,
+                pod_env: dict = None) -> tuple:
     """The rendered StatefulSet's container as a command on this host:
     ``(argv, env, substitutions)``. The substitutions, and only they: the
     pod index (``node_rank``) for a ``NODE_RANK`` from the pod-index
     label, ``127.0.0.1`` for ``--master-addr``, ``master_port`` for
     ``--master-port`` where it differs, ``workdir`` for ``workingDir``,
     and ``python -m torch.distributed.run`` for ``torchrun`` where the
-    console script is not on ``PATH``. ``$(VAR)`` references in the
+    console script is not on ``PATH``. With ``pod_env`` (a pod's env as
+    a cluster gave it) an env entry from the pod index takes the pod's
+    value instead, and is no substitution. ``$(VAR)`` references in the
     command are expanded from the container's env, as the kubelet does."""
     (c,) = sts["spec"]["template"]["spec"]["containers"]
     subs = [f"workingDir {c['workingDir']} -> {workdir}"]
     env = {}
     for e in c.get("env") or []:
         field = ((e.get("valueFrom") or {}).get("fieldRef") or {}).get("fieldPath")
-        if field == rules_gpu.POD_INDEX_FIELD:
+        if field == rules_gpu.POD_INDEX_FIELD and pod_env is not None:
+            env[e["name"]] = pod_env[e["name"]]
+        elif field == rules_gpu.POD_INDEX_FIELD:
             env[e["name"]] = str(node_rank)
             subs.append(f"{e['name']} {field} -> {node_rank}")
         elif "value" in e:
@@ -2165,12 +2182,17 @@ def pod_result(proc: subprocess.Popen, timeout_s: float) -> dict:
         proc.kill()
         out, _ = proc.communicate()
         raise AssertionError(f"the pod ran past {timeout_s} s:\n{out[-4000:]}") from None
+    return parse_pod_output(proc.returncode, out)
+
+
+def parse_pod_output(rc: int, out: str) -> dict:
+    """What a pod's train.py printed, as ``pod_result`` returns it."""
     lines = out.splitlines()
     world = next((ln for ln in lines if ln.startswith("device: ")), None)
     losses = next((json.loads(ln[7:]) for ln in lines if ln.startswith("losses ")), None)
     launches = next((int(ln.split()[1]) for ln in lines if ln.startswith("xent_launches ")),
                     None)
-    return {"rc": proc.returncode, "world": world, "losses": losses, "launches": launches,
+    return {"rc": rc, "world": world, "losses": losses, "launches": launches,
             "done": "done" in lines, "tail": out[-4000:]}
 
 
@@ -2224,6 +2246,150 @@ def phase_deploy(dev, card) -> dict:
             "substitutions": subs, "world": pod["world"], "steps": DEPLOY["steps"],
             "losses_every_100": losses, "loss_at_check_step": at,
             "xent_launches": pod["launches"], "run_s": run_s,
+            "seconds": time.monotonic() - t0}
+
+
+# -- the project applied to the port's fake cluster by the port's CLI ------------
+CLUSTER = {"cli_timeout_s": 180}
+
+
+def run_cli(args: list, project: str, cluster: str) -> dict:
+    """One call of the port's CLI as a user makes it: ``python -m
+    devspace_tpu_torch <args>`` in the project's dir, against the fake
+    cluster at ``cluster``; its exit code, seconds and output."""
+    env = {**os.environ, "DEVSPACE_FAKE_BACKEND": cluster, "DEVSPACE_NONINTERACTIVE": "1",
+           "PYTHONPATH": os.pathsep.join(filter(None, [REPO_ROOT,
+                                                       os.environ.get("PYTHONPATH")]))}
+    t = time.monotonic()
+    proc = subprocess.run([sys.executable, "-m", "devspace_tpu_torch", *args], cwd=project,
+                          env=env, text=True, capture_output=True,
+                          timeout=CLUSTER["cli_timeout_s"])
+    return {"args": args, "rc": proc.returncode, "s": time.monotonic() - t,
+            "out": proc.stdout + proc.stderr}
+
+
+def exec_result(proc, timeout_s: float) -> dict:
+    """An exec stream's exit code and what its train.py printed (as
+    ``pod_result``): each output stream read to its end, all within
+    ``timeout_s``."""
+    from devspace_tpu_torch.kube.streams import StreamClosed
+
+    deadline = time.monotonic() + timeout_s
+    out = b""
+    for stream in (proc.stdout, proc.stderr):
+        while True:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                proc.terminate()
+                text = (out + proc.stdout.drain() + proc.stderr.drain()).decode("utf-8",
+                                                                                  "replace")
+                raise AssertionError(f"the exec ran past {timeout_s} s:\n{text[-4000:]}")
+            try:
+                out += stream.read_available(timeout=min(left, 1.0))
+            except StreamClosed:
+                break
+    rc = proc.wait(max(deadline - time.monotonic(), 1.0))
+    assert rc is not None, "the exec closed its output and did not exit"
+    return parse_pod_output(rc, out.decode("utf-8", "replace"))
+
+
+def without_status(obj: dict) -> dict:
+    """A stored object without what the cluster stamps on it: its status
+    and its generation."""
+    obj = copy.deepcopy(obj)
+    obj.pop("status", None)
+    obj["metadata"].pop("generation", None)
+    return obj
+
+
+def phase_cluster(dev, card) -> dict:
+    """The deploy phase's project applied to a cluster by the port's CLI,
+    as a user applies it: ``deploy`` (the lint preflight, ``FakeBuilder``,
+    ``deploy_all``: ``ChartDeployer.deploy`` applies into the fake, whose
+    pods are synthesized, ``_wait_ready`` passes, the release is
+    recorded), ``status deployments`` (a row for the StatefulSet) and
+    ``print --manifests`` (the applied objects, without the status
+    stamps), each a process in the project's dir with
+    ``DEVSPACE_FAKE_BACKEND``. From the objects the fake stored, the
+    StatefulSet and worker 0 (``slice_workers``; ``NODE_RANK=0`` in its
+    env, as the fake resolves chart-gpu's pod-index fieldRef): the
+    StatefulSet's command runs in worker 0 through the fake's
+    ``exec_stream`` with ``pod_command``'s substitutions but the pod's
+    ``NODE_RANK``, in the pod's copy of the project (the image the fake
+    builder does not build), and trains the MNIST example as the deploy
+    phase checks it. ``purge`` then leaves no object and no pod."""
+    from devspace_tpu_torch.kube.fake import FakeCluster
+
+    t0 = time.monotonic()
+    root = tempfile.mkdtemp(prefix="cluster-")
+    project, cluster = os.path.join(root, "proj"), os.path.join(root, "cluster")
+    calls = []
+
+    def cli(*args):
+        call = run_cli(list(args), project, cluster)
+        calls.append({k: call[k] for k in ("args", "rc", "s")})
+        assert call["rc"] == 0, call
+        return call
+
+    try:
+        os.makedirs(project)
+        deploy_project(project, ["train.py", "--steps", str(DEPLOY["steps"])], DEPLOY["gpu"])
+        cli("deploy")
+        status = cli("status", "deployments")
+        with open(os.path.join(project, ".devspace", "config.yaml")) as fh:
+            (name,) = [d["name"] for d in yaml.safe_load(fh)["deployments"]]
+        assert any(ln.split()[:1] == [name] and "StatefulSet" in ln.split()
+                   for ln in status["out"].splitlines()), status["out"]
+        printed = [d for d in yaml.safe_load_all(cli("print", "--manifests")["out"]) if d]
+        fc = FakeCluster(cluster, persist=True)
+        # the release record is the deployer's, not the chart's
+        applied = {(kind, n): m for (kind, _, n), m in fc.objects.items()
+                   if not n.startswith(RELEASE_CONFIGMAP_PREFIX)}
+        assert {(d["kind"], d["metadata"]["name"]): d for d in printed} == \
+            {k: without_status(m) for k, m in applied.items()}, (printed, applied)
+        sts = fc.get_object("apps/v1", "StatefulSet", name)
+        (worker,) = fc.slice_workers({"app": name}, expected=DEPLOY["gpu"]["workers"],
+                                     timeout=10)
+        pod_env = worker.container_env()
+        assert pod_env.get("NODE_RANK") == "0", (worker.name, pod_env)
+        (c,) = sts["spec"]["template"]["spec"]["containers"]
+        workdir = fc.translate_path(worker, c["workingDir"])
+        shutil.copytree(project, workdir, ignore=shutil.ignore_patterns(".devspace"))
+        argv, env, subs = pod_command(sts, 0, free_port(DEPLOY["master_port"]), workdir,
+                                      pod_env=pod_env)
+        subs.append(f"image: the project copied to {workdir} (the fake builder builds none)")
+        if dev.type == "cpu":
+            argv.append("--device=cpu")
+            subs.append("--device=cpu appended (the CPU rehearsal)")
+        for sub in subs:
+            print(f"cluster: substituted {sub}", flush=True)
+        script = " ".join(["cd", shlex.quote(workdir), "&&", "exec", "env",
+                           *[shlex.quote(f"{k}={v}") for k, v in env.items()],
+                           *map(shlex.quote, argv)])
+        print(f"cluster: exec in {worker.name}: {script}", flush=True)
+        t = time.monotonic()
+        pod = exec_result(fc.exec_stream(worker, ["sh", "-c", script], stdin=False),
+                          DEPLOY["timeout_s"])
+        run_s = time.monotonic() - t
+        cli("purge")
+        after = FakeCluster(cluster, persist=True)
+        left = {"objects": sorted(map(list, after.objects)), "pods": sorted(map(list, after.pods))}
+        assert left == {"objects": [], "pods": []}, left
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    assert pod["rc"] == 0 and pod["done"], pod["tail"]
+    backend = pmesh.backend_for(dev)
+    assert pod["world"] and pod["world"].endswith(f"backend {backend}, world 1"), pod["tail"]
+    losses = pod["losses"]
+    at = losses[DEPLOY["check_step"] // 100]
+    assert at < DEPLOY["below"], f"loss {at} at step {DEPLOY['check_step']}"
+    want = DEPLOY["steps"] if dev.type == "cuda" else 0
+    assert pod["launches"] == want, (pod["launches"], want)
+    return {"phase": "cluster", "card": card, "gpu": DEPLOY["gpu"], "cli": calls,
+            "applied_kinds": sorted(kind for kind, _ in applied), "worker": worker.name,
+            "pod_env": pod_env, "argv": argv, "substitutions": subs, "world": pod["world"],
+            "steps": DEPLOY["steps"], "losses_every_100": losses, "loss_at_check_step": at,
+            "xent_launches": pod["launches"], "run_s": run_s, "left_after_purge": left,
             "seconds": time.monotonic() - t0}
 
 
@@ -4599,6 +4765,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     deploy_line = phase_deploy(dev, card)
     emit(deploy_line)
+    cluster_line = phase_cluster(dev, card)
+    emit(cluster_line)
 
     attn_parity = phase_short_attention_parity(dev)
     emit({"phase": "short_attention_parity", "card": card, "f32_tol": [F32_RTOL, F32_ATOL],
@@ -4786,6 +4954,7 @@ def main() -> int:
                                          "resnet50": resnet_line["xent_launches"],
                                          "mnist": mnist_line["xent_launches"],
                                          "deploy": deploy_line["xent_launches"],
+                                         "cluster": cluster_line["xent_launches"],
                                          "vit": vit_line["xent_launches"],
                                          "moe": moe_line["launches"][name],
                                          "parallel": parallel_launches[name]}

@@ -16,7 +16,10 @@ steps, checkpoints, the profiler), ``obs/`` (metrics, traces, events,
 SLOs, the fleet collector), ``serving/`` (the replica fleet, the prefix
 router and its gateway), ``resilience/`` (retry policies, the
 supervisor) and ``serve.py`` (the HTTP server, ``python -m
-devspace_tpu_torch.serve --port N``).
+devspace_tpu_torch.serve --port N``). The host side that takes a project
+to a cluster: ``config/``, ``generator/``, ``deploy/``, ``lint/``,
+``kube/`` (the API-server client and a fake cluster), ``builder/``,
+``analyze/`` and ``cli/`` (``python -m devspace_tpu_torch deploy``).
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,4 @@
-"""Chart engine, render half: the port's copy of ``devspace_tpu/deploy/chart.py``.
+"""Chart engine: the port's copy of ``devspace_tpu/deploy/chart.py``.
 
 Charts are rendered client-side (reference: pkg/devspace/deploy/helm +
 pkg/devspace/helm: InstallChartByPath, values merge, image-tag injection)
@@ -17,8 +17,9 @@ one expression keeps its native type (ints stay ints).
 Where the reference's deployer injects a ``tpu.*`` context built from
 the config's ``tpu`` block, the port's injects ``gpu.*`` from its ``gpu``
 block (:func:`gpu_context`); chart-gpu sizes its StatefulSet from it.
-Applying, deleting and the release status need ``kube/``, which the port
-does not have yet: ``ChartDeployer`` here renders.
+``ChartDeployer`` renders, applies through a ``kube/`` backend (the
+client or the fake cluster), waits for the rollout, records the release
+in a ConfigMap, deletes and reports status, as the reference's does.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from ..utils.torchrun import max_nodes, torchrun_flags
 _EXPR = re.compile(r"\$\{\{\s*([A-Za-z0-9_.\-\[\]]+)\s*\}\}")
 
 GPU_RESOURCE = "nvidia.com/gpu"
+RELEASE_CONFIGMAP_PREFIX = "devspace-release-"
 
 
 class ChartError(Exception):
@@ -665,12 +667,10 @@ def gpu_context(gpu: Optional[latest.GPUConfig]) -> dict:
 
 
 class ChartDeployer:
-    """The chart engine for one chart deployment (reference interface:
-    pkg/devspace/deploy/interface.go), render half: the chart and value
-    files it resolves, its cache key, and its manifests. The reference's
-    ``deploy``/``delete``/``status`` (and its rollout wait and release
-    record) apply through ``kube/``, which the port does not have yet;
-    ``backend`` is kept in the signature for them and may be None."""
+    """The `Deploy/Delete/Status` engine for chart deployments
+    (reference interface: pkg/devspace/deploy/interface.go). ``backend``
+    is a ``kube/`` client or fake cluster; it may be None where only
+    :meth:`render_manifests` is called."""
 
     def __init__(
         self,
@@ -713,6 +713,50 @@ class ChartDeployer:
         parts.append(str(self.deployment.chart.values or {}))
         return hashlib.blake2b("|".join(parts).encode(), digest_size=12).hexdigest()
 
+    def deploy(
+        self,
+        image_tags: Optional[dict[str, str]] = None,
+        gpu: Optional[latest.GPUConfig] = None,
+        pull_secrets: Optional[list[str]] = None,
+        force: bool = False,
+        cache=None,
+        wait: bool = True,
+        wait_timeout: float = 40.0,
+    ) -> bool:
+        """Render and apply. Returns False when skipped (unchanged).
+        Renders through :meth:`render_manifests` (``gpu`` is the config's
+        ``gpu`` block).
+
+        ``wait``: after applying, wait up to ``wait_timeout`` (the
+        reference's 40s helm default, helm/install.go:28) for the
+        release's pods to reach Running; on timeout, print the analyze
+        report and raise — the reference runs analyze on failed helm
+        deploys (helm/install.go -> analyze import)."""
+        name = self.deployment.name
+        new_hash = self.chart_hash() + "|" + str(sorted((image_tags or {}).items()))
+        if cache is not None and not force:
+            if cache.chart_hashes.get(name) == new_hash:
+                self.log.info("[deploy] %s unchanged, skipping", name)
+                return False
+        manifests = self.render_manifests(
+            image_tags=image_tags, gpu=gpu, pull_secrets=pull_secrets
+        )
+        self.backend.ensure_namespace(self.namespace)
+        for manifest in manifests:
+            self.backend.apply(manifest, namespace=self.namespace)
+        self._record_release(manifests)
+        if wait and wait_timeout > 0:
+            self._wait_ready(manifests, timeout=wait_timeout)
+        if cache is not None:
+            cache.chart_hashes[name] = new_hash
+        self.log.done(
+            "[deploy] %s: applied %d manifest(s) to %s",
+            name,
+            len(manifests),
+            self.namespace,
+        )
+        return True
+
     def render_manifests(
         self,
         image_tags: Optional[dict[str, str]] = None,
@@ -737,3 +781,238 @@ class ChartDeployer:
                 "pullSecrets": pull_secrets or [],
             },
         )
+
+    def _wait_ready(self, manifests: list[dict], timeout: float) -> None:
+        """Wait for the release's workloads to finish rolling out —
+        observed via the controllers' own status (ready/updated replicas),
+        NOT by listing pods, so stale pods from a previous ReplicaSet or
+        Terminating pods can't fake success or failure. Analyze on timeout
+        (reference: helm/install.go wait+timeout, analyze on failed
+        release)."""
+        import time
+
+        workloads = [
+            m for m in manifests if m.get("kind") in ("Deployment", "StatefulSet")
+        ]
+        if not workloads:
+            return
+
+        def unready() -> list[str]:
+            problems = []
+            for m in workloads:
+                kind = m["kind"]
+                name = m.get("metadata", {}).get("name", "")
+                obj = self.backend.get_object(
+                    m.get("apiVersion", "apps/v1"), kind, name, self.namespace
+                )
+                if obj is None:
+                    problems.append(f"{kind}/{name}: not found")
+                    continue
+                want = (obj.get("spec") or {}).get("replicas")
+                if want is None:  # only an *absent* replicas defaults to 1;
+                    want = 1  # an explicit 0 is a deliberate scale-to-zero
+                st = obj.get("status") or {}
+                # kubectl-rollout-status logic: until the controller has
+                # observed this generation, its status fields describe the
+                # PREVIOUS revision — a re-deploy would otherwise read the
+                # old revision's full readiness as instant success.
+                gen = (obj.get("metadata") or {}).get("generation")
+                observed = st.get("observedGeneration")
+                if gen is not None and (observed is None or observed < gen):
+                    problems.append(
+                        f"{kind}/{name}: generation {gen} not yet observed"
+                    )
+                    continue
+                ready = st.get("readyReplicas") or 0
+                updated = st.get("updatedReplicas")
+                if updated is None:
+                    updated = ready
+                total = st.get("replicas")
+                if total is None:
+                    total = ready
+                if ready < want or updated < want:
+                    problems.append(
+                        f"{kind}/{name}: {ready}/{want} ready, "
+                        f"{updated}/{want} updated"
+                    )
+                elif total > want:
+                    # scale-down not finished: old-revision pods still
+                    # counted (kubectl waits for status.replicas to drop
+                    # to spec.replicas, e.g. 3 -> 0 scale-to-zero)
+                    problems.append(
+                        f"{kind}/{name}: {total} replicas still running, "
+                        f"want {want}"
+                    )
+            return problems
+
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if not unready():
+                return
+            time.sleep(1.0)
+        remaining = unready()  # final post-deadline poll — a pod going
+        if not remaining:  # ready during the last sleep is not a failure
+            return
+        from ..analyze.analyze import create_report
+
+        self.log.error(
+            "[deploy] %s: rollout not complete within %.0fs — analyzing "
+            "(%s)",
+            self.deployment.name,
+            timeout,
+            "; ".join(remaining),
+        )
+        # through the logger so the report lands in the session log file
+        for line in create_report(self.backend, self.namespace, wait=False).splitlines():
+            self.log.error("%s", line)
+        raise ChartError(
+            f"release {self.deployment.name}: rollout not complete within "
+            f"{timeout:.0f}s ({'; '.join(remaining)})"
+        )
+
+    # -- release bookkeeping ----------------------------------------------
+    def _release_name(self) -> str:
+        return RELEASE_CONFIGMAP_PREFIX + self.deployment.name
+
+    def _record_release(self, manifests: list[dict]) -> None:
+        import time
+
+        coords = [
+            {
+                "apiVersion": m.get("apiVersion", "v1"),
+                "kind": m.get("kind"),
+                "name": m.get("metadata", {}).get("name"),
+                "namespace": m.get("metadata", {}).get("namespace"),
+            }
+            for m in manifests
+        ]
+        # helm-style release bookkeeping: revision increments per deploy
+        # (reference shows revision/status in its release table,
+        # deploy/helm/status.go:1-84)
+        prev = self.backend.get_object(
+            "v1", "ConfigMap", self._release_name(), self.namespace
+        )
+        revision = 1
+        if prev:
+            try:
+                revision = int(prev.get("data", {}).get("revision", 0)) + 1
+            except (TypeError, ValueError):
+                revision = 1
+        self.backend.apply(
+            {
+                "apiVersion": "v1",
+                "kind": "ConfigMap",
+                "metadata": {
+                    "name": self._release_name(),
+                    "namespace": self.namespace,
+                },
+                "data": {
+                    "manifests": yaml.safe_dump(coords),
+                    "revision": str(revision),
+                    "deployedAt": str(int(time.time())),
+                },
+            },
+            namespace=self.namespace,
+        )
+
+    def _release_manifests(self) -> list[dict]:
+        cm = self.backend.get_object(
+            "v1", "ConfigMap", self._release_name(), self.namespace
+        )
+        if not cm:
+            return []
+        try:
+            return yaml.safe_load(cm.get("data", {}).get("manifests", "")) or []
+        except yaml.YAMLError:
+            return []
+
+    def delete(self) -> None:
+        coords = self._release_manifests()
+        for c in reversed(coords):
+            self.backend.delete_object(
+                {
+                    "apiVersion": c.get("apiVersion", "v1"),
+                    "kind": c.get("kind"),
+                    "metadata": {"name": c.get("name"), "namespace": c.get("namespace")},
+                },
+                namespace=self.namespace,
+            )
+        self.backend.delete_object(
+            {
+                "apiVersion": "v1",
+                "kind": "ConfigMap",
+                "metadata": {"name": self._release_name(), "namespace": self.namespace},
+            },
+            namespace=self.namespace,
+        )
+        self.log.done("[deploy] deleted release %s", self.deployment.name)
+
+    def release_info(self) -> dict:
+        """Revision / deploy time / manifest count from the release record
+        (parity with the reference's release table, deploy/helm/status.go)."""
+        cm = self.backend.get_object(
+            "v1", "ConfigMap", self._release_name(), self.namespace
+        )
+        if not cm:
+            return {"revision": 0, "deployed_at": None, "manifests": 0}
+        data = cm.get("data", {})
+        try:
+            revision = int(data.get("revision", 1))
+        except (TypeError, ValueError):
+            revision = 1
+        try:
+            deployed_at = int(data.get("deployedAt", 0)) or None
+        except (TypeError, ValueError):
+            deployed_at = None
+        try:  # the cm is already in hand — don't fetch it again
+            n_manifests = len(yaml.safe_load(data.get("manifests", "")) or [])
+        except yaml.YAMLError:
+            n_manifests = 0
+        return {
+            "revision": revision,
+            "deployed_at": deployed_at,
+            "manifests": n_manifests,
+        }
+
+    @staticmethod
+    def _rollout_state(obj: Optional[dict]) -> str:
+        """Controller-status rollout summary for a workload object:
+        Deployed / Rolling (x/y ready) / Missing (same logic as
+        _wait_ready, read-only)."""
+        if obj is None:
+            return "Missing"
+        if obj.get("kind") not in ("Deployment", "StatefulSet"):
+            return "Deployed"
+        spec = obj.get("spec") or {}
+        st = obj.get("status") or {}
+        want = spec.get("replicas")
+        if want is None:
+            want = 1
+        gen = (obj.get("metadata") or {}).get("generation")
+        observed = st.get("observedGeneration")
+        if gen is not None and (observed is None or observed < gen):
+            return "Rolling (unobserved)"
+        ready = st.get("readyReplicas") or 0
+        total = st.get("replicas")
+        if total is None:
+            total = ready
+        if ready < want or total > want:
+            return f"Rolling ({ready}/{want} ready)"
+        return "Deployed"
+
+    def status(self) -> list[dict]:
+        out = []
+        for c in self._release_manifests():
+            obj = self.backend.get_object(
+                c.get("apiVersion", "v1"), c.get("kind"), c.get("name"), c.get("namespace")
+            )
+            out.append(
+                {
+                    "kind": c.get("kind"),
+                    "name": c.get("name"),
+                    "namespace": c.get("namespace"),
+                    "found": obj is not None,
+                    "rollout": self._rollout_state(obj),
+                }
+            )
+        return out

@@ -1,12 +1,11 @@
-"""Raw manifest engine, render half: the port's copy of
-``devspace_tpu/deploy/manifests.py``.
+"""Raw manifest engine: the port's copy of ``devspace_tpu/deploy/manifests.py``.
 
 Reference: pkg/devspace/deploy/kubectl (``kubectl apply`` of the
 deployment's files, with image-tag rewriting via a YAML tree walk,
-kubectl.go:105-178 + walk/): ``walk_replace``, ``rewrite_image_tags``,
-``ManifestDeployer.render_manifests`` and ``create_deployer``. Applying
-them, and ``deploy_all``/``purge_all``, need ``kube/``, which the port
-does not have yet.
+kubectl.go:105-178 + walk/), and the deploy pipeline's ``deploy_all`` /
+``purge_all`` over every configured deployment. ``deploy_all`` hands the
+chart engine the config's ``gpu`` block where the reference hands it
+``tpu``.
 """
 
 from __future__ import annotations
@@ -56,11 +55,9 @@ def rewrite_image_tags(manifest: dict, image_tags: dict[str, str]) -> None:
 
 
 class ManifestDeployer:
-    """The raw-manifest engine for one deployment, render half: its
-    manifests loaded and image-rewritten. The reference's
-    ``deploy``/``delete``/``status`` apply through ``kube/``, which the
-    port does not have yet; ``backend`` is kept in the signature for them
-    and may be None."""
+    """The raw-manifest engine for one deployment: its manifests loaded,
+    image-rewritten and applied through a ``kube/`` backend (None where
+    only :meth:`render_manifests` is called)."""
 
     def __init__(
         self,
@@ -109,6 +106,47 @@ class ManifestDeployer:
             doc.setdefault("metadata", {}).setdefault("namespace", self.namespace)
         return docs
 
+    def deploy(
+        self,
+        image_tags: Optional[dict[str, str]] = None,
+        force: bool = False,
+        cache=None,
+        **_: object,
+    ) -> bool:
+        docs = self.render_manifests(image_tags=image_tags)
+        self.backend.ensure_namespace(self.namespace)
+        for doc in docs:
+            self.backend.apply(doc, namespace=self.namespace)
+        self.log.done(
+            "[deploy] %s: applied %d manifest(s)", self.deployment.name, len(docs)
+        )
+        return True
+
+    def delete(self) -> None:
+        for doc in reversed(self._load()):
+            self.backend.delete_object(doc, namespace=self.namespace)
+        self.log.done("[deploy] deleted manifests of %s", self.deployment.name)
+
+    def status(self) -> list[dict]:
+        out = []
+        for doc in self._load():
+            meta = doc.get("metadata", {})
+            obj = self.backend.get_object(
+                doc.get("apiVersion", "v1"),
+                doc.get("kind"),
+                meta.get("name"),
+                meta.get("namespace") or self.namespace,
+            )
+            out.append(
+                {
+                    "kind": doc.get("kind"),
+                    "name": meta.get("name"),
+                    "namespace": meta.get("namespace") or self.namespace,
+                    "found": obj is not None,
+                }
+            )
+        return out
+
 
 def create_deployer(backend, deployment: latest.DeploymentConfig, namespace: str, base_dir: str = ".", logger=None):
     """Engine dispatch (reference: deploy/util.go All)."""
@@ -119,3 +157,51 @@ def create_deployer(backend, deployment: latest.DeploymentConfig, namespace: str
     if deployment.manifests is not None:
         return ManifestDeployer(backend, deployment, namespace, base_dir, logger)
     raise ValueError(f"deployment {deployment.name} has neither chart nor manifests")
+
+
+def deploy_all(
+    backend,
+    config: latest.Config,
+    namespace: str,
+    image_tags: Optional[dict[str, str]] = None,
+    pull_secrets: Optional[list[str]] = None,
+    force: bool = False,
+    cache=None,
+    base_dir: str = ".",
+    logger=None,
+) -> int:
+    """Deploy every configured deployment in order (reference:
+    deploy.All, pkg/devspace/deploy/util.go:15)."""
+    count = 0
+    for d in config.deployments or []:
+        deployer = create_deployer(backend, d, namespace, base_dir, logger)
+        kwargs = dict(image_tags=image_tags, force=force, cache=cache)
+        from .chart import ChartDeployer
+
+        if isinstance(deployer, ChartDeployer):
+            # Honor the config's rollout-wait knobs (reference honors
+            # Helm.Wait/Helm.Timeout, deploy/helm/deploy.go:163-168);
+            # defaults match helm's wait=true / 40s (helm/install.go:28).
+            chart_cfg = d.chart
+            kwargs.update(
+                gpu=config.gpu,
+                pull_secrets=pull_secrets,
+                wait=True if chart_cfg.wait is None else bool(chart_cfg.wait),
+                wait_timeout=float(
+                    40 if chart_cfg.timeout is None else chart_cfg.timeout
+                ),
+            )
+        if deployer.deploy(**kwargs):
+            count += 1
+    return count
+
+
+def purge_all(backend, config: latest.Config, namespace: str, base_dir: str = ".", logger=None) -> None:
+    """Delete deployments in reverse order (reference: cmd/purge.go:104)."""
+    for d in reversed(config.deployments or []):
+        try:
+            create_deployer(backend, d, namespace, base_dir, logger).delete()
+        except Exception as e:  # noqa: BLE001 — best-effort teardown
+            (logger or logutil.get_logger()).warn(
+                "[purge] failed to delete %s: %s", d.name, e
+            )

@@ -7,9 +7,11 @@ over each deployment's objects and the GPU job rules (TPU201-205) once
 over all of them, the image pack over every configured Dockerfile, and
 the hot-path and concurrency packs over the project's own Python.
 
-The reference takes the CLI's loaded project context; the port has no
-CLI, so :func:`load_project` builds the context it needs from a project
-root through the port's own config loader.
+It takes a loaded project context: the CLI's (``cli.context.Context``,
+for ``lint`` and the ``deploy`` preflight) or :class:`ProjectContext`,
+which :func:`load_project` builds from a project root through the port's
+own config loader, with no cluster backend. Deployments render without
+one: the preflight never touches the cluster.
 """
 
 from __future__ import annotations
@@ -34,17 +36,14 @@ from .engine import (
 
 @dataclass
 class ProjectContext:
-    """What the preflight reads of a loaded project (the CLI context's
-    fields in the reference): its root, loader, config and namespace.
-    ``backend`` is the cluster backend the deployers would apply through
-    (None: render only)."""
+    """What the preflight reads of a loaded project, the fields it shares
+    with the CLI's context: its root, loader, config and namespace."""
 
     root: str
     loader: ConfigLoader
     config: latest.Config
     namespace: str
     log: logutil.Logger
-    backend: object = None
 
 
 def load_project(
@@ -82,7 +81,8 @@ def collect_project_findings(ctx) -> tuple[list[Finding], int]:
 
     all_docs: list[dict] = []
     for d in ctx.config.deployments or []:
-        deployer = create_deployer(ctx.backend, d, ctx.namespace, ctx.root, ctx.log)
+        # render only: the preflight never touches the cluster
+        deployer = create_deployer(None, d, ctx.namespace, ctx.root, ctx.log)
         try:
             if isinstance(deployer, ChartDeployer):
                 docs = deployer.render_manifests(

@@ -13,11 +13,10 @@ category.
 from __future__ import annotations
 
 from ..deploy.chart import GPU_RESOURCE, requests_gpu
+from ..kube.client import POD_INDEX_FIELD
 from ..utils.torchrun import max_nodes, torchrun_flags
 from .engine import ERROR, LintContext, rule
 from .rules_manifest import WORKLOAD_KINDS, containers_of
-
-POD_INDEX_FIELD = "metadata.labels['apps.kubernetes.io/pod-index']"
 
 
 def _sizes(gpu) -> tuple[int, int]:

@@ -1,11 +1,12 @@
 """Resilience primitives: retry with backoff, circuit breaking, idle
-backoff and the service supervisor.
+backoff, the service supervisor and deterministic fault injection.
 
-The port's copy of ``devspace_tpu/resilience/``'s policy and supervisor
-modules; the reference's chaos hooks into its dev-loop streams are not
-ported (the port has none of those streams).
+The port's copy of ``devspace_tpu/resilience/``: ``policy``,
+``supervisor`` and ``chaos`` (``ChaosConfig``, the failure dial that the
+fake cluster, ``kube/fake.py``, consults before each operation).
 """
 
+from .chaos import ChaosConfig, ChaosError
 from .policy import (
     CircuitBreaker,
     CircuitOpenError,
@@ -24,6 +25,8 @@ from .supervisor import (
 )
 
 __all__ = [
+    "ChaosConfig",
+    "ChaosError",
     "CircuitBreaker",
     "CircuitOpenError",
     "IdleBackoff",

@@ -1,11 +1,13 @@
 """Gitignore-syntax path matching.
 
-The port's copy of ``IgnoreMatcher`` from ``devspace_tpu/utils/ignoreutil.py``
-(reference behaviour: sabhiram/go-gitignore, used for ``.dockerignore``
-handling in pkg/util/ignoreutil), which ``utils.hashutil.directory_hash``
-applies to its excludes: comments, ``!`` negation (last match wins),
-dir-only patterns (trailing ``/``), anchored patterns (leading or
-embedded ``/``), ``*``, ``?``, character classes and ``**``.
+The port's copy of ``devspace_tpu/utils/ignoreutil.py`` (reference
+behaviour: sabhiram/go-gitignore, used for ``.dockerignore`` handling in
+pkg/util/ignoreutil): ``IgnoreMatcher``, which
+``utils.hashutil.directory_hash`` applies to its excludes and the image
+builder to a build context, and ``get_ignore_rules``. Comments, ``!``
+negation (last match wins), dir-only patterns (trailing ``/``), anchored
+patterns (leading or embedded ``/``), ``*``, ``?``, character classes and
+``**``.
 """
 
 from __future__ import annotations
@@ -114,3 +116,25 @@ class IgnoreMatcher:
             if res is not None:
                 verdict = res
         return verdict
+
+    @classmethod
+    def from_file(cls, path: str) -> "IgnoreMatcher":
+        try:
+            with open(path, "r", encoding="utf-8", errors="replace") as fh:
+                return cls(fh.readlines())
+        except OSError:
+            return cls([])
+
+
+def get_ignore_rules(path: str) -> list[str]:
+    """Read raw ignore rules from a .gitignore/.dockerignore style file
+    (reference: pkg/util/ignoreutil GetIgnoreRules)."""
+    try:
+        with open(path, "r", encoding="utf-8", errors="replace") as fh:
+            return [
+                ln.rstrip("\n")
+                for ln in fh
+                if ln.strip() and not ln.lstrip().startswith("#")
+            ]
+    except OSError:
+        return []

@@ -1,15 +1,15 @@
 """Leveled logger with status and table support.
 
 The port's copy of ``devspace_tpu/utils/log.py`` (reference:
-pkg/util/log/logger.go, stdout_logger.go): ``Logger``, ``StdoutLogger``,
-``DiscardLogger`` and ``FatalError``, which the port's ``config/`` and
-``deploy/`` log through. The JSON-lines ``FileLogger`` and its
-``.devspace/logs`` mirroring serve the CLI, which the port does not
-have, and are left out.
+pkg/util/log/logger.go, stdout_logger.go, file_logger.go, log.go):
+``Logger``, ``StdoutLogger``, ``DiscardLogger``, ``FatalError``, and the
+JSON-lines ``FileLogger`` with ``start_file_logging``, which mirrors the
+CLI's log into ``.devspace/logs/default.log``.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 import threading
 from typing import IO, Iterable, Optional
@@ -148,7 +148,57 @@ class DiscardLogger(Logger):
         pass
 
 
+class FileLogger(Logger):
+    """JSON-lines file logger (reference: logrus JSON to
+    .devspace/logs/<name>.log, pkg/util/log/file_logger.go). Oversized
+    logs are rotated to ``<path>.old`` on open (reference: sync.log
+    rotation, pkg/devspace/sync/util.go:305-340).
+
+    Built on the structured-event pipeline: every line is an
+    :class:`devspace_tpu_torch.obs.events.Event` serialized by the shared
+    ``JsonlSink`` — same ``{"time", "level", "msg"}`` keys as before
+    (scrapers like ``status sync`` keep working) plus ``subsystem``/
+    ``event``/``trace_id`` so a CLI log line written inside a traced
+    operation cross-references the span that produced it. Each line is
+    also published on the process event bus, so an attached
+    FlightRecorder sees CLI logs interleaved with engine events."""
+
+    MAX_BYTES = 10 * 1024 * 1024
+
+    def __init__(self, path: str, level: str = "debug"):
+        super().__init__(level)
+        from ..obs import events as _events  # lazy: log is imported early
+
+        self._events = _events
+        self.path = path
+        stem = os.path.splitext(os.path.basename(path))[0]
+        self._logger_name = stem or "default"
+        self._sink = _events.JsonlSink(path, max_bytes=self.MAX_BYTES)
+
+    def _write(self, tag: str, msg: str) -> None:
+        ev = self._events.make_event(
+            "cli", "log", level=tag,
+            attrs={"msg": msg, "logger": self._logger_name},
+        )
+        self._sink.record(ev)
+        self._events.get_bus().publish(ev)
+
+    @property
+    def closed(self) -> bool:
+        return self._sink.closed
+
+    def close(self) -> None:
+        self._sink.close()
+
+
+class DiscardLogger(Logger):
+    def _write(self, tag: str, msg: str) -> None:
+        pass
+
+
+_file_loggers: dict[str, FileLogger] = {}
 _default = StdoutLogger()
+_file_loggers: dict[str, FileLogger] = {}
 
 
 def get_logger() -> Logger:
@@ -158,3 +208,20 @@ def get_logger() -> Logger:
 def set_logger(logger: Logger) -> None:
     global _default
     _default = logger
+
+
+def get_file_logger(name: str, root: str = ".devspace") -> FileLogger:
+    """Per-subsystem file logger under ``<root>/logs/<name>.log`` —
+    reference: pkg/util/log/file_logger.go GetFileLogger."""
+    path = os.path.join(root, "logs", name + ".log")
+    fl = _file_loggers.get(path)
+    if fl is None or fl.closed:
+        fl = FileLogger(path)
+        _file_loggers[path] = fl
+    return fl
+
+
+def start_file_logging(root: str = ".devspace") -> None:
+    """Mirror the default logger into ``<root>/logs/default.log``
+    (reference: log.StartFileLogging, pkg/util/log/log.go)."""
+    _default.add_mirror(get_file_logger("default", root))

@@ -410,6 +410,30 @@ def test_deploy_phase_rehearsed_on_the_cpu(monkeypatch):
     json.dumps(line)
 
 
+def test_cluster_phase_rehearsed_on_the_cpu(monkeypatch):
+    """The cluster phase's control flow and checks on the CPU: the port's
+    CLI deploys the project into its fake cluster, reports it and prints
+    the applied documents; the applied StatefulSet's command runs in
+    worker 0 through the fake's exec with ``NODE_RANK`` from the pod's
+    env (and ``--device=cpu``), a gloo world of one training the MNIST
+    example to step 100 with no kernel launched; purge empties the fake."""
+    monkeypatch.setitem(cs.DEPLOY, "steps", 101)
+    line = cs.phase_cluster(torch.device("cpu"), "cpu")
+    assert [c["args"] for c in line["cli"]] == [["deploy"], ["status", "deployments"],
+                                                ["print", "--manifests"], ["purge"]]
+    assert all(c["rc"] == 0 for c in line["cli"])
+    assert line["applied_kinds"] == ["PodDisruptionBudget", "Service", "StatefulSet"]
+    assert line["worker"].endswith("-0") and line["pod_env"] == {"NODE_RANK": "0"}
+    assert line["argv"][3] == "--node-rank=0"
+    assert line["argv"][6:] == ["train.py", "--steps", "101", "--device=cpu"]
+    assert not any(s.startswith("NODE_RANK") for s in line["substitutions"])
+    assert line["world"].endswith("backend gloo, world 1")
+    assert len(line["losses_every_100"]) == 2 and line["loss_at_check_step"] < 1e-3
+    assert line["xent_launches"] == 0
+    assert line["left_after_purge"] == {"objects": [], "pods": []}
+    json.dumps(line)
+
+
 # -- a CPU rehearsal of the fleet phase -----------------------------------------
 def test_fleet_phase_rehearsed_on_the_cpu(monkeypatch, tmp_path):
     """The fleet phase's control flow and checks at TINY on the CPU: two

@@ -59,6 +59,15 @@ def test_every_module_imports_with_jax_blocked():
                  "lint.rules_sharding", "lint.rules_obs", "lint.rules_manifest",
                  "lint.rules_docker", "generator", "generator.generator", "utils.topology"):
         assert f"devspace_tpu_torch.{name}" in MODULES
+    # applying to a cluster: kube/ with its fake, builder/, analyze/, the
+    # CLI and what they need of resilience/ and utils/
+    for name in ("__main__", "kube", "kube.streams", "kube.websocket", "kube.kubeconfig",
+                 "kube.transport", "kube.exec", "kube.portforward", "kube.client", "kube.fake",
+                 "builder", "builder.dockerclient", "builder.registry", "builder.builders",
+                 "builder.images", "analyze", "analyze.analyze", "cli", "cli.context",
+                 "cli.pipeline", "cli.main", "resilience.chaos", "utils.randutil",
+                 "utils.fsutil", "utils.dockerfile", "utils.trace"):
+        assert f"devspace_tpu_torch.{name}" in MODULES
 
 
 def imported_names(path: Path) -> list[str]:
