@@ -110,6 +110,16 @@ StatefulSet's command runs in worker 0 through the fake's
 synthesized it, and trains the MNIST example on the card as the deploy
 phase does; ``purge`` leaves the fake empty.
 
+Then the dev loop on that project with two workers (``dev`` phase):
+``dev --no-portforwarding`` runs as a child against the fake and syncs the
+project into both workers; ``enter --all -- sha256sum`` shows both copies
+of ``train.py`` equal to the local one; ``enter --worker 0`` trains the
+MNIST example on the card from worker 0's synced copy (an NCCL world of
+one, the deploy phase's checks); the losses file that run wrote comes back
+to the project, a local edit reaches both workers, ``status sync`` and
+``logs`` answer, SIGINT stops ``dev`` with exit code 0 and no exec stream
+left, and ``purge`` leaves the fake empty.
+
 The RMSNorm kernel lies on no model's path (as in the JAX package); it is
 built, held against its plain version and timed.
 
@@ -2253,16 +2263,22 @@ def phase_deploy(dev, card) -> dict:
 CLUSTER = {"cli_timeout_s": 180}
 
 
+def cli_env(cluster: str) -> dict:
+    """The environment of a CLI call against the fake cluster at ``cluster``."""
+    return {**os.environ, "DEVSPACE_FAKE_BACKEND": cluster, "DEVSPACE_NONINTERACTIVE": "1",
+            "PYTHONPATH": os.pathsep.join(filter(None, [REPO_ROOT,
+                                                        os.environ.get("PYTHONPATH")]))}
+
+
 def run_cli(args: list, project: str, cluster: str) -> dict:
     """One call of the port's CLI as a user makes it: ``python -m
     devspace_tpu_torch <args>`` in the project's dir, against the fake
-    cluster at ``cluster``; its exit code, seconds and output."""
-    env = {**os.environ, "DEVSPACE_FAKE_BACKEND": cluster, "DEVSPACE_NONINTERACTIVE": "1",
-           "PYTHONPATH": os.pathsep.join(filter(None, [REPO_ROOT,
-                                                       os.environ.get("PYTHONPATH")]))}
+    cluster at ``cluster``, with no terminal; its exit code, seconds and
+    output."""
+    env = cli_env(cluster)
     t = time.monotonic()
     proc = subprocess.run([sys.executable, "-m", "devspace_tpu_torch", *args], cwd=project,
-                          env=env, text=True, capture_output=True,
+                          env=env, text=True, capture_output=True, stdin=subprocess.DEVNULL,
                           timeout=CLUSTER["cli_timeout_s"])
     return {"args": args, "rc": proc.returncode, "s": time.monotonic() - t,
             "out": proc.stdout + proc.stderr}
@@ -2390,6 +2406,233 @@ def phase_cluster(dev, card) -> dict:
             "pod_env": pod_env, "argv": argv, "substitutions": subs, "world": pod["world"],
             "steps": DEPLOY["steps"], "losses_every_100": losses, "loss_at_check_step": at,
             "xent_launches": pod["launches"], "run_s": run_s, "left_after_purge": left,
+            "seconds": time.monotonic() - t0}
+
+
+# -- the dev loop: the project synced into a two-worker job and trained there -----
+DEV = {"gpu": {"workers": 2, "perWorker": 1}, "steps": MNIST["steps"],
+       "check_step": MNIST["check_step"], "below": MNIST["below"], "sync_timeout_s": 120,
+       "edit_timeout_s": 30, "stop_timeout_s": 30}
+# the deploy phase's train.py, which also leaves its losses in the working
+# dir: worker 0's copy of that file is what downstream sync brings back
+DEV_TRAIN_PY = DEPLOY_TRAIN_PY + """\
+with open("losses.json", "w") as fh:
+    json.dump(logged, fh)
+"""
+# what parallel/mesh.multihost_initialize reads: none may be in a
+# worker's env, so `python train.py` there forms a world of one
+WORLD_ENV = ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT", "JAX_COORDINATOR_ADDRESS",
+             "JAX_NUM_PROCESSES", "TPU_WORKER_ID")
+
+
+class DevChild:
+    """``python -m devspace_tpu_torch dev --no-portforwarding`` in the
+    project's dir against the fake cluster, with no terminal (so it runs
+    the log mux); its output read into ``lines`` as it comes."""
+
+    def __init__(self, project: str, cluster: str):
+        self.t0 = time.monotonic()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "devspace_tpu_torch", "dev", "--no-portforwarding"],
+            cwd=project, env=cli_env(cluster), stdin=subprocess.DEVNULL,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.lines: list = []
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip("\n"))
+
+    def tail(self) -> str:
+        return "\n".join(self.lines[-40:])
+
+    def alive(self) -> None:
+        """Fails the phase if the dev child has exited."""
+        rc = self.proc.poll()
+        assert rc is None, f"the dev child exited with {rc}:\n{self.tail()}"
+
+    def wait_line(self, text: str, timeout_s: float) -> float:
+        """Seconds from the child's start until a line holds ``text``."""
+        deadline = time.monotonic() + timeout_s
+        while not any(text in ln for ln in list(self.lines)):
+            self.alive()
+            assert time.monotonic() < deadline, f"no {text!r} in {timeout_s} s:\n{self.tail()}"
+            time.sleep(0.05)
+        return time.monotonic() - self.t0
+
+    def interrupt(self, timeout_s: float) -> tuple:
+        """SIGINT, as Ctrl-C sends it; (exit code, seconds to exit)."""
+        import signal
+
+        t = time.monotonic()
+        self.proc.send_signal(signal.SIGINT)
+        try:
+            rc = self.proc.wait(timeout_s)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            raise AssertionError(f"dev did not stop in {timeout_s} s:\n{self.tail()}") from None
+        self.reader.join(5)
+        return rc, time.monotonic() - t
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def processes_in(root: str) -> list:
+    """Pids of the processes whose working dir lies under ``root``: the
+    fake cluster's exec streams run in their pod's dir."""
+    pids = []
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            with contextlib.suppress(OSError):
+                cwd = os.readlink(f"/proc/{entry}/cwd")
+                if cwd == root or cwd.startswith(root + os.sep):
+                    pids.append(int(entry))
+    return pids
+
+
+def worker_digests(out: str) -> dict:
+    """``{worker: sha256}`` from ``enter --all -- sha256sum ...`` output."""
+    found = re.findall(r"^\[worker-(\d+)\] ([0-9a-f]{64}) ", out, re.M)
+    return {int(w): h for w, h in found}
+
+
+def phase_dev(dev, card) -> dict:
+    """The dev loop as a user drives it, on the deploy phase's project with
+    ``gpu: {workers: 2, perWorker: 1}`` and the example's ``dev`` block
+    (sync ``.`` to ``/app`` with its excludes, ``autoReload``, the
+    ``sleep`` entrypoint override): ``dev --no-portforwarding`` runs as a
+    child (``DevChild``: builds with the fake builder, deploys, syncs to
+    both workers, streams their logs). Each worker's ``/app/train.py`` is
+    read through ``enter --all -- sha256sum`` and must equal the local one.
+    ``enter --worker 0`` runs ``python train.py`` in worker 0's synced copy:
+    an NCCL world of one (only worker 0 trains: one card holds one rank)
+    training ``DEV["steps"]`` steps through the loss kernel, held to the
+    deploy phase's checks. The losses file that run wrote in worker 0's
+    ``/app`` comes back to the project (worker 0 is the authority); a local
+    edit of ``train.py`` with a later mtime reaches both workers. ``status
+    sync`` shows both workers healthy, ``logs --worker 0`` answers, SIGINT
+    stops ``dev`` with exit code 0 and no exec stream left, and ``purge``
+    empties the fake. In the fake an exec runs in the pod's dir, where
+    ``/app`` is ``app``. Rehearsed on the CPU with ``--device=cpu``."""
+    from devspace_tpu_torch.kube.fake import FakeCluster
+
+    t0 = time.monotonic()
+    root = tempfile.mkdtemp(prefix="dev-")
+    project, cluster = os.path.join(root, "proj"), os.path.join(root, "cluster")
+    calls = []
+
+    def cli(*args, check=True):
+        call = run_cli(list(args), project, cluster)
+        calls.append({k: call[k] for k in ("args", "rc", "s")})
+        assert call["rc"] == 0 or not check, call
+        return call
+
+    child = None
+    try:
+        os.makedirs(project)
+        deploy_project(project, ["train.py", "--steps", str(DEV["steps"])], DEV["gpu"])
+        with open(os.path.join(project, "train.py"), "w") as fh:
+            fh.write(DEV_TRAIN_PY.format(repo=REPO_ROOT,
+                                         scripts=str(Path(REPO_ROOT) / "scripts")))
+        with open(os.path.join(project, ".devspace", "config.yaml")) as fh:
+            config = yaml.safe_load(fh)
+        (name,) = [d["name"] for d in config["deployments"]]
+        local_py = os.path.join(project, "train.py")
+
+        def local_digest() -> str:
+            with open(local_py, "rb") as fh:
+                return hashlib.sha256(fh.read()).hexdigest()
+
+        child = DevChild(project, cluster)
+        initial_sync_s = child.wait_line("[sync] session ready", DEV["sync_timeout_s"])
+        child.wait_line("[dev] session live", DEV["sync_timeout_s"])
+        before = worker_digests(cli("enter", "--all", "--", "sha256sum", "app/train.py")["out"])
+        assert before == {0: local_digest(), 1: local_digest()}, (before, local_digest())
+        fc = FakeCluster(cluster, persist=True)
+        workers = fc.slice_workers({"app": name}, expected=DEV["gpu"]["workers"], timeout=10)
+        pod_env = workers[0].container_env()
+        assert not set(pod_env) & set(WORLD_ENV), pod_env
+        argv = [sys.executable, "train.py", "--steps", str(DEV["steps"])]
+        subs = ["/app -> app (the fake runs an exec in its pod's dir)",
+                f"python -> {sys.executable}"]
+        if dev.type == "cpu":
+            argv.append("--device=cpu")
+            subs.append("--device=cpu appended (the CPU rehearsal)")
+        for sub in subs:
+            print(f"dev: substituted {sub}", flush=True)
+        script = f"cd app && exec {shlex.join(argv)}"
+        print(f"dev: enter --worker 0 -- sh -c {shlex.quote(script)}", flush=True)
+        run = cli("enter", "--worker", "0", "--", "sh", "-c", script)
+        pod = parse_pod_output(run["rc"], run["out"])
+        run_s = run["s"]
+        # downstream: the losses file worker 0's run wrote comes back
+        t = time.monotonic()
+        back = os.path.join(project, "losses.json")
+        while not os.path.exists(back):
+            child.alive()
+            assert time.monotonic() - t < DEV["edit_timeout_s"], child.tail()
+            time.sleep(0.05)
+        downstream_s = time.monotonic() - t  # the download lands by an atomic rename
+        with open(back) as fh:
+            downstream = json.load(fh)
+        assert downstream == pod["losses"], (downstream, pod["losses"])
+        # upstream: a hot edit with a later mtime reaches both workers
+        with open(local_py, "a") as fh:
+            fh.write("# edited while dev runs\n")
+        later = time.time() + 5
+        os.utime(local_py, (later, later))
+        t, polls, after = time.monotonic(), 0, {}
+        while after != {0: local_digest(), 1: local_digest()}:
+            child.alive()
+            assert time.monotonic() - t < DEV["edit_timeout_s"], (after, child.tail())
+            after = worker_digests(cli("enter", "--all", "--", "sha256sum",
+                                       "app/train.py")["out"])
+            polls += 1
+        edit_s = time.monotonic() - t
+        assert after != before
+        status = cli("status", "sync")["out"]
+        rows = {r[0]: r[1:] for r in map(str.split, status.splitlines()) if r}
+        health = {w.name: rows.get(w.name, ["missing"])[0] for w in workers}
+        assert health == {workers[0].name: "authority", workers[1].name: "mirror"}, status
+        assert any("Active" in r for r in rows.values()), status
+        cli("logs", "--worker", "0")
+        child.alive()
+        streams_before = len(processes_in(cluster))
+        dev_rc, stop_s = child.interrupt(DEV["stop_timeout_s"])
+        assert dev_rc == 0, child.tail()
+        wait_until(lambda: not processes_in(cluster), 5, "the dev child's exec streams to end")
+        cli("purge")
+        after_purge = FakeCluster(cluster, persist=True)
+        left = {"objects": sorted(map(list, after_purge.objects)),
+                "pods": sorted(map(list, after_purge.pods))}
+        assert left == {"objects": [], "pods": []}, left
+    finally:
+        if child is not None:
+            child.kill()
+        shutil.rmtree(root, ignore_errors=True)
+    assert pod["rc"] == 0 and pod["done"], pod["tail"]
+    backend = pmesh.backend_for(dev)
+    assert pod["world"] and pod["world"].endswith(f"backend {backend}, world 1"), pod["tail"]
+    losses = pod["losses"]
+    at = losses[DEV["check_step"] // 100]
+    assert at < DEV["below"], f"loss {at} at step {DEV['check_step']}"
+    want = DEV["steps"] if dev.type == "cuda" else 0
+    assert pod["launches"] == want, (pod["launches"], want)
+    return {"phase": "dev", "card": card, "gpu": DEV["gpu"], "cli": calls,
+            "initial_sync_s": initial_sync_s, "digests_before": before,
+            "edit_to_both_workers_s": edit_s, "edit_polls": polls, "digests_after": after,
+            "downstream_file": "losses.json", "downstream_s": downstream_s,
+            "workers": [w.name for w in workers], "pod_env": pod_env, "argv": argv,
+            "substitutions": subs, "world": pod["world"], "steps": DEV["steps"],
+            "losses_every_100": losses, "loss_at_check_step": at,
+            "xent_launches": pod["launches"], "run_s": run_s, "worker_health": health,
+            "dev_rc": dev_rc, "stop_s": stop_s, "streams_before_stop": streams_before,
+            "left_after_purge": left, "dev_log_tail": child.lines[-12:],
             "seconds": time.monotonic() - t0}
 
 
@@ -4767,6 +5010,8 @@ def main() -> int:
     emit(deploy_line)
     cluster_line = phase_cluster(dev, card)
     emit(cluster_line)
+    dev_line = phase_dev(dev, card)
+    emit(dev_line)
 
     attn_parity = phase_short_attention_parity(dev)
     emit({"phase": "short_attention_parity", "card": card, "f32_tol": [F32_RTOL, F32_ATOL],
@@ -4955,6 +5200,7 @@ def main() -> int:
                                          "mnist": mnist_line["xent_launches"],
                                          "deploy": deploy_line["xent_launches"],
                                          "cluster": cluster_line["xent_launches"],
+                                         "dev": dev_line["xent_launches"],
                                          "vit": vit_line["xent_launches"],
                                          "moe": moe_line["launches"][name],
                                          "parallel": parallel_launches[name]}

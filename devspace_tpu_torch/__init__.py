@@ -19,7 +19,9 @@ supervisor) and ``serve.py`` (the HTTP server, ``python -m
 devspace_tpu_torch.serve --port N``). The host side that takes a project
 to a cluster: ``config/``, ``generator/``, ``deploy/``, ``lint/``,
 ``kube/`` (the API-server client and a fake cluster), ``builder/``,
-``analyze/`` and ``cli/`` (``python -m devspace_tpu_torch deploy``).
+``analyze/``, ``sync/`` (the file sync engine), ``services/`` (the dev
+session's sync, port forwarding, logs and terminal) and ``cli/``
+(``python -m devspace_tpu_torch deploy``, ``... dev``).
 """
 
 __version__ = "0.1.0"

@@ -6,10 +6,8 @@ image, skip when dockerfile mtime + context hash match the generated cache
 build -> push, dev-mode entrypoint override injection (146-158), record tag
 in the cache (179-183); create_builder.go picks docker vs kaniko.
 
-The port's copy of ``devspace_tpu/builder/images.py``. Its
-``create_builder`` raises ``BuildError`` where the reference would pick
-the in-cluster Kaniko builder, which waits for the port's sync engine
-(ROADMAP A21); it never picks another builder in its place.
+The port's copy of ``devspace_tpu/builder/images.py``, with the same
+behaviour.
 """
 
 from __future__ import annotations
@@ -23,12 +21,7 @@ from ..utils import log as logutil
 from ..utils.hashutil import directory_hash
 from ..utils.ignoreutil import get_ignore_rules
 from ..utils.randutil import random_string
-from .builders import BuildError, DockerBuilder, FakeBuilder
-
-KANIKO_PENDING = (
-    "the in-cluster Kaniko builder is not ported yet: it uploads its build "
-    "context through the sync engine (ROADMAP A21)"
-)
+from .builders import KANIKO_IMAGE, DockerBuilder, FakeBuilder, KanikoBuilder
 
 
 def create_builder(
@@ -39,17 +32,20 @@ def create_builder(
     logger=None,
     prefer_fake: bool = False,
 ):
-    """Pick the build engine (reference: image/create_builder.go): the
-    fake recorder on a fake backend, else local docker. Where the
-    reference picks kaniko (configured, or the fallback when docker is
-    unreachable and a backend exists) this raises ``BuildError``: the
-    Kaniko builder waits for the sync engine (ROADMAP A21)."""
+    """Pick the build engine (reference: image/create_builder.go):
+    kaniko when configured, else local docker, else kaniko fallback when a
+    backend exists, else the fake recorder."""
     build = image_conf.build
     if prefer_fake or getattr(backend, "is_fake", False):
         return FakeBuilder()
     if build and build.kaniko is not None and backend is not None:
-        raise BuildError(
-            f"image {image_conf.image}: build.kaniko is set, but {KANIKO_PENDING}"
+        return KanikoBuilder(
+            backend,
+            namespace=(build.kaniko.namespace or namespace),
+            pull_secret=build.kaniko.pull_secret or pull_secret,
+            cache=build.kaniko.cache if build.kaniko.cache is not None else True,
+            kaniko_image=build.kaniko.image or KANIKO_IMAGE,
+            logger=logger,
         )
     docker = DockerBuilder(logger=logger)
     if docker.available():
@@ -57,9 +53,8 @@ def create_builder(
     if backend is not None and not (
         build and build.docker and build.docker.disable_fallback
     ):
-        raise BuildError(
-            f"image {image_conf.image}: the docker daemon is unreachable and the "
-            f"fallback would build in the cluster, but {KANIKO_PENDING}"
+        return KanikoBuilder(
+            backend, namespace=namespace, pull_secret=pull_secret, logger=logger
         )
     raise RuntimeError(
         "no build engine available: docker daemon unreachable and no cluster "

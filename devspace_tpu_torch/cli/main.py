@@ -2,15 +2,17 @@
 
 The port's copy of ``devspace_tpu/cli/main.py`` (reference: cmd/, the
 cobra root and subcommands, SURVEY §2.1), with the commands that apply a
-project to a cluster: ``init`` (a torch project: the CUDA Dockerfile,
-chart-gpu and a ``gpu`` block), ``deploy`` (lint preflight, build, apply),
-``purge``, ``reset``, ``analyze``, ``status deployments``, ``status
-trace``, ``print`` (``--manifests``) and ``lint``, with the reference's
-flags. ``dev``, ``enter``, ``logs`` and ``status sync`` wait for the sync
-engine (ROADMAP A21); ``status serving``, ``top``, ``debug``,
-``collector``, ``fleet``, ``add``/``remove``/``list``/``use``, the cloud
-commands, ``update``, ``upgrade``, ``install`` and the start-up version
-notice wait for the rest of the CLI (A22).
+project to a cluster and develop in it: ``init`` (a torch project: the
+CUDA Dockerfile, chart-gpu and a ``gpu`` block), ``deploy`` (lint
+preflight, build, apply), ``dev`` (the live session: sync across the
+job's workers, port forwarding, the terminal or the log mux,
+auto-reload), ``enter`` (``--worker N``, ``--all``), ``logs``, ``purge``,
+``reset``, ``analyze``, ``status deployments``/``sync``/``trace``,
+``print`` (``--manifests``) and ``lint``, with the reference's flags.
+``status serving``, ``top``, ``debug``, ``collector``, ``fleet``,
+``add``/``remove``/``list``/``use``, the cloud commands, ``update``,
+``upgrade``, ``install`` and the start-up version notice are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from ..utils import stdinutil
 from ..utils.dockerfile import get_ports
 from ..utils.ignoreutil import get_ignore_rules
 from .context import CLIError, Context
-from .pipeline import build_and_deploy, inject_default_image
+from .pipeline import DevLoop, build_and_deploy, inject_default_image
 
 
 def _ask(question: str, default: str = "", pattern: Optional[str] = None) -> str:
@@ -191,6 +193,19 @@ def cmd_deploy(args) -> int:
     return 0
 
 
+def cmd_dev(args) -> int:
+    """Reference: cmd/dev.go — THE dev loop."""
+    ctx = Context(args)
+    loop = DevLoop(ctx, args)
+    try:
+        return loop.run()
+    except KeyboardInterrupt:
+        ctx.log.info("[dev] interrupted — tearing down services")
+        loop.stop()
+        loop.stop_services()
+        return 0
+
+
 def cmd_purge(args) -> int:
     """Reference: cmd/purge.go — delete deployments in reverse order."""
     from ..deploy.manifests import purge_all
@@ -226,6 +241,54 @@ def cmd_reset(args) -> int:
     return 0
 
 
+# -- session commands -------------------------------------------------------
+def cmd_enter(args) -> int:
+    """Reference: cmd/enter.go — shell into a slice worker; --all runs the
+    command on every worker with prefixed output (slice generalization)."""
+    from ..services.sessions import broadcast_exec, start_terminal
+
+    ctx = Context(args)
+    command = args.command if args.command else None
+    if getattr(args, "all", False):
+        if args.worker is not None:
+            ctx.log.error("[enter] --all and --worker are mutually exclusive")
+            return 1
+        if not command:
+            ctx.log.error("[enter] --all requires a command (no interactive fan-out TTY)")
+            return 1
+        return broadcast_exec(ctx.backend, ctx.config, command, logger=ctx.log)
+    # None falls through to the dev.terminal.worker config (precedence
+    # args > config > 0, resolved in start_terminal)
+    return start_terminal(
+        ctx.backend, ctx.config, command=command, worker_index=args.worker, logger=ctx.log
+    )
+
+
+def cmd_logs(args) -> int:
+    """Reference: cmd/logs.go — now worker-prefix-muxed across the slice."""
+    from ..services.selectors import resolve_workers
+    from ..services.sessions import LogMux
+
+    ctx = Context(args)
+    workers, ns, container = resolve_workers(
+        ctx.backend, ctx.config, selector_name=args.selector, timeout=60.0
+    )
+    if args.worker is not None:
+        workers = [workers[min(args.worker, len(workers) - 1)]]
+    mux = LogMux(ctx.backend, workers, ns, container=container, tail=args.lines)
+    mux.run_once()
+    if args.follow:
+        mux.follow()
+        try:
+            import time
+
+            while True:
+                time.sleep(0.5)
+        except KeyboardInterrupt:
+            mux.stop()
+    return 0
+
+
 def cmd_analyze(args) -> int:
     """Reference: cmd/analyze.go."""
     from ..analyze.analyze import create_report
@@ -240,9 +303,8 @@ def cmd_analyze(args) -> int:
 
 # -- status ---------------------------------------------------------------
 def cmd_status(args) -> int:
-    """Reference: cmd/status/deployments.go, and the span trace of the
-    pipeline's phases. ``status sync`` waits for the sync engine (ROADMAP
-    A21), ``status serving`` for the rest of the CLI (A22)."""
+    """Reference: cmd/status/{deployments,sync}.go, and the span trace of
+    the pipeline's phases. ``status serving`` is not ported yet."""
     ctx = Context(args)
     log = ctx.log
     if args.what == "deployments":
@@ -312,6 +374,100 @@ def cmd_status(args) -> int:
                 "(trace_spans_dropped_total)",
                 trace.dropped(),
             )
+    else:  # sync — structured status file + sync.log scrape fallback
+        import json as _json
+        import time as _time
+
+        # Live per-session/per-worker view from the session-published
+        # status file (richer than the reference's sync.log regex scrape,
+        # cmd/status/sync.go:19-21,56-110).
+        status_file = os.path.join(ctx.root, ".devspace", "logs", "sync-status.json")
+        published: dict = {}
+        try:
+            with open(status_file, "r", encoding="utf-8") as fh:
+                published = _json.load(fh)
+        except (OSError, ValueError):
+            published = {}
+        if published:
+            rows = []
+            worker_rows = []
+            for key, st in sorted(published.items()):
+                stats = st.get("stats") or {}
+                age = _time.time() - (st.get("updated_at") or 0)
+                if st.get("error"):
+                    state = "Error"
+                elif st.get("running") and age < 600:
+                    state = "Active"  # age guard: killed -9 never unpublishes
+                elif st.get("running"):
+                    # claims running but stale despite the session's 120s
+                    # heartbeat — likely a killed process, but don't assert
+                    # what we can't know
+                    state = "Unknown"
+                else:
+                    state = "Stopped"
+                rows.append(
+                    [
+                        st.get("local_path", "?"),
+                        st.get("container_path", "?"),
+                        state,
+                        f"{age:.0f}s ago",
+                        str(stats.get("uploaded", 0)),
+                        str(stats.get("downloaded", 0)),
+                        str(
+                            stats.get("removed_remote", 0)
+                            + stats.get("removed_local", 0)
+                        ),
+                        str(stats.get("repaired", 0)),
+                    ]
+                )
+                for w in st.get("workers") or []:
+                    worker_rows.append(
+                        [
+                            w.get("worker", "?"),
+                            w.get("state", "?"),
+                            str(w.get("repairs", 0)),
+                            f"{w['verified_ago']:.0f}s ago"
+                            if w.get("verified_ago") is not None
+                            else "-",
+                            (w.get("last_error") or "-")[:60],
+                        ]
+                    )
+            log.print_table(
+                ["LOCAL", "CONTAINER", "STATUS", "ACTIVITY", "UP", "DOWN", "RM", "REPAIRED"],
+                rows,
+            )
+            log.print_table(
+                ["WORKER", "STATE", "REPAIRS", "VERIFIED", "LAST ERROR"],
+                worker_rows,
+            )
+            errs = [st["error"] for st in published.values() if st.get("error")]
+            if errs:
+                log.error("last error: %s", errs[-1])
+            return 0
+        # Fallback: scrape sync.log (sessions from older runs / no file)
+        sync_log = os.path.join(ctx.root, ".devspace", "logs", "sync.log")
+        entries = []
+        try:
+            with open(sync_log, "r", encoding="utf-8") as fh:
+                for line in fh:
+                    try:
+                        entries.append(_json.loads(line))
+                    except ValueError:
+                        continue
+        except OSError:
+            log.warn("no sync log found at %s", sync_log)
+            return 1
+        uploads = sum(1 for e in entries if "Uploaded" in e.get("msg", ""))
+        downloads = sum(1 for e in entries if "Downloaded" in e.get("msg", ""))
+        started = [e for e in entries if "starting" in e.get("msg", "")]
+        errors = [e for e in entries if e.get("level") in ("error", "fatal")]
+        status = "Error" if errors else ("Active" if started else "Stopped")
+        log.print_table(
+            ["STATUS", "SESSIONS", "UPLOAD BATCHES", "DOWNLOAD BATCHES", "ERRORS"],
+            [[status, str(len(started)), str(uploads), str(downloads), str(len(errors))]],
+        )
+        if errors:
+            log.error("last error: %s", errors[-1].get("msg", ""))
     return 0
 
 
@@ -447,7 +603,7 @@ def cmd_print_config(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m devspace_tpu_torch",
-        description="GPU developer loop: init, deploy and inspect PyTorch "
+        description="GPU developer loop: init, deploy and live-dev PyTorch "
         "workloads on NVIDIA GPU hosts of a Kubernetes cluster.",
     )
     p.add_argument("--version", action="version", version=__version__)
@@ -470,6 +626,31 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sp.set_defaults(fn=cmd_init)
 
+    sp = sub.add_parser("dev", help="build, deploy and start the live dev session")
+    sp.add_argument("--force-build", "-b", action="store_true")
+    sp.add_argument("--force-deploy", "-d", action="store_true")
+    sp.add_argument("--no-sync", action="store_true")
+    sp.add_argument("--no-portforwarding", action="store_true")
+    sp.add_argument("--no-terminal", action="store_true")
+    sp.add_argument("--verbose-sync", action="store_true")
+    sp.add_argument(
+        "--sync-digest",
+        choices=["on", "off"],
+        default="on",
+        help="content-digest gating for sync uploads: unchanged bytes "
+        "(touch/checkout) become a remote mtime fix instead of a "
+        "re-upload (default: on)",
+    )
+    sp.add_argument(
+        "--restart-policy",
+        choices=["always", "on-failure", "never"],
+        default="on-failure",
+        help="supervisor restart policy for dev-session services "
+        "(sync, port-forward): restart on any exit, only on failure, "
+        "or never (default: on-failure)",
+    )
+    sp.set_defaults(fn=cmd_dev)
+
     sp = sub.add_parser("deploy", help="build and deploy (CI mode)")
     sp.add_argument("--force-build", "-b", action="store_true")
     sp.add_argument("--force-deploy", "-d", action="store_true")
@@ -479,6 +660,25 @@ def build_parser() -> argparse.ArgumentParser:
         help="skip the lint preflight (errors normally abort the deploy)",
     )
     sp.set_defaults(fn=cmd_deploy)
+
+    sp = sub.add_parser("enter", help="open a shell in a slice worker")
+    sp.add_argument(
+        "--worker", "-w", type=int, default=None, help="worker index (default 0)"
+    )
+    sp.add_argument(
+        "--all",
+        action="store_true",
+        help="run the command on EVERY worker, output prefixed per worker",
+    )
+    sp.add_argument("command", nargs="*", help="command to run instead of a shell")
+    sp.set_defaults(fn=cmd_enter)
+
+    sp = sub.add_parser("logs", help="print worker-prefixed logs")
+    sp.add_argument("--selector", "-s")
+    sp.add_argument("--lines", "-l", type=int, default=100)
+    sp.add_argument("--follow", "-f", action="store_true")
+    sp.add_argument("--worker", "-w", type=int, help="only this worker")
+    sp.set_defaults(fn=cmd_logs)
 
     sp = sub.add_parser("analyze", help="diagnose problems in the namespace")
     sp.add_argument("--no-wait", action="store_true")
@@ -491,8 +691,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--all", action="store_true", help="also remove chart/ and Dockerfile")
     sp.set_defaults(fn=cmd_reset)
 
-    sp = sub.add_parser("status", help="deployment / trace status")
-    sp.add_argument("what", choices=["deployments", "trace"])
+    sp = sub.add_parser("status", help="deployment / sync / trace status")
+    sp.add_argument("what", choices=["deployments", "sync", "trace"])
     sp.add_argument("--export", help="(trace) write chrome://tracing JSON here")
     sp.set_defaults(fn=cmd_status)
 

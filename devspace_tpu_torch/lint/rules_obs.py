@@ -49,10 +49,9 @@ _KINDS = ("counter", "gauge", "histogram")
 
 def load_metric_catalogs() -> dict:
     """{catalog label: (family_tuple, ...)} for every catalog of the port —
-    the production input for the OBS7xx rules. The port has no ``sync``
-    catalog (the file-sync sessions are the JAX package's dev loop, not
-    ported) and no ``trace`` catalog (``utils/trace.py``'s span metrics
-    are the CLI's); its timeline lanes are ``obs.tracing``'s."""
+    the production input for the OBS7xx rules. The port has no ``trace``
+    catalog (``utils/trace.py``'s span metrics are the CLI's); its
+    timeline lanes are ``obs.tracing``'s."""
     from devspace_tpu_torch.inference.engine import ENGINE_METRIC_FAMILIES
     from devspace_tpu_torch.obs.collector import COLLECTOR_METRIC_FAMILIES
     from devspace_tpu_torch.obs.events import EVENTS_METRIC_FAMILIES
@@ -62,10 +61,12 @@ def load_metric_catalogs() -> dict:
     from devspace_tpu_torch.resilience.policy import RESILIENCE_METRIC_FAMILIES
     from devspace_tpu_torch.serving.fleet import FLEET_METRIC_FAMILIES
     from devspace_tpu_torch.serving.router import SERVING_ROUTER_METRIC_FAMILIES
+    from devspace_tpu_torch.sync.session import SYNC_METRIC_FAMILIES
 
     return {
         "engine": ENGINE_METRIC_FAMILIES,
         "serving": SERVING_METRIC_FAMILIES,
+        "sync": SYNC_METRIC_FAMILIES,
         "resilience": RESILIENCE_METRIC_FAMILIES,
         "tracing": TRACING_METRIC_FAMILIES,
         "events": EVENTS_METRIC_FAMILIES,

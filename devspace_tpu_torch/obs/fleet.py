@@ -32,8 +32,8 @@ round-trip stays ~200 lines instead of a client_golang port.
 
 The port's copy of ``devspace_tpu/obs/fleet.py``, with the same behaviour; it
 imports nothing of the JAX package. The aggregation hints come from the port's own
-catalogs; the JAX package's sync and span-ring families, which the
-port does not have, merge under the default hint.
+catalogs, sync's included; the JAX package's span-ring families, which
+the port does not have, merge under the default hint.
 """
 
 from __future__ import annotations
@@ -77,6 +77,7 @@ def aggregation_hints() -> dict[str, str]:
     loaders = (
         ("devspace_tpu_torch.inference.engine", "ENGINE_METRIC_FAMILIES"),
         ("devspace_tpu_torch.obs.request_trace", "SERVING_METRIC_FAMILIES"),
+        ("devspace_tpu_torch.sync.session", "SYNC_METRIC_FAMILIES"),
         ("devspace_tpu_torch.resilience.policy", "RESILIENCE_METRIC_FAMILIES"),
         ("devspace_tpu_torch.obs.tracing", "TRACING_METRIC_FAMILIES"),
         ("devspace_tpu_torch.obs.events", "EVENTS_METRIC_FAMILIES"),

@@ -75,6 +75,10 @@ class Logger:
     def warn(self, msg: str, *args) -> None:
         self._emit("warn", msg % args if args else msg, "warn")
 
+    # ``logging.Logger``'s name for it: the session supervisor logs through
+    # either
+    warning = warn
+
     def error(self, msg: str, *args) -> None:
         self._emit("error", msg % args if args else msg, "error")
 
@@ -191,12 +195,6 @@ class FileLogger(Logger):
         self._sink.close()
 
 
-class DiscardLogger(Logger):
-    def _write(self, tag: str, msg: str) -> None:
-        pass
-
-
-_file_loggers: dict[str, FileLogger] = {}
 _default = StdoutLogger()
 _file_loggers: dict[str, FileLogger] = {}
 

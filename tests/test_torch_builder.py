@@ -24,7 +24,7 @@ from devspace_tpu.config.generated import CacheConfig as JCacheConfig
 from devspace_tpu.config.loader import ConfigLoader as JLoader
 from devspace_tpu.kube.fake import FakeCluster as JFakeCluster
 from devspace_tpu_torch.builder import builders, dockerclient, images, registry
-from devspace_tpu_torch.builder.builders import BuildError, FakeBuilder
+from devspace_tpu_torch.builder.builders import FakeBuilder
 from devspace_tpu_torch.config import latest
 from devspace_tpu_torch.config.generated import CacheConfig
 from devspace_tpu_torch.config.loader import ConfigLoader
@@ -241,21 +241,37 @@ class _Cluster:
 
 
 def test_create_builder_never_picks_another_builder(monkeypatch):
-    """The fake backend gets ``FakeBuilder``; a configured Kaniko build,
-    and the reference's Kaniko fallback when docker is unreachable, raise
-    ``BuildError`` naming A21; no backend and no docker raises as in the
-    reference."""
+    """The builder the reference picks, for each case: ``FakeBuilder`` on
+    the fake backend; ``KanikoBuilder`` for a configured ``build.kaniko``
+    (its namespace, pull secret, cache and image from the config, else
+    the caller's and the defaults) and as the fallback when docker is
+    unreachable and a backend exists; docker when it answers; no backend
+    and no docker raises as in the reference."""
+    from devspace_tpu.config import latest as jlatest
+
     kaniko = latest.ImageConfig(image="gcr.io/p/app", build=latest.BuildConfig(
-        kaniko=latest.KanikoConfig(cache=True)))
+        kaniko=latest.KanikoConfig(cache=False, namespace="build", image="kaniko:v1")))
     plain = latest.ImageConfig(image="gcr.io/p/app")
+    jkaniko = jlatest.ImageConfig(image="gcr.io/p/app", build=jlatest.BuildConfig(
+        kaniko=jlatest.KanikoConfig(cache=False, namespace="build", image="kaniko:v1")))
     assert isinstance(images.create_builder(kaniko, FakeCluster("/nonexistent-fake")),
                       FakeBuilder)
-    with pytest.raises(BuildError, match="A21") as ei:
-        images.create_builder(kaniko, _Cluster())
-    assert "build.kaniko" in str(ei.value)
+
+    def fields(b):
+        return (type(b).__name__, b.namespace, b.pull_secret, b.cache, b.kaniko_image)
+
+    for available in (True, False):
+        monkeypatch.setattr(builders.DockerBuilder, "available", lambda self: available)
+        monkeypatch.setattr(jbuilders.DockerBuilder, "available", lambda self: available)
+        got = images.create_builder(kaniko, _Cluster(), namespace="dev", pull_secret="regcred")
+        want = jimages.create_builder(jkaniko, _Cluster(), namespace="dev",
+                                      pull_secret="regcred")
+        assert isinstance(got, builders.KanikoBuilder) and fields(got) == fields(want)
+        assert fields(got) == ("KanikoBuilder", "build", "regcred", False, "kaniko:v1")
     monkeypatch.setattr(builders.DockerBuilder, "available", lambda self: False)
-    with pytest.raises(BuildError, match="A21"):
-        images.create_builder(plain, _Cluster())
+    fallback = images.create_builder(plain, _Cluster(), namespace="dev")
+    assert fields(fallback) == ("KanikoBuilder", "dev", None, True, builders.KANIKO_IMAGE)
+    assert builders.KANIKO_IMAGE == jbuilders.KANIKO_IMAGE
     no_fallback = latest.ImageConfig(image="x", build=latest.BuildConfig(
         docker=latest.DockerConfig(disable_fallback=True)))
     with pytest.raises(RuntimeError, match="no build engine"):

@@ -280,9 +280,11 @@ def test_no_project_and_the_parser(cli_env, monkeypatch, capsys):
     assert "no .devspace/ project found" in capsys.readouterr().out
     parser = build_parser()
     commands = set(parser._subparsers._group_actions[0].choices)
-    assert commands == {"init", "deploy", "analyze", "purge", "reset", "status", "lint", "print"}
+    assert commands == {"init", "deploy", "dev", "enter", "logs", "analyze", "purge", "reset",
+                        "status", "lint", "print"}
+    assert parser.parse_args(["status", "sync"]).what == "sync"
     with pytest.raises(SystemExit):
-        parser.parse_args(["status", "sync"])  # waits for the sync engine
+        parser.parse_args(["status", "serving"])  # waits for the rest of the CLI
     with pytest.raises(SystemExit) as ei:
         main(["--version"])
     assert ei.value.code == 0

@@ -68,6 +68,11 @@ def test_every_module_imports_with_jax_blocked():
                  "cli.pipeline", "cli.main", "resilience.chaos", "utils.randutil",
                  "utils.fsutil", "utils.dockerfile", "utils.trace"):
         assert f"devspace_tpu_torch.{name}" in MODULES
+    # the dev loop: the sync engine and the dev-session services
+    for name in ("sync", "sync.file_info", "sync.index", "sync.artifacts", "sync.shell",
+                 "sync.watcher", "sync.pipeline", "sync.session", "services",
+                 "services.selectors", "services.watch", "services.sessions"):
+        assert f"devspace_tpu_torch.{name}" in MODULES
 
 
 def imported_names(path: Path) -> list[str]:

@@ -2,7 +2,7 @@
 the JAX package's: seeded bad catalogs (metric families, event entries,
 timeline lanes) give equal findings under both, and the port's own
 catalogs give none. ``load_metric_catalogs`` loads the port's catalogs,
-which have no ``sync`` or ``trace`` family set."""
+sync's among them, which have no ``trace`` family set."""
 
 import pytest
 
@@ -54,8 +54,8 @@ def test_seeded_events_and_lanes_equal_the_reference(field, value):
 
 def test_the_ports_catalogs_are_clean():
     catalogs = load_metric_catalogs()
-    assert set(catalogs) == {"engine", "serving", "resilience", "tracing", "events", "slo",
-                             "collector", "fleet", "router"}
+    assert set(catalogs) == {"engine", "serving", "sync", "resilience", "tracing", "events",
+                             "slo", "collector", "fleet", "router"}
     assert all(len(fams) > 0 for fams in catalogs.values())
     assert tlint() == []
     assert tlint({}) == []  # an explicitly empty set lints the live events and lanes only
