@@ -57,7 +57,17 @@ three paths:
   first) with the prefill-pool replica SIGKILLed at its first placement;
   every request ends terminal, none hung, each stream held to the one a
   replica serves alone for its prompt, a corrupted one only at a near
-  tie;
+  tie; between the fleet and chaos phases, the serving operator's CLI
+  (``operate`` phase):
+  ``python -m devspace_tpu_torch fleet serve`` starts two replicas of
+  that checkpoint behind its prefix gateway and collector, a greedy burst
+  through the gateway is held to the same prompts served directly by the
+  replica that served each, to the federated token count and to each
+  replica's kernel launches and flat graph captures, and ``fleet
+  status``, ``top`` (one server and ``--fleet``), ``profile serving``,
+  ``status serving``, ``debug bundle --fleet`` and ``collector serve``
+  run against it as processes before SIGINT stops it with no replica
+  left;
 - speculative serving: the target and draft LMs of
   scripts/train_draft_pair.py (target: vocab 32000, dim 1024, 8 layers,
   8 heads, ffn 2816; draft: dim 256, 2 layers, 4 heads, ffn 704; bf16)
@@ -203,6 +213,11 @@ from devspace_tpu_torch.deploy.chart import RELEASE_CONFIGMAP_PREFIX, ChartDeplo
 from devspace_tpu_torch.generator import generator as scaffold
 from devspace_tpu_torch.lint import rules_gpu
 from devspace_tpu_torch.lint.runtime import CompileWatch
+# the master port handed to a pod's torchrun is one the OS assigns: a fixed
+# one (torchrun's default 29500) is the same for every copy of this script
+# or its CPU rehearsals running on one host at once, and the second
+# torchrun to bind it fails (EADDRINUSE)
+from devspace_tpu_torch.serving.fleet import free_port
 from devspace_tpu_torch.models import mlp, moe, resnet, vit
 from devspace_tpu_torch.models import transformer as tfm
 from devspace_tpu_torch.ops import _build
@@ -338,9 +353,10 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def child_pids() -> list:
-    """This process's live children (zombies left out), from /proc."""
-    me, out = str(os.getpid()), []
+def child_processes(pid: int) -> dict:
+    """``{pid: command line}`` of the live children (zombies left out) of
+    process ``pid``, from the processes /proc lists."""
+    kids = {}
     for entry in os.listdir("/proc"):
         if not entry.isdigit():
             continue
@@ -348,13 +364,18 @@ def child_pids() -> list:
             with open(f"/proc/{entry}/stat") as f:
                 state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
             with open(f"/proc/{entry}/cmdline", "rb") as f:
-                cmd = f.read()
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
         except OSError:
             continue
-        # multiprocessing's resource tracker ends when this process does
-        if ppid == me and state != "Z" and b"resource_tracker" not in cmd:
-            out.append(int(entry))
-    return out
+        if ppid == str(pid) and state != "Z":
+            kids[int(entry)] = cmd
+    return kids
+
+
+def child_pids() -> list:
+    """This process's live children, from /proc."""
+    # multiprocessing's resource tracker ends when this process does
+    return [k for k, cmd in child_processes(os.getpid()).items() if "resource_tracker" not in cmd]
 
 
 def stop_children(grace_s: float = 10.0) -> list:
@@ -2072,7 +2093,7 @@ def phase_mnist_train(dev, card) -> dict:
 # -- the deploy path: a scaffolded torch project, preflighted, rendered, run --------
 EXAMPLE_CONFIG = Path(REPO_ROOT) / "examples" / "jax-mnist" / ".devspace" / "config.yaml"
 DEPLOY = {"gpu": {"workers": 1, "perWorker": 1}, "steps": MNIST["steps"],
-          "check_step": MNIST["check_step"], "below": MNIST["below"], "master_port": 29500,
+          "check_step": MNIST["check_step"], "below": MNIST["below"],
           "timeout_s": 300}
 DEPLOY_TRAIN_PY = """\
 \"\"\"The MNIST example's entry point in a scaffolded torch project: the
@@ -2118,20 +2139,6 @@ def deploy_project(root: str, args: list, gpu: dict) -> None:
     os.makedirs(os.path.join(root, ".devspace"))
     with open(os.path.join(root, ".devspace", "config.yaml"), "w") as fh:
         yaml.safe_dump(config, fh, sort_keys=False)
-
-
-def free_port(preferred: int) -> int:
-    """``preferred`` where it can be bound on this host, else a free port."""
-    import socket
-
-    for port in (preferred, 0):
-        with socket.socket() as sock:
-            try:
-                sock.bind(("127.0.0.1", port))
-            except OSError:
-                continue
-            return sock.getsockname()[1]
-    raise RuntimeError("no free port")
 
 
 def pod_command(sts: dict, node_rank: int, master_port: int, workdir: str,
@@ -2229,7 +2236,7 @@ def phase_deploy(dev, card) -> dict:
         deployer = ChartDeployer(None, deployment, project.namespace, base_dir=project.root)
         docs = deployer.render_manifests(gpu=project.config.gpu)
         (sts,) = [d for d in docs if d["kind"] == "StatefulSet"]
-        argv, env, subs = pod_command(sts, 0, free_port(DEPLOY["master_port"]), root)
+        argv, env, subs = pod_command(sts, 0, free_port(), root)
         if dev.type == "cpu":
             argv.append("--device=cpu")
             subs.append("--device=cpu appended (the CPU rehearsal)")
@@ -2263,18 +2270,22 @@ def phase_deploy(dev, card) -> dict:
 CLUSTER = {"cli_timeout_s": 180}
 
 
-def cli_env(cluster: str) -> dict:
-    """The environment of a CLI call against the fake cluster at ``cluster``."""
-    return {**os.environ, "DEVSPACE_FAKE_BACKEND": cluster, "DEVSPACE_NONINTERACTIVE": "1",
-            "PYTHONPATH": os.pathsep.join(filter(None, [REPO_ROOT,
-                                                        os.environ.get("PYTHONPATH")]))}
+def cli_env(cluster: Optional[str] = None) -> dict:
+    """The environment of a CLI call: this checkout on the path, and with
+    ``cluster`` the fake cluster there as the backend."""
+    env = {**os.environ, "DEVSPACE_NONINTERACTIVE": "1",
+           "PYTHONPATH": os.pathsep.join(filter(None, [REPO_ROOT,
+                                                       os.environ.get("PYTHONPATH")]))}
+    if cluster is not None:
+        env["DEVSPACE_FAKE_BACKEND"] = cluster
+    return env
 
 
-def run_cli(args: list, project: str, cluster: str) -> dict:
+def run_cli(args: list, project: str, cluster: Optional[str] = None) -> dict:
     """One call of the port's CLI as a user makes it: ``python -m
-    devspace_tpu_torch <args>`` in the project's dir, against the fake
-    cluster at ``cluster``, with no terminal; its exit code, seconds and
-    output."""
+    devspace_tpu_torch <args>`` in the project's dir (against the fake
+    cluster at ``cluster``, where one is given), with no terminal; its
+    exit code, seconds and output."""
     env = cli_env(cluster)
     t = time.monotonic()
     proc = subprocess.run([sys.executable, "-m", "devspace_tpu_torch", *args], cwd=project,
@@ -2371,7 +2382,7 @@ def phase_cluster(dev, card) -> dict:
         (c,) = sts["spec"]["template"]["spec"]["containers"]
         workdir = fc.translate_path(worker, c["workingDir"])
         shutil.copytree(project, workdir, ignore=shutil.ignore_patterns(".devspace"))
-        argv, env, subs = pod_command(sts, 0, free_port(DEPLOY["master_port"]), workdir,
+        argv, env, subs = pod_command(sts, 0, free_port(), workdir,
                                       pod_env=pod_env)
         subs.append(f"image: the project copied to {workdir} (the fake builder builds none)")
         if dev.type == "cpu":
@@ -2425,32 +2436,35 @@ WORLD_ENV = ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT", "JAX_COORDINATO
              "JAX_NUM_PROCESSES", "TPU_WORKER_ID")
 
 
-class DevChild:
-    """``python -m devspace_tpu_torch dev --no-portforwarding`` in the
-    project's dir against the fake cluster, with no terminal (so it runs
-    the log mux); its output read into ``lines`` as it comes."""
+class CliChild:
+    """``python -m devspace_tpu_torch <args>`` as a child in ``cwd`` with
+    ``env``, with no terminal; its output read into ``lines`` as it comes,
+    each line's arrival in seconds from the start in ``times``."""
 
-    def __init__(self, project: str, cluster: str):
+    def __init__(self, args: list, cwd: str, env: dict):
+        self.what = " ".join(args[:2])
         self.t0 = time.monotonic()
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "devspace_tpu_torch", "dev", "--no-portforwarding"],
-            cwd=project, env=cli_env(cluster), stdin=subprocess.DEVNULL,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            [sys.executable, "-m", "devspace_tpu_torch", *args], cwd=cwd, env=env,
+            stdin=subprocess.DEVNULL, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
         self.lines: list = []
+        self.times: list = []
         self.reader = threading.Thread(target=self._read, daemon=True)
         self.reader.start()
 
     def _read(self) -> None:
         for line in self.proc.stdout:
+            self.times.append(time.monotonic() - self.t0)
             self.lines.append(line.rstrip("\n"))
 
     def tail(self) -> str:
         return "\n".join(self.lines[-40:])
 
     def alive(self) -> None:
-        """Fails the phase if the dev child has exited."""
+        """Fails the phase if the child has exited."""
         rc = self.proc.poll()
-        assert rc is None, f"the dev child exited with {rc}:\n{self.tail()}"
+        assert rc is None, f"the {self.what} child exited with {rc}:\n{self.tail()}"
 
     def wait_line(self, text: str, timeout_s: float) -> float:
         """Seconds from the child's start until a line holds ``text``."""
@@ -2472,7 +2486,8 @@ class DevChild:
         except subprocess.TimeoutExpired:
             self.proc.kill()
             self.proc.wait()
-            raise AssertionError(f"dev did not stop in {timeout_s} s:\n{self.tail()}") from None
+            raise AssertionError(f"{self.what} did not stop in {timeout_s} s:\n"
+                                 f"{self.tail()}") from None
         self.reader.join(5)
         return rc, time.monotonic() - t
 
@@ -2480,6 +2495,14 @@ class DevChild:
         if self.proc.poll() is None:
             self.proc.kill()
             self.proc.wait()
+
+
+class DevChild(CliChild):
+    """``dev --no-portforwarding`` in the project's dir against the fake
+    cluster (with no terminal it runs the log mux)."""
+
+    def __init__(self, project: str, cluster: str):
+        super().__init__(["dev", "--no-portforwarding"], project, cli_env(cluster))
 
 
 def processes_in(root: str) -> list:
@@ -3187,9 +3210,10 @@ def phase_spec_engine(t_params, d_params, pair_dir, dev, card) -> dict:
 # queue inside a replica and the load term never outweighs a context's
 # prefix; the gateway routes by prefix (its shadow index at the engine's
 # 64-token blocks); admission control is off, so no request of the burst
-# waits in the gateway's queue or is refused
+# waits in the gateway's queue or is refused; four requests a context, a
+# depth cut to keep the whole run inside its time limit
 FLEET = {"replicas": 2, "max_slots": 8, "contexts": 3, "context_tokens": 512,
-         "question_tokens": [8, 32], "requests": 24, "new_tokens": 32, "in_flight": 8,
+         "question_tokens": [8, 32], "requests": 12, "new_tokens": 32, "in_flight": 8,
          "ready_timeout_s": 600.0, "block_size": 64}
 # the fleet's TTFT objective: the server's default (1 s at p99) is for a
 # replica alone on its card, and two 7B replicas sharing one miss it on
@@ -3215,23 +3239,26 @@ def replica_spec(ckpt_dir: str, model: str, **env):
         ready_timeout_s=FLEET["ready_timeout_s"], probe_timeout_s=5.0, stop_grace_s=20.0)
 
 
-def fleet_traffic(vocab: int) -> list:
-    """Three 512-token contexts, each followed by a question of 8-32
-    tokens: the 24 prompts in turn over the contexts (seed 5)."""
+def fleet_traffic(vocab: int, shape: Optional[dict] = None) -> list:
+    """``shape["contexts"]`` contexts of ``shape["context_tokens"]`` tokens
+    (``FLEET``'s three of 512 by default), each followed by a question of
+    8-32 tokens: the ``shape["requests"]`` prompts in turn over the
+    contexts (seed 5)."""
+    shape = FLEET if shape is None else shape
     rng = np.random.default_rng(5)
-    contexts = [rng.integers(1, vocab, FLEET["context_tokens"]).tolist()
-                for _ in range(FLEET["contexts"])]
-    lo, hi = FLEET["question_tokens"]
-    return [(i % FLEET["contexts"],
-             contexts[i % FLEET["contexts"]] + rng.integers(1, vocab, rng.integers(lo, hi + 1))
-             .tolist()) for i in range(FLEET["requests"])]
+    n = shape["contexts"]
+    contexts = [rng.integers(1, vocab, shape["context_tokens"]).tolist() for _ in range(n)]
+    lo, hi = shape["question_tokens"]
+    return [(i % n, contexts[i % n] + rng.integers(1, vocab, rng.integers(lo, hi + 1)).tolist())
+            for i in range(shape["requests"])]
 
 
-def stream_generate(url: str, prompt: list, n: int) -> list:
+def stream_generate(url: str, prompt: list, n: int, headers: Optional[dict] = None) -> list:
     """The tokens of one streamed greedy ``/generate``; the stream must
     end with ``{"done": true}``."""
     body = json.dumps({"prompt_ids": prompt, "max_new_tokens": n, "stream": True}).encode()
-    with urllib.request.urlopen(urllib.request.Request(url + "/generate", data=body),
+    with urllib.request.urlopen(urllib.request.Request(url + "/generate", data=body,
+                                                       headers=headers or {}),
                                 timeout=600) as resp:
         lines = [json.loads(ln) for ln in resp.read().splitlines() if ln.strip()]
     assert lines and lines[-1] == {"done": True}, lines[-3:]
@@ -3293,7 +3320,7 @@ def phase_fleet(ckpt_dir: str, card: str, tie_bound: float, dev, model: str = "l
     """Two Llama-2-7B torch replicas (``ReplicaFleet``, each ``python -m
     devspace_tpu_torch.serve`` with ``CHECKPOINT`` and ``PREWARM=1``) on
     the one card behind the port's ``RoutingGateway`` (policy prefix) and
-    ``TelemetryCollector``. A greedy burst of 24 requests over three
+    ``TelemetryCollector``. A greedy burst of 12 requests over three
     512-token contexts, 8 in flight, after each context's first request:
     every stream equals the prompt served directly by one replica up to
     a near tie; each context's later requests land on its first replica,
@@ -3523,6 +3550,307 @@ def phase_fleet(ckpt_dir: str, card: str, tie_bound: float, dev, model: str = "l
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     line.update({"near_ties": ties, "near_tie_bound": tie_bound})
+    return line
+
+
+# -- the serving operator's CLI against replicas its own fleet serve started ------
+# ``fleet serve`` starts two Llama-2-7B replicas of the int8_weights
+# phase's checkpoint with the fleet phase's server settings (8 slots, every
+# program built before the port opens, the fleet phase's TTFT objective)
+# behind its prefix gateway; a burst over two 512-token contexts with four
+# questions each (the fleet phase's traffic cut to two contexts), 4 in
+# flight; then each operator command runs against the fleet as a process
+# with no terminal. A replica loads the checkpoint and prewarms for about
+# 28 s on the card (the fleet phase's pair starts in 55.6 s), past the
+# reference's fixed 15 s ready timeout: ``--ready-timeout`` gives 120
+OPERATE = {"replicas": 2, "max_slots": 8, "contexts": 2, "context_tokens": 512,
+           "question_tokens": [8, 32], "requests": 8, "new_tokens": 32, "in_flight": 4,
+           "ready_timeout_s": 120.0, "up_timeout_s": 600.0, "interval_s": 1.0,
+           "profile_s": 2.0, "profile_prompt": 32,
+           "profile_new_tokens": 64, "stop_timeout_s": 120.0}
+# what a replica module counts of what it served, which the collector's
+# federated sum is held to: the server counts tokens, the stub (the
+# phase's CPU rehearsal) counts requests
+FEDERATED = {"devspace_tpu_torch.serve": "engine_tokens_generated_total",
+             "devspace_tpu_torch.serving.stub": "engine_requests_completed_total"}
+
+
+def pid_alive(pid: int) -> bool:
+    """Whether ``pid`` runs (a zombie has ended)."""
+    try:
+        with open(f"/proc/{pid}/stat") as fh:
+            return fh.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def port_free(port: int) -> bool:
+    import socket
+
+    with socket.socket() as sock:
+        return sock.connect_ex(("127.0.0.1", port)) != 0
+
+
+def json_or_none(url: str) -> Optional[dict]:
+    """``url``'s JSON, or None while nothing answers there."""
+    try:
+        return get_json(url, timeout=5)[1]
+    except (OSError, ValueError):
+        return None
+
+
+def phase_operate(ckpt_dir: str, card: str, tie_bound: float, dev, model: str = "llama2-7b",
+                  cfg=tfm.LLAMA2_7B, module: str = "devspace_tpu_torch.serve",
+                  replica_target: Optional[str] = None) -> dict:
+    """The serving operator's CLI as an operator drives it. ``python -m
+    devspace_tpu_torch fleet serve`` runs as a child: ``OPERATE["replicas"]``
+    replicas of ``module`` (``python -m devspace_tpu_torch.serve`` over the
+    checkpoint) under its supervisor, its collector, and its prefix
+    gateway; the phase waits for the collector to show every replica up.
+    The burst goes through the gateway, each request with its own
+    ``traceparent``; each replica's ``/debug/requests`` names the requests
+    it served by their trace ids, and each stream must equal the same
+    prompt sent straight to that replica (a replica that keeps no request
+    traces, as the stub, to every replica), or part from it at a near tie.
+    The collector's federated count equals what the clients received;
+    each replica that served launched the paged-decode kernel and captured
+    no graph after prewarm (from its ``/healthz``, on the card). Then, each
+    a process: ``fleet status``, ``top`` on ``replica_target`` (a replica
+    of the fleet unless given) and ``top --fleet``, ``profile serving``
+    while requests decode one at a time (valid Chrome-trace JSON with
+    engine events), ``status serving`` (its tokens those of the replica's
+    ``/healthz``), ``debug bundle --fleet --seconds 0`` (a directory per
+    replica, its ``metrics.txt`` with the engine's counters) and
+    ``collector serve`` over the replicas as a second child (both up on
+    its ``/debug/fleet``, then SIGINT). Last, SIGINT stops ``fleet serve``:
+    exit code 0, no restart of a replica, no replica process left and
+    every port free. Rehearsed on the CPU with the stub as the module and
+    a TINY CPU server as ``replica_target``."""
+    import signal
+    import tarfile
+
+    t_phase = time.monotonic()
+    n, n_new = OPERATE["replicas"], OPERATE["new_tokens"]
+    traffic = fleet_traffic(cfg.vocab_size, OPERATE)
+    coll_port, gw_port = free_port(), free_port()
+    coll_url, gw_url = f"http://127.0.0.1:{coll_port}", f"http://127.0.0.1:{gw_port}"
+    env = {"MODEL": model, "CHECKPOINT": ckpt_dir, "PREWARM": "1",
+           "MAX_SLOTS": str(OPERATE["max_slots"]), **FLEET_SLO_ENV}
+    args = ["fleet", "serve", "--module", module, "--replicas", str(n),
+            *[f for k, v in env.items() for f in ("--env", f"{k}={v}")],
+            "--ready-timeout", str(OPERATE["ready_timeout_s"]), "--route", "prefix",
+            "--port", str(coll_port), "--gateway-port", str(gw_port),
+            "--interval", str(OPERATE["interval_s"])]
+    line = {"phase": "operate", "model": model, "module": module, "card": card, **OPERATE,
+            "fleet_serve": args}
+    work = tempfile.mkdtemp(prefix="operate-")
+    calls = []
+
+    def cli(*argv):
+        call = run_cli(list(argv), work)
+        calls.append({k: call[k] for k in ("args", "rc", "s")})
+        assert call["rc"] == 0, call
+        return call["out"]
+
+    fleet = collector = None
+    try:
+        fleet = CliChild(args, work, cli_env())
+        doc = None
+        while not (doc and doc["fleet"]["up"] == doc["fleet"]["targets"] == n):
+            fleet.alive()
+            assert time.monotonic() - fleet.t0 < OPERATE["up_timeout_s"], fleet.tail()
+            time.sleep(0.2)
+            doc = json_or_none(coll_url + "/debug/fleet")
+        line["up_s"] = time.monotonic() - fleet.t0
+        replicas = {t["target"]: t["url"] for t in doc["targets"]}
+        names = sorted(replicas)
+        target = replica_target or replicas[names[0]]
+        health0 = {r: get_json(replicas[r] + "/healthz")[1] for r in names}
+        # what one scrape round of the collector reads from each replica (the
+        # stub answers the spans with a 404)
+        scrape_ms = {}
+        for r in names:
+            for path in ("/metrics", "/debug/events?limit=200", "/healthz",
+                         "/debug/spans?limit=512"):
+                t = time.monotonic()
+                if path == "/metrics":
+                    scrape(replicas[r])
+                else:
+                    get_json(replicas[r] + path)
+                scrape_ms[f"{r}{path}"] = (time.monotonic() - t) * 1e3
+
+        def through_gateway(i):
+            parent = f"00-{i + 1:032x}-{i + 1:016x}-01"
+            return stream_generate(gw_url, traffic[i][1], n_new, {"traceparent": parent})
+
+        t0 = time.monotonic()
+        got = run_concurrent(through_gateway, list(range(OPERATE["requests"])),
+                             OPERATE["in_flight"])
+        line["burst_s"] = time.monotonic() - t0
+        received = sum(map(len, got))
+        assert received == OPERATE["requests"] * n_new, [len(g) for g in got]
+
+        # which replica served each request, by its trace id
+        served_by = {}
+        for r in names:
+            code, rows = get_json(replicas[r] + "/debug/requests?limit=4096")
+            for row in rows.get("requests", []) if code == 200 else []:
+                i = int(row.get("trace_id") or "0", 16) - 1
+                if 0 <= i < OPERATE["requests"]:
+                    served_by[i] = r
+        if served_by:
+            assert sorted(served_by) == list(range(OPERATE["requests"])), served_by
+
+        # federation: the collector's sum over the replicas, once it has scraped them
+        counter = FEDERATED[module]
+        want = received if counter == "engine_tokens_generated_total" else OPERATE["requests"]
+        deadline = time.monotonic() + 10 * OPERATE["interval_s"] + 10
+        while (fed := sample_value(scrape(coll_url), counter)) != want:
+            assert time.monotonic() < deadline, (counter, fed, want)
+            time.sleep(0.2)
+        health = {r: get_json(replicas[r] + "/healthz")[1] for r in names}
+        served = sorted(set(served_by.values())) if served_by else names
+        launches = {}
+        if dev.type == "cuda":
+            # a replay counts its launches on the card only; no graph after prewarm
+            for r in names:
+                launches[r] = (health[r]["paged_decode_launches"]
+                               - health0[r]["paged_decode_launches"])
+                assert health[r]["graph_captures"] == health0[r]["graph_captures"] > 0, \
+                    (r, health0[r], health[r])
+                assert health[r]["requests_failed"] == 0, (r, health[r])
+            for r in served:
+                assert launches[r] > 0, (r, health[r])
+
+        # each stream against the prompt sent straight to the replica that served it
+        def direct(i):
+            return [(r, stream_generate(replicas[r], traffic[i][1], n_new))
+                    for r in ([served_by[i]] if served_by else names)]
+
+        directs = run_concurrent(direct, list(range(OPERATE["requests"])),
+                                 OPERATE["in_flight"])
+        mismatched = [(i, r, tokens) for i, d in enumerate(directs) for r, tokens in d
+                      if tokens != got[i]]
+
+        # the operator's commands; the second collector starts first, so
+        # that its first scrape overlaps the other commands
+        coll2 = free_port()
+        collector = CliChild(["collector", "serve", *[f for r in names for f in
+                                                      ("--target", replicas[r])],
+                              "--port", str(coll2), "--interval", str(OPERATE["interval_s"])],
+                             work, cli_env())
+        out = cli("fleet", "status", "--url", coll_url).splitlines()
+        assert f"fleet: {n}/{n} replica(s) up" in out, out
+        assert any(ln.startswith("hpa signal: ") for ln in out), out
+        out = cli("top", "--url", target, "--iterations", "1")
+        assert f"devspace-tpu top — {target}" in out, out
+        out = cli("top", "--fleet", "--url", coll_url, "--iterations", "1")
+        assert f"  FLEET  {n}/{n} up" in out and all(r in out for r in names), out
+
+        # a capture while requests decode on the target, one at a time
+        trace_path = os.path.join(work, "timeline.json")
+        prompt = traffic[0][1][:OPERATE["profile_prompt"]]
+        profile = CliChild(["profile", "serving", "--url", target, "--seconds",
+                            str(OPERATE["profile_s"]), "--out", trace_path], work,
+                           cli_env())
+        decoding = 0
+        while profile.proc.poll() is None:
+            decoding += len(stream_generate(target, prompt, OPERATE["profile_new_tokens"]))
+        profile.reader.join(5)
+        calls.append({"args": ["profile", "serving"], "rc": profile.proc.returncode,
+                      "s": time.monotonic() - profile.t0})
+        assert profile.proc.returncode == 0, profile.tail()
+        with open(trace_path) as fh:
+            timeline = json.load(fh)
+        spans = [e for e in timeline["traceEvents"] if e.get("ph") == "X"]
+        assert spans, timeline.get("metadata")
+        status = cli("status", "serving", "--url", target)
+        (tokens,) = [int(ln.split()[1]) for ln in status.splitlines()
+                     if ln.split()[:1] == ["tokens"]]
+        assert tokens == get_json(target + "/healthz")[1]["tokens_generated"], status
+
+        bundle_path = os.path.join(work, "bundle.tar.gz")
+        cli("debug", "bundle", "--fleet", "--url", coll_url, "--seconds", "0", "--out",
+            bundle_path)
+        with tarfile.open(bundle_path, "r:gz") as tar:
+            members = tar.getnames()
+            manifest = json.load(tar.extractfile("bundle/manifest.json"))
+            metrics = {r: tar.extractfile(f"bundle/{r}/metrics.txt").read().decode()
+                       for r in names}
+        assert sorted(manifest["targets"]) == names, manifest
+        for r in names:
+            assert f"{counter} " in metrics[r], (r, metrics[r][:2000])
+
+        view = None
+        while not (view and view["fleet"]["up"] == n):
+            collector.alive()
+            assert time.monotonic() - collector.t0 < 60, collector.tail()
+            time.sleep(0.1)
+            view = json_or_none(f"http://127.0.0.1:{coll2}/debug/fleet")
+        assert sorted(t["url"] for t in view["targets"]) == sorted(replicas.values())
+        # from its start to its first scrape done and its port open
+        collector.wait_line("collector serving on", 10)
+        coll_up_s = next(t for t, ln in zip(collector.times, collector.lines)
+                         if "collector serving on" in ln)
+        coll_rc, coll_stop_s = collector.interrupt(30)
+        calls.append({"args": ["collector", "serve"], "rc": coll_rc,
+                      "s": time.monotonic() - collector.t0})
+        assert coll_rc == 0, collector.tail()
+
+        fleet.alive()
+        kids = child_processes(fleet.proc.pid)
+        replica_pids = [k for k, cmd in kids.items() if f" -m {module} " in cmd]
+        assert len(replica_pids) == n, kids
+        stop_rc, stop_s = fleet.interrupt(OPERATE["stop_timeout_s"])
+        assert stop_rc == 0, fleet.tail()
+        left = [k for k in replica_pids if pid_alive(k)]
+        ports = [int(u.rsplit(":", 1)[1]) for u in replicas.values()] + [coll_port, gw_port,
+                                                                          coll2]
+        busy = [p for p in ports if not port_free(p)]
+        assert not left and not busy, (left, busy)
+        stopped = [ln for ln in fleet.lines if "fleet stopped" in ln]
+        assert stopped and "restart" not in stopped[-1], fleet.tail()
+        assert not [ln for ln in fleet.lines if "[supervisor]" in ln], fleet.tail()
+    finally:
+        if collector is not None:
+            collector.kill()
+        if fleet is not None and fleet.proc.poll() is None:
+            # a failed phase: the fleet stops its replicas on SIGINT; what
+            # outlives that is killed
+            replicas_of_fleet = child_processes(fleet.proc.pid)
+            with contextlib.suppress(AssertionError):
+                fleet.interrupt(OPERATE["stop_timeout_s"])
+            fleet.kill()
+            for pid in replicas_of_fleet:
+                with contextlib.suppress(ProcessLookupError):
+                    os.kill(pid, signal.SIGKILL)
+        shutil.rmtree(work, ignore_errors=True)
+
+    # where a gateway stream and the direct one part, both tokens must be
+    # near ties of an eager forward over the restored params
+    ties = []
+    if mismatched:
+        params, _ = load_serving_params(ckpt_dir, cfg, device=dev)
+        ties = [near_tie(params, traffic[i][1], tokens, got[i], tie_bound, cfg)
+                for i, _, tokens in mismatched]
+        del params
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    line.update({
+        "tokens_received": received, "federated": {counter: fed},
+        "served_by": {str(i): r for i, r in sorted(served_by.items())},
+        "paged_decode_launches": sum(launches.values()), "launches_by_replica": launches,
+        "graph_captures": {r: health[r].get("graph_captures") for r in names},
+        "streams_equal_direct": not mismatched, "near_ties": ties, "near_tie_bound": tie_bound,
+        "cli": calls, "profile": {"spans": len(spans), "tokens_decoded": decoding,
+                                  "events": len(timeline["traceEvents"])},
+        "status_serving_tokens": tokens, "bundle_members": len(members),
+        "collector_serve_up_s": coll_up_s, "collector_serve_stop_s": coll_stop_s,
+        "scrape_ms": scrape_ms,
+        "stop_rc": stop_rc, "stop_s": stop_s,
+        "fleet_children": {str(k): cmd[:160] for k, cmd in kids.items()},
+        "replicas_left": left, "fleet_stopped": stopped[-1], "seconds": time.monotonic() - t_phase,
+    })
     return line
 
 
@@ -5079,6 +5407,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         fleet_line = phase_fleet(ckpt_dir, card, engine_line["near_tie_bound"], dev)
         emit(fleet_line)
+        operate_line = phase_operate(ckpt_dir, card, engine_line["near_tie_bound"], dev)
+        emit(operate_line)
         chaos_line = phase_chaos(ckpt_dir, card, engine_line["near_tie_bound"], dev)
         emit(chaos_line)
         gc.collect()
@@ -5144,6 +5474,10 @@ def main() -> int:
             # replica's /healthz counts its replays
             by_path["fleet"] = fleet_line["paged_decode_launches"]
             err_by_path["fleet"] = err_by_path["serving"]
+            # the replicas the CLI's fleet serve started, over its gateway's
+            # burst, from each replica's /healthz
+            by_path["operate"] = operate_line["paged_decode_launches"]
+            err_by_path["operate"] = err_by_path["serving"]
             # the chaos phase's replicas, from each process's /healthz (a
             # killed one's up to its last read before the kill)
             by_path["chaos"] = chaos_line["paged_decode_launches"]

@@ -1,18 +1,35 @@
 """The port's CLI: ``python -m devspace_tpu_torch <command>``.
 
 The port's copy of ``devspace_tpu/cli/main.py`` (reference: cmd/, the
-cobra root and subcommands, SURVEY §2.1), with the commands that apply a
-project to a cluster and develop in it: ``init`` (a torch project: the
-CUDA Dockerfile, chart-gpu and a ``gpu`` block), ``deploy`` (lint
-preflight, build, apply), ``dev`` (the live session: sync across the
-job's workers, port forwarding, the terminal or the log mux,
-auto-reload), ``enter`` (``--worker N``, ``--all``), ``logs``, ``purge``,
-``reset``, ``analyze``, ``status deployments``/``sync``/``trace``,
-``print`` (``--manifests``) and ``lint``, with the reference's flags.
-``status serving``, ``top``, ``debug``, ``collector``, ``fleet``,
-``add``/``remove``/``list``/``use``, the cloud commands, ``update``,
-``upgrade``, ``install`` and the start-up version notice are not ported
-yet.
+cobra root and subcommands, SURVEY §2.1), with the reference's flags,
+output and exit codes:
+
+- the commands that apply a project to a cluster and develop in it:
+  ``init`` (a torch project: the CUDA Dockerfile, chart-gpu and a ``gpu``
+  block), ``deploy`` (lint preflight, build, apply), ``dev`` (the live
+  session: sync across the job's workers, port forwarding, the terminal
+  or the log mux, auto-reload), ``enter`` (``--worker N``, ``--all``),
+  ``logs``, ``purge``, ``reset``, ``analyze``,
+  ``status deployments``/``sync``/``trace``, ``print`` (``--manifests``)
+  and ``lint``;
+- the serving operator's commands, over running servers
+  (``python -m devspace_tpu_torch.serve``) and their collector:
+  ``status serving``, ``profile serving``, ``top`` (``--fleet``),
+  ``debug bundle`` (``--fleet``, ``--target``), ``collector serve``
+  (``--target`` or ``--workers``) and ``fleet serve|status``, whose
+  replicas default to the stub (``devspace_tpu_torch.serving.stub``) and
+  which adds one flag, ``--ready-timeout`` (the reference's fixed 15 s,
+  which a 7B server's load and prewarm outlast);
+- the project-editing commands: ``add``/``remove``
+  ``sync|port|selector|deployment|image``, ``list
+  deployments|images|ports|sync|selectors|vars|configs``, ``use
+  config|context|namespace`` and ``update config``.
+
+Not ported yet: the cloud commands (``login``, ``create space``, ``use
+space|registry``, ``list spaces|providers``, ``remove
+space|provider|context``, ``add provider``), the package commands
+(``add|remove|list package(s)``, ``update packages``), ``search``,
+``upgrade``, ``install`` and the start-up version notice.
 """
 
 from __future__ import annotations
@@ -302,9 +319,113 @@ def cmd_analyze(args) -> int:
 
 
 # -- status ---------------------------------------------------------------
+def _status_serving(args) -> int:
+    """Render a running inference server's telemetry snapshot: engine
+    stats from /healthz plus the recent-request ring from /debug/requests
+    (``python -m devspace_tpu_torch.serve``)."""
+    import json as _json
+    import urllib.error
+    import urllib.request
+
+    log = logutil.get_logger()
+    url = args.url.rstrip("/")
+
+    def fetch(path):
+        with urllib.request.urlopen(url + path, timeout=5) as resp:
+            return _json.loads(resp.read())
+
+    try:
+        health = fetch("/healthz")
+    except (urllib.error.URLError, OSError, ValueError) as e:
+        log.error("no serving endpoint at %s: %s", url, e)
+        return 1
+    stat_keys = [
+        ("model", "model"),
+        ("active_slots", "active slots"),
+        ("queued", "queued"),
+        ("requests_completed", "completed"),
+        ("requests_failed", "failed"),
+        ("requests_preempted", "preempted"),
+        ("tokens_generated", "tokens"),
+        ("tokens_per_sec", "tok/s (lifetime)"),
+        ("tokens_per_sec_10s", "tok/s (10s)"),
+        ("free_blocks", "free kv blocks"),
+        # the host KV tier (inference/kv_tier.py): "off" with the tier
+        # disabled, restore/spill traffic when chains cycle
+        ("kv_tier", "kv tier"),
+        ("kv_tier_resident_bytes", "kv tier resident bytes"),
+        ("kv_spill_blocks", "kv blocks spilled"),
+        ("kv_restore_hits", "kv restore hits"),
+        ("kv_restore_fallbacks", "kv restore fallbacks"),
+        ("recompute_tokens_saved", "recompute tokens saved"),
+        ("uptime_s", "uptime (s)"),
+    ]
+    log.print_table(
+        ["STAT", "VALUE"],
+        [[label, str(health.get(k, "-"))] for k, label in stat_keys],
+    )
+    # SLO burn-rate statuses (obs/slo.py); absent on a server without them
+    slo = health.get("slo")
+    if slo is not None:
+        if slo.get("slos"):
+            log.print_table(
+                ["SLO", "STATUS", "BURN(SHORT)", "BURN(LONG)"],
+                [
+                    [
+                        s.get("name", "?"),
+                        s.get("status", "?"),
+                        f"{s.get('burn_short', 0):.2f}",
+                        f"{s.get('burn_long', 0):.2f}",
+                    ]
+                    for s in slo["slos"]
+                ],
+            )
+            if not slo.get("ready", True):
+                log.warn("NOT READY: an SLO is in breach (/readyz -> 503)")
+        else:
+            log.info("slo: no evaluation yet (server just started)")
+    try:
+        debug = fetch("/debug/requests")
+    except (urllib.error.URLError, OSError, ValueError):
+        debug = None
+    if debug is None:
+        log.warn("no /debug/requests endpoint at %s (older server?)", url)
+        return 0
+    if not debug.get("metrics_enabled", False):
+        log.warn("metrics disabled on the server (DEVSPACE_ENGINE_METRICS=off)")
+        return 0
+
+    def ms(v):
+        return f"{v * 1000:.1f}ms" if v is not None else "-"
+
+    rows = [
+        [
+            str(r.get("id", "?")),
+            r.get("outcome") or "in-flight",
+            str(r.get("prompt_len", "-")),
+            str(r.get("tokens_generated", 0)),
+            ms(r.get("queue_wait_s")),
+            ms(r.get("ttft_s")),
+            ms(r.get("tpot_s")),
+            ms(r.get("e2e_s")),
+            str(r.get("preemptions", 0)),
+        ]
+        for r in (debug.get("requests") or [])[-15:]
+    ]
+    log.print_table(
+        ["REQ", "OUTCOME", "PROMPT", "TOKENS", "QUEUE", "TTFT", "TPOT", "E2E", "PREEMPTS"],
+        rows,
+    )
+    return 0
+
+
 def cmd_status(args) -> int:
-    """Reference: cmd/status/{deployments,sync}.go, and the span trace of
-    the pipeline's phases. ``status serving`` is not ported yet."""
+    """Reference: cmd/status/{deployments,sync}.go, the span trace of
+    the pipeline's phases, and a running server's telemetry."""
+    if args.what == "serving":
+        # scrapes a RUNNING server over HTTP: needs --url, not a project
+        # config, so this branch runs before Context() (which needs one)
+        return _status_serving(args)
     ctx = Context(args)
     log = ctx.log
     if args.what == "deployments":
@@ -468,6 +589,944 @@ def cmd_status(args) -> int:
         )
         if errors:
             log.error("last error: %s", errors[-1].get("msg", ""))
+    return 0
+
+
+# -- profile ----------------------------------------------------------------
+def cmd_profile(args) -> int:
+    """``profile serving``: ask a running inference server to record its
+    engine timeline for N seconds (/debug/trace?seconds=N on
+    ``python -m devspace_tpu_torch.serve``) and save the Chrome-trace JSON —
+    load it in chrome://tracing or Perfetto to see device decode chunks
+    overlapping host scheduling."""
+    import json as _json
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+
+    log = logutil.get_logger()
+    url = args.url.rstrip("/")
+    seconds = args.seconds
+    if not 0 < seconds <= 60:
+        log.error("--seconds must be in (0, 60], got %s", seconds)
+        return 1
+    qs = urllib.parse.urlencode({"seconds": seconds})
+    log.info("recording %ss of engine timeline from %s ...", seconds, url)
+    try:
+        # the server blocks for the full capture window before replying,
+        # so the client timeout must comfortably exceed --seconds
+        with urllib.request.urlopen(
+            f"{url}/debug/trace?{qs}", timeout=seconds + 30
+        ) as resp:
+            trace = _json.loads(resp.read())
+    except (urllib.error.URLError, OSError, ValueError) as e:
+        log.error("no serving endpoint at %s: %s", url, e)
+        return 1
+    if "error" in trace:
+        log.error("server rejected the capture: %s", trace["error"])
+        return 1
+    events = trace.get("traceEvents") or []
+    lanes = sorted(
+        {
+            e["args"]["name"]
+            for e in events
+            if e.get("ph") == "M" and e.get("name") == "thread_name"
+        }
+    )
+    with open(args.out, "w", encoding="utf-8") as fh:
+        _json.dump(trace, fh)
+    meta = trace.get("metadata") or {}
+    log.done(
+        "wrote %s (%d events, %d dropped) — open in chrome://tracing",
+        args.out,
+        meta.get("events", sum(1 for e in events if e.get("ph") == "X")),
+        meta.get("dropped", 0),
+    )
+    if lanes:
+        log.info("lanes: %s", ", ".join(lanes))
+    return 0
+
+
+def _parse_prom_text(text: str) -> dict:
+    """Prometheus text exposition -> ``{name: [(labels, value)]}`` —
+    just enough parsing for ``top`` (scalar samples; histogram series
+    appear under their ``_bucket``/``_sum``/``_count`` names)."""
+    import re as _re
+
+    label_re = _re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+    out: dict = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        head, _, sval = line.rpartition(" ")
+        if not head:
+            continue
+        try:
+            value = float(sval)
+        except ValueError:
+            continue
+        name, _, rest = head.partition("{")
+        labels = dict(label_re.findall(rest)) if rest else {}
+        out.setdefault(name, []).append((labels, value))
+    return out
+
+
+def _prom_value(fams: dict, name: str, default=None):
+    """Sum of a family's samples (scalar for unlabeled metrics)."""
+    samples = fams.get(name)
+    if not samples:
+        return default
+    return sum(v for _labels, v in samples)
+
+
+def _human_bytes(n) -> str:
+    try:
+        n = float(n)
+    except (TypeError, ValueError):
+        return "-"
+    for unit in ("B", "KiB", "MiB", "GiB"):
+        if n < 1024 or unit == "GiB":
+            return f"{n:.1f}{unit}" if unit != "B" else f"{int(n)}B"
+        n /= 1024
+    return f"{n:.1f}GiB"
+
+
+def _fleet_frame_lines(fleet: dict, events, args, url: str, tick: int) -> list:
+    """One ``top --fleet`` frame: fleet summary, per-target matrix,
+    fleet SLO table and merged recent events (rows carry their origin
+    target)."""
+    import time as _time
+
+    lines = []
+    stamp = _time.strftime("%H:%M:%S")
+    lines.append(f"devspace-tpu top — fleet @ {url}   {stamp}   frame {tick}")
+    lines.append("")
+    f = fleet.get("fleet") or {}
+
+    def num(v, fmt="{:.0f}"):
+        return fmt.format(v) if isinstance(v, (int, float)) else "-"
+
+    lines.append(
+        f"  FLEET  {f.get('up', 0)}/{f.get('targets', 0)} up"
+        f"  ({f.get('quarantined', 0)} quarantined)"
+        f"    tok/s {num(f.get('tok_s'), '{:.1f}')}"
+        f"   slots {num(f.get('active_slots'))}/{num(f.get('max_slots'))}"
+        f"   queued {num(f.get('queued'))}"
+    )
+    lines.append("")
+    rows = [["TARGET", "UP", "STALE", "TOK/S", "SLOTS", "QUEUED", "OCC",
+             "SLO"]]
+    for t in fleet.get("targets") or []:
+        slots = (
+            f"{num(t.get('active_slots'))}/{num(t.get('max_slots'))}"
+            if t.get("max_slots") is not None else "-"
+        )
+        stale = t.get("staleness_s")
+        rows.append([
+            str(t.get("target", "?")),
+            ("QUAR" if t.get("quarantined")
+             else "up" if t.get("up") else "DOWN"),
+            f"{stale:.1f}s" if isinstance(stale, (int, float)) else "-",
+            num(t.get("tok_s"), "{:.1f}"),
+            slots,
+            num(t.get("queued")),
+            num(t.get("occupancy"), "{:.2f}"),
+            str(t.get("slo") or "-"),
+        ])
+    widths = [max(len(r[i]) for r in rows) for i in range(len(rows[0]))]
+    for r in rows:
+        lines.append(
+            "  " + "  ".join(c.ljust(w) for c, w in zip(r, widths)).rstrip()
+        )
+    lines.append("")
+
+    slo = fleet.get("slo") or {}
+    if slo.get("slos"):
+        lines.append("  FLEET SLO         STATUS  BURN(S)  BURN(L)")
+        for s in slo["slos"]:
+            lines.append(
+                f"  {s.get('name', '?'):<17} "
+                f"{s.get('status', '?'):<7} "
+                f"{s.get('burn_short', 0):>7.2f} "
+                f"{s.get('burn_long', 0):>8.2f}"
+            )
+        if not slo.get("ready", True):
+            lines.append("  !! FLEET NOT READY")
+        lines.append("")
+    for note in fleet.get("notes") or []:
+        lines.append(f"  note: {note}")
+
+    if events is not None and events.get("events"):
+        lines.append("  RECENT EVENTS")
+        for e in events["events"][-args.events:]:
+            ts = _time.strftime(
+                "%H:%M:%S", _time.localtime(e.get("time", 0))
+            )
+            attrs = " ".join(
+                f"{k}={v2}"
+                for k, v2 in e.items()
+                if k not in (
+                    "time", "seq", "level", "subsystem", "event",
+                    "span_id", "target",
+                )
+            )
+            lines.append(
+                f"  {ts}  [{e.get('target', '?')}] "
+                f"{e.get('level', '?'):<5} "
+                f"{e.get('subsystem', '?')}.{e.get('event', '?')}  {attrs}"
+            )
+    return lines
+
+
+def cmd_top(args) -> int:
+    """``top``: live serving dashboard. Polls ``/metrics``
+    (windowed tok/s, dispatch occupancy, KV-tier bytes, queue depth, SLO
+    gauges) and ``/debug/events`` (recent structured events) from a
+    running inference server, redrawing every ``--interval`` seconds.
+    With ``--fleet`` the URL names a ``collector serve`` endpoint and
+    each frame renders the per-target health/occupancy matrix, the
+    fleet SLO table over the *merged* distribution, and merged events.
+    ``--iterations N`` renders N frames and exits
+    (scripting/tests); the default 0 runs until Ctrl-C."""
+    import json as _json
+    import time as _time
+    import urllib.error
+    import urllib.request
+
+    log = logutil.get_logger()
+    url = args.url.rstrip("/")
+
+    def fetch(path, parse_json):
+        with urllib.request.urlopen(url + path, timeout=5) as resp:
+            body = resp.read()
+        return _json.loads(body) if parse_json else body.decode()
+
+    tick = 0
+    try:
+        while True:
+            tick += 1
+            if getattr(args, "fleet", False):
+                try:
+                    fleet = fetch("/debug/fleet", True)
+                except (urllib.error.URLError, OSError, ValueError) as e:
+                    log.error("no collector endpoint at %s: %s", url, e)
+                    return 1
+                try:
+                    events = fetch(
+                        f"/debug/events?limit={args.events}", True
+                    )
+                except (urllib.error.URLError, OSError, ValueError):
+                    events = None
+                lines = _fleet_frame_lines(fleet, events, args, url, tick)
+                import sys as _sys
+
+                if _sys.stdout.isatty() and args.iterations != 1:
+                    _sys.stdout.write("\x1b[2J\x1b[H")
+                print("\n".join(lines))
+                if args.iterations and tick >= args.iterations:
+                    return 0
+                _time.sleep(args.interval)
+                continue
+            try:
+                fams = _parse_prom_text(fetch("/metrics", False))
+                health = fetch("/healthz", True)
+            except (urllib.error.URLError, OSError, ValueError) as e:
+                log.error("no serving endpoint at %s: %s", url, e)
+                return 1
+            try:
+                events = fetch(
+                    f"/debug/events?limit={args.events}", True
+                )
+            except (urllib.error.URLError, OSError, ValueError):
+                events = None  # older server: dashboard still useful
+
+            lines = []
+            stamp = _time.strftime("%H:%M:%S")
+            lines.append(
+                f"devspace-tpu top — {url}   {stamp}   frame {tick}"
+            )
+            lines.append("")
+
+            def v(name, fmt="{:.0f}", default="-"):
+                val = _prom_value(fams, name)
+                return fmt.format(val) if val is not None else default
+
+            slots = (
+                f"{v('engine_active_slots')}"
+                f"/{v('engine_max_slots')}"
+            )
+            blocks = (
+                f"{v('engine_free_kv_blocks')}"
+                f"/{v('engine_kv_blocks')}"
+            )
+            rows = [
+                ["tok/s (10s)", v("engine_tokens_per_sec_10s", "{:.1f}"),
+                 "active slots", slots],
+                ["dispatch occupancy",
+                 v("engine_dispatch_depth_occupancy", "{:.2f}"),
+                 "prefilling", v("engine_prefilling_slots")],
+                ["queue depth", v("engine_queued_requests"),
+                 "free kv blocks", blocks],
+                ["kv tier resident",
+                 _human_bytes(_prom_value(fams, "engine_kv_tier_resident_bytes")),
+                 "spilled blocks", v("engine_kv_spill_blocks_total")],
+                ["requests completed", v("engine_requests_completed_total"),
+                 "failed", v("engine_requests_failed_total")],
+            ]
+            w0 = max(len(r[0]) for r in rows)
+            w1 = max(len(r[1]) for r in rows)
+            w2 = max(len(r[2]) for r in rows)
+            for r in rows:
+                lines.append(
+                    f"  {r[0]:<{w0}}  {r[1]:>{w1}}    {r[2]:<{w2}}  {r[3]}"
+                )
+            lines.append("")
+
+            slo = (health or {}).get("slo") or {}
+            if slo.get("slos"):
+                lines.append("  SLO               STATUS  BURN(S)  BURN(L)")
+                for s in slo["slos"]:
+                    lines.append(
+                        f"  {s.get('name', '?'):<17} "
+                        f"{s.get('status', '?'):<7} "
+                        f"{s.get('burn_short', 0):>7.2f} "
+                        f"{s.get('burn_long', 0):>8.2f}"
+                    )
+                if not slo.get("ready", True):
+                    lines.append("  !! NOT READY (/readyz -> 503)")
+                lines.append("")
+
+            if events is not None and events.get("events"):
+                lines.append("  RECENT EVENTS")
+                for e in events["events"][-args.events:]:
+                    ts = _time.strftime(
+                        "%H:%M:%S", _time.localtime(e.get("time", 0))
+                    )
+                    attrs = " ".join(
+                        f"{k}={v2}"
+                        for k, v2 in e.items()
+                        if k not in (
+                            "time", "seq", "level", "subsystem", "event",
+                            "span_id",
+                        )
+                    )
+                    lines.append(
+                        f"  {ts}  {e.get('level', '?'):<5} "
+                        f"{e.get('subsystem', '?')}.{e.get('event', '?')}"
+                        f"  {attrs}"
+                    )
+            elif events is not None:
+                lines.append("  RECENT EVENTS: none recorded yet")
+
+            import sys as _sys
+
+            if _sys.stdout.isatty() and args.iterations != 1:
+                _sys.stdout.write("\x1b[2J\x1b[H")
+            print("\n".join(lines))
+            if args.iterations and tick >= args.iterations:
+                return 0
+            _time.sleep(args.interval)
+    except KeyboardInterrupt:
+        return 0
+
+
+def cmd_debug(args) -> int:
+    """``debug bundle``: one incident-triage artifact: a
+    .tar.gz of everything a running server can tell us: metrics
+    snapshot, health+SLO state, effective config, recent request traces,
+    flight-recorder events and (unless ``--seconds 0``) a Chrome
+    timeline capture. Endpoints that fail are recorded in the manifest
+    instead of aborting — partial evidence beats none mid-incident."""
+    import io as _io
+    import json as _json
+    import tarfile
+    import time as _time
+    import urllib.error
+    import urllib.request
+
+    log = logutil.get_logger()
+    url = args.url.rstrip("/")
+    if not 0 <= args.seconds <= 60:
+        log.error("--seconds must be in [0, 60], got %s", args.seconds)
+        return 1
+    if getattr(args, "fleet", False) or getattr(args, "target", None):
+        return _debug_bundle_fleet(args, log)
+
+    def fetch(path, timeout):
+        with urllib.request.urlopen(url + path, timeout=timeout) as resp:
+            return resp.read()
+
+    plan = [
+        ("metrics.txt", "/metrics", 10),
+        ("healthz.json", "/healthz", 10),
+        ("config.json", "/debug/config", 10),
+        ("requests.json", "/debug/requests?limit=500", 10),
+        ("events.json", "/debug/events?limit=2000", 10),
+    ]
+    if args.seconds > 0:
+        # the server blocks for the capture window before replying
+        plan.append(
+            ("timeline.json", f"/debug/trace?seconds={args.seconds}",
+             args.seconds + 30)
+        )
+    members: dict = {}
+    errors: dict = {}
+    for name, path, timeout in plan:
+        log.info("fetching %s ...", path)
+        try:
+            members[name] = fetch(path, timeout)
+        except (urllib.error.URLError, OSError, ValueError) as e:
+            errors[name] = str(e)
+    if not members:
+        log.error(
+            "no serving endpoint at %s: %s", url,
+            "; ".join(sorted(errors.values())) or "all fetches failed",
+        )
+        return 1
+    manifest = {
+        "url": url,
+        "created": _time.time(),
+        "members": sorted(members),
+        "errors": errors,
+    }
+    with tarfile.open(args.out, "w:gz") as tar:
+        def add(name, data):
+            info = tarfile.TarInfo("bundle/" + name)
+            info.size = len(data)
+            info.mtime = int(_time.time())
+            tar.addfile(info, _io.BytesIO(data))
+
+        add("manifest.json", _json.dumps(manifest, indent=2).encode())
+        for name in sorted(members):
+            add(name, members[name])
+    log.done(
+        "wrote %s (%d member(s)%s)", args.out, len(members) + 1,
+        f", {len(errors)} failed" if errors else "",
+    )
+    for name, err in sorted(errors.items()):
+        log.warn("  missing %s: %s", name, err)
+    return 0
+
+
+def _debug_bundle_fleet(args, log) -> int:
+    """``debug bundle --fleet``: one tar over every target.
+
+    Targets come from repeatable ``--target URL`` flags, or — with bare
+    ``--fleet`` — from the collector at ``--url`` (its ``/debug/fleet``
+    matrix names every replica). Each target's evidence lands under
+    ``bundle/<target>/``; per-target fetch failures are recorded in the
+    manifest exactly like the single-server bundle's per-member errors —
+    partial evidence beats none mid-incident."""
+    import io as _io
+    import json as _json
+    import re as _re
+    import tarfile
+    import time as _time
+    import urllib.error
+    import urllib.request
+
+    url = args.url.rstrip("/")
+
+    def fetch(base, path, timeout=10):
+        with urllib.request.urlopen(base + path, timeout=timeout) as resp:
+            return resp.read()
+
+    fleet_doc = None
+    targets: list[tuple[str, str]] = []
+    if getattr(args, "target", None):
+        targets = [(t.rstrip("/"), t.rstrip("/")) for t in args.target]
+    else:
+        try:
+            fleet_doc = _json.loads(fetch(url, "/debug/fleet"))
+        except (urllib.error.URLError, OSError, ValueError) as e:
+            log.error("no collector endpoint at %s: %s", url, e)
+            return 1
+        for row in fleet_doc.get("targets") or []:
+            if row.get("url"):
+                targets.append((row.get("target") or row["url"], row["url"]))
+    if not targets:
+        log.error("no fleet targets (pass --target URL or point --url at "
+                  "a collector)")
+        return 1
+
+    plan = [
+        ("metrics.txt", "/metrics"),
+        ("healthz.json", "/healthz"),
+        ("config.json", "/debug/config"),
+        ("requests.json", "/debug/requests?limit=500"),
+        ("events.json", "/debug/events?limit=2000"),
+        ("spans.json", "/debug/spans?limit=1024"),
+    ]
+    manifest_targets: dict = {}
+    members: dict = {}  # tar path -> bytes
+    if fleet_doc is not None:
+        members["fleet.json"] = _json.dumps(fleet_doc, indent=2).encode()
+        try:
+            members["fleet_metrics.txt"] = fetch(url, "/metrics")
+            members["fleet_trace.json"] = fetch(url, "/debug/trace")
+        except (urllib.error.URLError, OSError, ValueError) as e:
+            log.warn("collector evidence incomplete: %s", e)
+    fetched_any = bool(members)
+    for name, base in targets:
+        safe = _re.sub(r"[^A-Za-z0-9._-]+", "_", name).strip("_") or "target"
+        entry: dict = {"url": base, "members": [], "errors": {}}
+        for member, path in plan:
+            log.info("fetching %s%s ...", base, path)
+            try:
+                members[f"{safe}/{member}"] = fetch(base, path)
+                entry["members"].append(member)
+                fetched_any = True
+            except (urllib.error.URLError, OSError, ValueError) as e:
+                entry["errors"][member] = str(e)
+        manifest_targets[safe] = entry
+    if not fetched_any:
+        log.error("no target answered; nothing to bundle")
+        return 1
+    manifest = {
+        "fleet": True,
+        "url": url,
+        "created": _time.time(),
+        "targets": manifest_targets,
+        "members": sorted(members),
+    }
+    with tarfile.open(args.out, "w:gz") as tar:
+        def add(name, data):
+            info = tarfile.TarInfo("bundle/" + name)
+            info.size = len(data)
+            info.mtime = int(_time.time())
+            tar.addfile(info, _io.BytesIO(data))
+
+        add("manifest.json", _json.dumps(manifest, indent=2).encode())
+        for name in sorted(members):
+            add(name, members[name])
+    failed = sum(len(t["errors"]) for t in manifest_targets.values())
+    log.done(
+        "wrote %s (%d member(s) from %d target(s)%s)", args.out,
+        len(members) + 1, len(targets),
+        f", {failed} fetch(es) failed" if failed else "",
+    )
+    for safe, entry in sorted(manifest_targets.items()):
+        for member, err in sorted(entry["errors"].items()):
+            log.warn("  missing %s/%s: %s", safe, member, err)
+    return 0
+
+
+def cmd_collector(args) -> int:
+    """``collector serve``: run the fleet telemetry collector:
+    scrape every target's ``/metrics``/``/healthz``/``/debug/*``
+    on an interval, federate them (counters summed, gauges per their
+    aggregation hints, latency histograms merged bucket-exactly) and
+    serve the fleet view: ``/metrics``, ``/debug/fleet``,
+    ``/debug/events`` (merged), ``/debug/trace`` (stitched). Targets
+    are repeatable ``--target URL`` flags or ``--workers`` (resolve the
+    job's worker pods through the selector layer)."""
+    from ..obs.collector import TelemetryCollector, make_http_server
+    log = logutil.get_logger()
+    if args.target:
+        collector = TelemetryCollector.from_replicas(
+            args.target, interval_s=args.interval,
+        )
+    elif args.workers:
+        ctx = Context(args)
+        collector = TelemetryCollector.from_workers(
+            ctx.backend, ctx.config, port=args.scrape_port,
+            selector_name=getattr(args, "selector", None),
+            interval_s=args.interval,
+        )
+    else:
+        log.error("no targets: pass --target URL (repeatable) or --workers")
+        return 1
+    collector.scrape_once()  # first federated view before we listen
+    httpd = make_http_server(collector, args.host, args.port)
+    collector.start()
+    up = sum(1 for t in collector.targets if t.up)
+    log.done(
+        "collector serving on http://%s:%d (%d target(s), %d up; "
+        "scrape interval %.1fs)",
+        args.host, httpd.server_address[1], len(collector.targets), up,
+        args.interval,
+    )
+    try:
+        if getattr(args, "iterations", 0):
+            # test/scripting mode: handle N requests then exit
+            for _ in range(args.iterations):
+                httpd.handle_request()
+            return 0
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        collector.stop()
+        httpd.server_close()
+    return 0
+
+
+def cmd_fleet(args) -> int:
+    """``fleet serve``: run a local replica fleet: N serving
+    subprocesses under the session supervisor (health-probed, restarted
+    under the retry ladder, drained before any scale-down kill), an
+    embedded telemetry collector federating them on ``--port``, and —
+    with ``--autoscale`` — the closed autoscale loop driving replica
+    count from the collector's HPA signals. ``fleet status`` renders a
+    running fleet's collector view (``/debug/fleet``) as a table."""
+    import json as _json
+    import time as _time
+    import urllib.request
+
+    log = logutil.get_logger()
+    if args.what == "status":
+        url = args.url.rstrip("/") + "/debug/fleet"
+        try:
+            with urllib.request.urlopen(url, timeout=args.timeout) as resp:
+                doc = _json.loads(resp.read())
+        except (OSError, ValueError) as e:
+            log.error("no fleet collector endpoint at %s: %s", args.url, e)
+            return 1
+        rows = doc.get("targets", [])
+        up = sum(1 for r in rows if r.get("up"))
+        print(f"fleet: {up}/{len(rows)} replica(s) up")
+        fmt = "%-14s %-4s %-11s %9s %9s %7s"
+        print(fmt % ("REPLICA", "UP", "QUARANTINED", "TOK/S", "OCCUP", "QUEUED"))
+        for r in rows:
+            def num(v, spec="%.2f"):
+                return spec % v if isinstance(v, (int, float)) else "-"
+
+            print(fmt % (
+                r.get("target"), "yes" if r.get("up") else "NO",
+                "yes" if r.get("quarantined") else "no",
+                num(r.get("tok_s"), "%.1f"), num(r.get("occupancy")),
+                num(r.get("queued"), "%.0f"),
+            ))
+        for sig in (doc.get("hpa") or {}).get("metrics", []):
+            pods = sig.get("pods") or {}
+            print("hpa signal: %s averageValue=%s" % (
+                (pods.get("metric") or {}).get("name"),
+                (pods.get("target") or {}).get("averageValue"),
+            ))
+        return 0
+
+    from ..obs.collector import TelemetryCollector, make_http_server
+    from ..serving import ReplicaFleet, ReplicaSpec
+    from ..serving.autoscale import AutoscaleLoop, AutoscalerConfig
+
+    env = {}
+    for kv in args.env or []:
+        if "=" not in kv:
+            log.error("--env wants KEY=VALUE, got %r", kv)
+            return 1
+        k, _, v = kv.partition("=")
+        env[k] = v
+    spec = ReplicaSpec(
+        module=args.module, env=env, ready_timeout_s=args.ready_timeout
+    )
+    fleet = ReplicaFleet(
+        spec=spec, replicas=args.replicas,
+        restart_budget=args.restart_budget,
+        healthy_window_s=args.healthy_window,
+    )
+    fleet.start()
+    collector = TelemetryCollector.from_replicas([], interval_s=args.interval)
+    collector.refresh(sorted(fleet.targets().items()))
+    collector.scrape_once()
+    httpd = make_http_server(collector, args.host, args.port)
+    loop = None
+    if args.autoscale:
+        loop = AutoscaleLoop(
+            fleet, collector,
+            AutoscalerConfig(
+                min_replicas=args.min_replicas,
+                max_replicas=args.max_replicas,
+                targets={args.metric: args.target_value},
+                scale_down_stabilization_s=args.scale_down_window,
+            ),
+            interval_s=args.interval,
+            on_decision=lambda d: (
+                log.info(
+                    "[autoscale] %d -> %d (%s)", d.current, d.desired, d.reason
+                ) if d.desired != d.current else None
+            ),
+        )
+    gateway = None
+    if getattr(args, "route", None):
+        from ..serving.gateway import RoutingGateway
+        from ..serving.router import (
+            PrefixRouter,
+            RouterConfig,
+            loads_from_collector,
+        )
+
+        raw_pool = (getattr(args, "prefill_pool", "") or "").strip()
+        if raw_pool.isdigit():
+            pool = tuple(sorted(fleet.targets())[: int(raw_pool)])
+        else:
+            pool = tuple(
+                p.strip() for p in raw_pool.split(",") if p.strip())
+        router = PrefixRouter(
+            replicas_fn=fleet.targets,
+            loads_fn=lambda: loads_from_collector(collector),
+            config=RouterConfig(
+                policy=args.route,
+                prefill_pool=pool,
+                disagg_threshold_tokens=getattr(
+                    args, "disagg_threshold", 0),
+                disagg_occupancy_band=getattr(
+                    args, "disagg_occupancy_band", 0.85),
+            ),
+        )
+        gateway = RoutingGateway(
+            router, host=args.host, port=args.gateway_port)
+        gateway.start()
+    collector.start()
+    if loop is not None:
+        loop.start()
+    log.done(
+        "fleet of %d replica(s) up (module %s); collector on "
+        "http://%s:%d%s%s",
+        args.replicas, args.module, args.host, httpd.server_address[1],
+        f"; autoscaling {args.min_replicas}-{args.max_replicas} on "
+        f"{args.metric}<={args.target_value:g}" if args.autoscale else "",
+        f"; {args.route} gateway on {gateway.base_url}" if gateway else "",
+    )
+    import threading
+
+    server_thread = threading.Thread(
+        target=httpd.serve_forever, daemon=True)
+    server_thread.start()
+    try:
+        if args.duration:
+            _time.sleep(args.duration)
+        else:
+            while True:
+                _time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if loop is not None:
+            loop.stop()
+        if gateway is not None:
+            gateway.stop()
+        collector.stop()
+        httpd.shutdown()
+        httpd.server_close()
+        fleet.stop()
+        log.done("fleet stopped (%s)", fleet.supervisor.status_line())
+    return 0
+
+
+# -- config mutation (add/remove) ------------------------------------------
+def _load_for_edit(args) -> tuple[Context, latest.Config]:
+    ctx = Context(args)
+    return ctx, ctx.config
+
+
+def cmd_add(args) -> int:
+    """Reference: cmd/add/*.go -> pkg/devspace/configure."""
+    ctx, cfg = _load_for_edit(args)
+    if cfg.dev is None:
+        cfg.dev = latest.DevConfig()
+    if args.kind == "sync":
+        cfg.dev.sync = (cfg.dev.sync or []) + [
+            latest.SyncConfig(
+                selector=args.selector,
+                local_sub_path=args.local,
+                container_path=args.container,
+                exclude_paths=args.exclude.split(",") if args.exclude else None,
+            )
+        ]
+    elif args.kind == "port":
+        cfg.dev.ports = (cfg.dev.ports or []) + [
+            latest.PortForwardingConfig(
+                selector=args.selector,
+                port_mappings=[
+                    latest.PortMapping(
+                        local_port=args.local_port,
+                        remote_port=args.remote_port or args.local_port,
+                    )
+                ],
+            )
+        ]
+    elif args.kind == "selector":
+        labels = dict(kv.split("=", 1) for kv in args.label_selector.split(","))
+        cfg.dev.selectors = (cfg.dev.selectors or []) + [
+            latest.SelectorConfig(name=args.name, label_selector=labels)
+        ]
+    elif args.kind == "deployment":
+        if args.manifests:
+            dep = latest.DeploymentConfig(
+                name=args.name,
+                manifests=latest.ManifestsConfig(paths=args.manifests.split(",")),
+            )
+        else:
+            dep = latest.DeploymentConfig(
+                name=args.name, chart=latest.ChartConfig(path=args.chart or "./chart")
+            )
+        cfg.deployments = (cfg.deployments or []) + [dep]
+    elif args.kind == "image":
+        cfg.images = cfg.images or {}
+        cfg.images[args.name] = latest.ImageConfig(
+            image=args.image, dockerfile=args.dockerfile, context=args.context
+        )
+    ctx.loader.validate(cfg)
+    ctx.loader.save(cfg)
+    ctx.log.done("[add] %s added", args.kind)
+    return 0
+
+
+def cmd_remove(args) -> int:
+    """Reference: cmd/remove/*.go."""
+    ctx, cfg = _load_for_edit(args)
+    removed = False
+    if args.kind == "sync" and cfg.dev and cfg.dev.sync:
+        before = len(cfg.dev.sync)
+        cfg.dev.sync = [
+            s
+            for s in cfg.dev.sync
+            if not (args.all or s.container_path == args.container)
+        ] or None
+        removed = before != len(cfg.dev.sync or [])
+    elif args.kind == "port" and cfg.dev and cfg.dev.ports:
+        before = len(cfg.dev.ports)
+        cfg.dev.ports = [
+            p
+            for p in cfg.dev.ports
+            if not (
+                args.all
+                or any(
+                    pm.local_port == args.local_port for pm in p.port_mappings or []
+                )
+            )
+        ] or None
+        removed = before != len(cfg.dev.ports or [])
+    elif args.kind == "selector" and cfg.dev and cfg.dev.selectors:
+        before = len(cfg.dev.selectors)
+        cfg.dev.selectors = [
+            s for s in cfg.dev.selectors if not (args.all or s.name == args.name)
+        ] or None
+        removed = before != len(cfg.dev.selectors or [])
+    elif args.kind == "deployment" and cfg.deployments:
+        before = len(cfg.deployments)
+        cfg.deployments = [
+            d for d in cfg.deployments if not (args.all or d.name == args.name)
+        ] or None
+        removed = before != len(cfg.deployments or [])
+    elif args.kind == "image" and cfg.images:
+        removed = cfg.images.pop(args.name, None) is not None
+        cfg.images = cfg.images or None
+    ctx.loader.save(cfg)
+    ctx.log.done("[remove] %s %s", args.kind, "removed" if removed else "not found")
+    return 0 if removed else 1
+
+
+# -- list -------------------------------------------------------------------
+def cmd_list(args) -> int:
+    """Reference: cmd/list/*.go."""
+    ctx = Context(args)
+    cfg = ctx.config
+    log = ctx.log
+    what = args.what
+    if what == "deployments":
+        log.print_table(
+            ["NAME", "TYPE", "NAMESPACE"],
+            [
+                [
+                    d.name,
+                    "chart" if d.chart else "manifests",
+                    d.namespace or ctx.namespace,
+                ]
+                for d in cfg.deployments or []
+            ],
+        )
+    elif what == "images":
+        log.print_table(
+            ["NAME", "IMAGE", "DOCKERFILE"],
+            [
+                [name, i.image, i.dockerfile or "Dockerfile"]
+                for name, i in (cfg.images or {}).items()
+            ],
+        )
+    elif what == "ports":
+        rows = []
+        for p in (cfg.dev.ports if cfg.dev else None) or []:
+            for pm in p.port_mappings or []:
+                rows.append(
+                    [p.selector or "-", str(pm.local_port), str(pm.remote_port), p.workers or "worker0"]
+                )
+        log.print_table(["SELECTOR", "LOCAL", "REMOTE", "WORKERS"], rows)
+    elif what == "sync":
+        log.print_table(
+            ["SELECTOR", "LOCAL", "CONTAINER", "FAN-OUT"],
+            [
+                [s.selector or "-", s.local_sub_path or ".", s.container_path, s.fan_out or "all"]
+                for s in (cfg.dev.sync if cfg.dev else None) or []
+            ],
+        )
+    elif what == "selectors":
+        log.print_table(
+            ["NAME", "NAMESPACE", "LABELS"],
+            [
+                [
+                    s.name,
+                    s.namespace or ctx.namespace,
+                    ",".join(f"{k}={v}" for k, v in (s.label_selector or {}).items()),
+                ]
+                for s in (cfg.dev.selectors if cfg.dev else None) or []
+            ],
+        )
+    elif what == "vars":
+        cache = ctx.loader.generated.get_active()
+        log.print_table(
+            ["NAME", "VALUE"], [[k, v] for k, v in cache.vars.items()]
+        )
+    elif what == "configs":
+        configs_path = os.path.join(ctx.root, ".devspace", "configs.yaml")
+        if os.path.isfile(configs_path):
+            with open(configs_path, "r", encoding="utf-8") as fh:
+                names = list((yaml.safe_load(fh) or {}).keys())
+        else:
+            names = ["default"]
+        active = ctx.loader.generated.active_config
+        log.print_table(
+            ["NAME", "ACTIVE"], [[n, "*" if n == active else ""] for n in names]
+        )
+    return 0
+
+
+# -- use --------------------------------------------------------------------
+def cmd_use(args) -> int:
+    """Reference: cmd/use/*.go."""
+    log = logutil.get_logger()
+    if args.kind == "config":
+        ctx = Context(args, require_config=False)
+        ctx.loader.generated.active_config = args.name
+        ctx.loader.generated.save()
+        log.done("[use] active config: %s", args.name)
+    elif args.kind == "context":
+        from ..kube.kubeconfig import KubeConfig
+
+        kc = KubeConfig.load()
+        if args.name not in kc.contexts:
+            log.error("unknown kube context '%s'", args.name)
+            return 1
+        kc.current_context = args.name
+        kc.save()
+        log.done("[use] kube context: %s", args.name)
+    elif args.kind == "namespace":
+        ctx = Context(args)
+        cfg = ctx.config
+        if cfg.cluster is None:
+            cfg.cluster = latest.Cluster()
+        cfg.cluster.namespace = args.name
+        ctx.loader.save(cfg)
+        log.done("[use] namespace: %s", args.name)
+    return 0
+
+
+# -- update ---------------------------------------------------------------
+def cmd_update(args) -> int:
+    """Reference: cmd/update/config.go — rewrite config at latest schema."""
+    ctx = Context(args)
+    ctx.loader.save(ctx.config)
+    ctx.log.done("[update] config rewritten at schema %s", latest.VERSION)
     return 0
 
 
@@ -691,10 +1750,363 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--all", action="store_true", help="also remove chart/ and Dockerfile")
     sp.set_defaults(fn=cmd_reset)
 
-    sp = sub.add_parser("status", help="deployment / sync / trace status")
-    sp.add_argument("what", choices=["deployments", "sync", "trace"])
+    sp = sub.add_parser("status", help="deployment / sync / trace / serving status")
+    sp.add_argument("what", choices=["deployments", "sync", "trace", "serving"])
     sp.add_argument("--export", help="(trace) write chrome://tracing JSON here")
+    sp.add_argument(
+        "--url",
+        default="http://127.0.0.1:8000",
+        help="(serving) base URL of a running inference server",
+    )
     sp.set_defaults(fn=cmd_status)
+
+    sp = sub.add_parser(
+        "profile", help="capture an engine timeline from a running server"
+    )
+    sp.add_argument(
+        "what",
+        choices=["serving"],
+        help="what to profile (serving: the inference engine timeline)",
+    )
+    sp.add_argument(
+        "--url",
+        default="http://127.0.0.1:8000",
+        help="base URL of a running inference server",
+    )
+    sp.add_argument(
+        "--seconds",
+        type=float,
+        default=2.0,
+        help="capture window in seconds (0 < N <= 60)",
+    )
+    sp.add_argument(
+        "--out",
+        default="serving-timeline.json",
+        help="destination for the Chrome-trace JSON",
+    )
+    sp.set_defaults(fn=cmd_profile)
+
+    sp = sub.add_parser(
+        "top", help="live dashboard for a running inference server"
+    )
+    sp.add_argument(
+        "--url",
+        default="http://127.0.0.1:8000",
+        help="base URL of a running inference server",
+    )
+    sp.add_argument(
+        "--interval",
+        type=float,
+        default=2.0,
+        help="seconds between dashboard refreshes",
+    )
+    sp.add_argument(
+        "--iterations",
+        type=int,
+        default=0,
+        help="render N frames then exit (0 = run until Ctrl-C)",
+    )
+    sp.add_argument(
+        "--events",
+        type=int,
+        default=8,
+        help="recent structured events to show per frame",
+    )
+    sp.add_argument(
+        "--fleet",
+        action="store_true",
+        help="the URL names a `collector serve` endpoint: render the "
+        "per-target matrix, fleet SLO table and merged events",
+    )
+    sp.set_defaults(fn=cmd_top)
+
+    sp = sub.add_parser(
+        "debug", help="incident tooling for a running inference server"
+    )
+    debug_sub = sp.add_subparsers(dest="what", required=True)
+    q = debug_sub.add_parser(
+        "bundle",
+        help="tar.gz of metrics, health/SLO, config, request traces, "
+        "flight-recorder events and a timeline capture",
+    )
+    q.add_argument(
+        "--url",
+        default="http://127.0.0.1:8000",
+        help="base URL of a running inference server",
+    )
+    q.add_argument(
+        "--out",
+        default="debug-bundle.tar.gz",
+        help="destination archive path",
+    )
+    q.add_argument(
+        "--seconds",
+        type=float,
+        default=2.0,
+        help="timeline capture window in seconds (0 skips the capture)",
+    )
+    q.add_argument(
+        "--fleet",
+        action="store_true",
+        help="bundle every target of the collector at --url (per-target "
+        "subdirectories + per-target error records in the manifest)",
+    )
+    q.add_argument(
+        "--target",
+        action="append",
+        default=None,
+        metavar="URL",
+        help="explicit fleet target (repeatable; implies --fleet)",
+    )
+    q.set_defaults(fn=cmd_debug)
+
+    sp = sub.add_parser(
+        "collector",
+        help="fleet telemetry: scrape N servers, serve the federated view",
+    )
+    coll_sub = sp.add_subparsers(dest="what", required=True)
+    q = coll_sub.add_parser(
+        "serve",
+        help="scrape every target on an interval and serve the merged "
+        "/metrics, /debug/fleet, /debug/events and stitched /debug/trace",
+    )
+    q.add_argument(
+        "--target",
+        action="append",
+        default=None,
+        metavar="URL",
+        help="scrape target base URL (repeatable)",
+    )
+    q.add_argument(
+        "--workers",
+        action="store_true",
+        help="discover targets by resolving the job's worker pods "
+        "through the selector layer",
+    )
+    q.add_argument(
+        "--scrape-port",
+        type=int,
+        default=8000,
+        help="serving port on discovered workers (with --workers)",
+    )
+    q.add_argument("--host", default="127.0.0.1", help="bind address")
+    q.add_argument("--port", type=int, default=9090, help="listen port")
+    q.add_argument(
+        "--interval",
+        type=float,
+        default=5.0,
+        help="seconds between scrape rounds",
+    )
+    q.add_argument(
+        "--iterations",
+        type=int,
+        default=0,
+        help="serve N HTTP requests then exit (0 = run until Ctrl-C)",
+    )
+    q.set_defaults(fn=cmd_collector)
+
+    sp = sub.add_parser(
+        "fleet",
+        help="replica fleet: N supervised serving processes with "
+        "drain-aware scaling and an embedded collector",
+    )
+    fleet_sub = sp.add_subparsers(dest="what", required=True)
+    q = fleet_sub.add_parser(
+        "serve",
+        help="run N replicas under the supervisor, federate them via an "
+        "embedded collector, optionally autoscale from its HPA signals",
+    )
+    q.add_argument(
+        "--replicas", type=int, default=2, help="initial replica count",
+    )
+    q.add_argument(
+        "--module",
+        default="devspace_tpu_torch.serving.stub",
+        help="replica entrypoint, launched as `python -m MODULE --port N`",
+    )
+    q.add_argument(
+        "--env",
+        action="append",
+        metavar="KEY=VALUE",
+        help="extra environment for replica processes (repeatable)",
+    )
+    q.add_argument(
+        "--restart-budget",
+        type=int,
+        default=None,
+        help="cumulative replica restarts before degrading (default "
+        "unlimited)",
+    )
+    q.add_argument(
+        "--healthy-window",
+        type=float,
+        default=60.0,
+        help="seconds of continuous health that reset the restart budget",
+    )
+    q.add_argument(
+        "--ready-timeout",
+        type=float,
+        default=15.0,
+        help="seconds a replica may take to answer /readyz after its "
+        "start before it is stopped and restarted (a 7B server loads and "
+        "prewarms for longer than the default)",
+    )
+    q.add_argument("--host", default="127.0.0.1", help="collector bind address")
+    q.add_argument("--port", type=int, default=9090, help="collector port")
+    q.add_argument(
+        "--interval",
+        type=float,
+        default=2.0,
+        help="scrape + autoscale evaluation interval (seconds)",
+    )
+    q.add_argument(
+        "--autoscale",
+        action="store_true",
+        help="drive replica count from the collector's HPA signals",
+    )
+    q.add_argument("--min-replicas", type=int, default=1)
+    q.add_argument("--max-replicas", type=int, default=4)
+    q.add_argument(
+        "--metric",
+        default="engine_dispatch_depth_occupancy",
+        help="HPA signal to track (autoscaling/v2 Pods metric name)",
+    )
+    q.add_argument(
+        "--target-value",
+        type=float,
+        default=0.75,
+        help="target per-replica average for --metric",
+    )
+    q.add_argument(
+        "--scale-down-window",
+        type=float,
+        default=30.0,
+        help="scale-down stabilization window (seconds)",
+    )
+    q.add_argument(
+        "--duration",
+        type=float,
+        default=0,
+        help="run N seconds then exit (0 = run until Ctrl-C)",
+    )
+    q.add_argument(
+        "--route",
+        choices=("prefix", "round_robin", "least_loaded"),
+        default=None,
+        help="front the fleet with a routing gateway using this policy "
+        "(prefix = cache-locality scoring blended with load; omit for "
+        "no gateway)",
+    )
+    q.add_argument(
+        "--gateway-port",
+        type=int,
+        default=8080,
+        help="routing gateway port (with --route; 0 picks a free port)",
+    )
+    q.add_argument(
+        "--prefill-pool",
+        default="",
+        metavar="N|NAMES",
+        help="(with --route) reserve replicas for disaggregated prefill: "
+        "a count (the first N by name) or comma-separated replica names; "
+        "pool members take phase-1 prefills but no decode streams",
+    )
+    q.add_argument(
+        "--disagg-threshold",
+        type=int,
+        default=0,
+        metavar="TOKENS",
+        help="(with --route) uncached-prompt-token threshold that "
+        "triggers two-phase placement: prefill elsewhere, then decode "
+        "with a kv_source KV-chain pull (0 = disabled)",
+    )
+    q.add_argument(
+        "--disagg-occupancy-band",
+        type=float,
+        default=0.85,
+        metavar="FRAC",
+        help="decode-target occupancy at/above which even short prompts "
+        "prefill elsewhere (with --disagg-threshold)",
+    )
+    q.set_defaults(fn=cmd_fleet)
+    q = fleet_sub.add_parser(
+        "status",
+        help="one-shot fleet table from a running fleet's collector "
+        "(/debug/fleet)",
+    )
+    q.add_argument(
+        "--url",
+        default="http://127.0.0.1:9090",
+        help="fleet collector base URL",
+    )
+    q.add_argument("--timeout", type=float, default=3.0)
+    q.set_defaults(fn=cmd_fleet)
+
+    sp = sub.add_parser("add", help="add config entries")
+    add_sub = sp.add_subparsers(dest="kind", required=True)
+    q = add_sub.add_parser("sync")
+    q.add_argument("--selector", default="default")
+    q.add_argument("--local", default=".")
+    q.add_argument("--container", required=True)
+    q.add_argument("--exclude")
+    q = add_sub.add_parser("port")
+    q.add_argument("--selector", default="default")
+    q.add_argument("local_port", type=int)
+    q.add_argument("remote_port", type=int, nargs="?")
+    q = add_sub.add_parser("selector")
+    q.add_argument("name")
+    q.add_argument("--label-selector", required=True, help="k=v,k2=v2")
+    q = add_sub.add_parser("deployment")
+    q.add_argument("name")
+    q.add_argument("--chart")
+    q.add_argument("--manifests")
+    q = add_sub.add_parser("image")
+    q.add_argument("name")
+    q.add_argument("--image", required=True)
+    q.add_argument("--dockerfile", default="Dockerfile")
+    q.add_argument("--context", default=".")
+    sp.set_defaults(fn=cmd_add)
+
+    sp = sub.add_parser("remove", help="remove config entries")
+    rm_sub = sp.add_subparsers(dest="kind", required=True)
+    q = rm_sub.add_parser("sync")
+    q.add_argument("--container")
+    q.add_argument("--all", action="store_true")
+    q = rm_sub.add_parser("port")
+    q.add_argument("local_port", type=int, nargs="?")
+    q.add_argument("--all", action="store_true")
+    q = rm_sub.add_parser("selector")
+    q.add_argument("name", nargs="?")
+    q.add_argument("--all", action="store_true")
+    q = rm_sub.add_parser("deployment")
+    q.add_argument("name", nargs="?")
+    q.add_argument("--all", action="store_true")
+    q = rm_sub.add_parser("image")
+    q.add_argument("name")
+    sp.set_defaults(fn=cmd_remove)
+
+    sp = sub.add_parser("list", help="list config entries")
+    sp.add_argument(
+        "what",
+        choices=[
+            "deployments", "images", "ports", "sync", "selectors", "vars",
+            "configs",
+        ],
+    )
+    sp.set_defaults(fn=cmd_list)
+
+    sp = sub.add_parser("use", help="select config/context/namespace")
+    use_sub = sp.add_subparsers(dest="kind", required=True)
+    for kind in ("config", "context", "namespace"):
+        q = use_sub.add_parser(kind)
+        q.add_argument("name")
+    sp.set_defaults(fn=cmd_use)
+
+    sp = sub.add_parser("update", help="update config schema")
+    up_sub = sp.add_subparsers(dest="kind")
+    q = up_sub.add_parser("config", help="rewrite config at the latest schema")
+    q.set_defaults(fn=cmd_update)
+    sp.set_defaults(fn=cmd_update)
 
     sp = sub.add_parser(
         "lint", help="validate charts/manifests without applying"

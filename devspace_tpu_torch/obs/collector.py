@@ -31,8 +31,8 @@ consume (:meth:`TelemetryCollector.hpa_signals`) so a future autoscaler
 reads them unchanged.
 
 The port's copy of ``devspace_tpu/obs/collector.py``, with the same behaviour; it
-imports nothing of the JAX package. ``from_workers`` (target discovery through the
-deploy layer's pod selectors) is left out: the port has no deploy layer.
+imports nothing of the JAX package. ``from_workers`` discovers the targets through
+the port's pod selectors (``services/selectors.resolve_workers``).
 """
 
 from __future__ import annotations
@@ -230,6 +230,35 @@ class TelemetryCollector:
     def from_replicas(cls, urls: Iterable[str], **kwargs):
         """Static serving-replica URL list (the ``--target`` CLI path)."""
         return cls(list(urls), **kwargs)
+
+    @classmethod
+    def from_workers(
+        cls,
+        backend,
+        config,
+        *,
+        port: int = 8000,
+        selector_name: Optional[str] = None,
+        namespace: Optional[str] = None,
+        timeout: float = 120.0,
+        retry_policy=None,
+        **kwargs,
+    ):
+        """Discover targets by resolving the job's worker pods through
+        the same selector layer ``enter``/``dev`` fan out over: each
+        Running worker becomes ``http://<podIP>:<port>`` (its name where
+        the pod has no IP yet)."""
+        from ..services.selectors import resolve_workers
+
+        workers, _ns, _cont = resolve_workers(
+            backend, config, selector_name=selector_name,
+            namespace=namespace, timeout=timeout, retry_policy=retry_policy,
+        )
+        targets = []
+        for pod in workers:
+            host = pod.raw.get("status", {}).get("podIP") or pod.name
+            targets.append((pod.name, f"http://{host}:{port}"))
+        return cls(targets, **kwargs)
 
     def refresh(self, targets: Sequence[Union[str, tuple]]) -> None:
         """Replace the target set at runtime (the autoscaler

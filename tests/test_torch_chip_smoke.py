@@ -403,7 +403,10 @@ def test_deploy_phase_rehearsed_on_the_cpu(monkeypatch):
                                 "--node-rank=0", "--master-addr=127.0.0.1",
                                 f"--master-port={line['argv'][5].split('=')[1]}"]
     assert line["argv"][6:] == ["train.py", "--steps", "101", "--device=cpu"]
-    assert line["env"] == {"NODE_RANK": "0"} and len(line["substitutions"]) == 4
+    # a master port the OS assigned stands in for the chart's 29500
+    port = line["argv"][5].split("=")[1]
+    assert line["env"] == {"NODE_RANK": "0"} and len(line["substitutions"]) == 5
+    assert f"--master-port=29500 -> --master-port={port}" in line["substitutions"]
     assert line["world"].endswith("backend gloo, world 1")
     assert len(line["losses_every_100"]) == 2 and line["loss_at_check_step"] < 1e-3
     assert line["xent_launches"] == 0
@@ -466,7 +469,7 @@ def test_fleet_phase_rehearsed_on_the_cpu(monkeypatch, tmp_path):
     ckpt = str(tmp_path / "tiny")
     save_checkpoint(ckpt, tfm.init_params(tfm.TINY, torch.Generator().manual_seed(0)))
     line = cs.phase_fleet(ckpt, "cpu", 1.0, torch.device("cpu"), model="tiny", cfg=tfm.TINY)
-    assert line["phase"] == "fleet" and line["tokens_received"] == 24 * 16
+    assert line["phase"] == "fleet" and line["tokens_received"] == cs.FLEET["requests"] * 16
     assert line["federated_tokens"] == line["tokens_received"]
     assert line["kill_restart"]["gateway_retries"] == 1
     assert line["slo_gate"]["flipped_after_s"] < 30

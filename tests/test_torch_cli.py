@@ -281,10 +281,14 @@ def test_no_project_and_the_parser(cli_env, monkeypatch, capsys):
     parser = build_parser()
     commands = set(parser._subparsers._group_actions[0].choices)
     assert commands == {"init", "deploy", "dev", "enter", "logs", "analyze", "purge", "reset",
-                        "status", "lint", "print"}
+                        "status", "lint", "print", "profile", "top", "debug", "collector",
+                        "fleet", "add", "remove", "list", "use", "update"}
     assert parser.parse_args(["status", "sync"]).what == "sync"
-    with pytest.raises(SystemExit):
-        parser.parse_args(["status", "serving"])  # waits for the rest of the CLI
+    assert parser.parse_args(["status", "serving"]).url == "http://127.0.0.1:8000"
+    for argv in (["login"], ["search"], ["list", "spaces"], ["use", "space", "s"],
+                 ["update", "packages"], ["add", "package", "p"]):
+        with pytest.raises(SystemExit):
+            parser.parse_args(argv)  # the cloud and package commands wait for the rest
     with pytest.raises(SystemExit) as ei:
         main(["--version"])
     assert ei.value.code == 0

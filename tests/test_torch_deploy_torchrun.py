@@ -48,7 +48,7 @@ def test_two_rendered_pods_train_as_one_world(tmp_path, few_torch_threads):
     (sts,) = [d for d in docs if d["kind"] == "StatefulSet"]
     assert sts["spec"]["replicas"] == 2
 
-    port = cs.free_port(0)
+    port = cs.free_port()
     procs = []
     try:
         for rank in (0, 1):
