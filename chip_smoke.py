@@ -174,11 +174,13 @@ prints no result.
 
 from __future__ import annotations
 
+import base64
 import contextlib
 import copy
 import dataclasses
 import gc
 import hashlib
+import http.server
 import itertools
 import json
 import math
@@ -2270,23 +2272,25 @@ def phase_deploy(dev, card) -> dict:
 CLUSTER = {"cli_timeout_s": 180}
 
 
-def cli_env(cluster: Optional[str] = None) -> dict:
-    """The environment of a CLI call: this checkout on the path, and with
-    ``cluster`` the fake cluster there as the backend."""
+def cli_env(cluster: Optional[str] = None, extra: Optional[dict] = None) -> dict:
+    """The environment of a CLI call: this checkout on the path, with
+    ``cluster`` the fake cluster there as the backend, and ``extra`` on
+    top."""
     env = {**os.environ, "DEVSPACE_NONINTERACTIVE": "1",
            "PYTHONPATH": os.pathsep.join(filter(None, [REPO_ROOT,
                                                        os.environ.get("PYTHONPATH")]))}
     if cluster is not None:
         env["DEVSPACE_FAKE_BACKEND"] = cluster
-    return env
+    return {**env, **(extra or {})}
 
 
-def run_cli(args: list, project: str, cluster: Optional[str] = None) -> dict:
+def run_cli(args: list, project: str, cluster: Optional[str] = None,
+            extra: Optional[dict] = None) -> dict:
     """One call of the port's CLI as a user makes it: ``python -m
     devspace_tpu_torch <args>`` in the project's dir (against the fake
-    cluster at ``cluster``, where one is given), with no terminal; its
-    exit code, seconds and output."""
-    env = cli_env(cluster)
+    cluster at ``cluster``, where one is given, and with ``extra`` in its
+    environment), with no terminal; its exit code, seconds and output."""
+    env = cli_env(cluster, extra)
     t = time.monotonic()
     proc = subprocess.run([sys.executable, "-m", "devspace_tpu_torch", *args], cwd=project,
                           env=env, text=True, capture_output=True, stdin=subprocess.DEVNULL,
@@ -2329,38 +2333,187 @@ def without_status(obj: dict) -> dict:
     return obj
 
 
+# -- a cloud control plane for the cluster phase's Space ------------------------
+CLOUD = {"key": "smoke-access-key", "space": "smoke", "package": "settings",
+         "server": "https://127.0.0.1:6443"}
+# the cluster phase's package: a chart repo of one chart that renders one
+# ConfigMap, vendored into the project's chart by `add package`
+PACKAGE_TEMPLATE = """\
+apiVersion: v1
+kind: ConfigMap
+metadata:
+  name: ${{ release.name }}-${{ chart.name }}
+data:
+  greeting: ${{ values.greeting }}
+"""
+
+
+def cloud_token() -> str:
+    """A JWT valid for an hour, whose claims the CLI reads for the expiry
+    (it checks no signature)."""
+    def segment(obj: dict) -> str:
+        return base64.urlsafe_b64encode(json.dumps(obj).encode()).decode().rstrip("=")
+
+    return ".".join([segment({"alg": "none"}),
+                     segment({"exp": time.time() + 3600.0, "sub": "smoke"}), "sig"])
+
+
+class FakeCloud(http.server.BaseHTTPRequestHandler):
+    """A cloud control plane's GraphQL endpoint (``POST /graphql``) with the
+    ``manager_*`` operations the CLI's provider speaks: the access key ->
+    token exchange, then, under a bearer token it minted, Space create,
+    list and delete, a Space's service account (its namespace, API server,
+    CA and token) and registry credentials. Its state is the server's
+    ``spaces`` (id -> Space) and ``tokens``."""
+
+    def _reply(self, data=None, error: Optional[str] = None) -> None:
+        body = json.dumps({"errors": [{"message": error}]} if error else {"data": data}).encode()
+        self.send_response(200)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_POST(self):  # noqa: N802 — http.server API
+        if self.path != "/graphql":
+            self.send_error(404)
+            return
+        req = json.loads(self.rfile.read(int(self.headers.get("Content-Length", 0))))
+        query, var, srv = req.get("query", ""), req.get("variables") or {}, self.server
+        with srv.lock:
+            if "manager_getToken" in query:
+                if var.get("key") != CLOUD["key"]:
+                    return self._reply(error="invalid access key")
+                token = cloud_token()
+                srv.tokens.add(token)
+                return self._reply({"manager_getToken": token})
+            if self.headers.get("Authorization", "")[len("Bearer "):] not in srv.tokens:
+                return self._reply(error="unauthorized")
+            if "manager_createSpace" in query:
+                sid = max(srv.spaces, default=0) + 1
+                name = var["name"]
+                srv.spaces[sid] = {"id": sid, "name": name, "namespace": f"space-{name}-{sid}",
+                                   "created": "2026-01-01T00:00:00Z",
+                                   "domain": f"{name}.spaces.local"}
+                return self._reply({"manager_createSpace": srv.spaces[sid]})
+            if "manager_spaces" in query:
+                return self._reply({"manager_spaces": list(srv.spaces.values())})
+            if "manager_deleteSpace" in query:
+                return self._reply({"manager_deleteSpace":
+                                    srv.spaces.pop(var["id"], None) is not None})
+            if "manager_serviceAccount" in query:
+                space = srv.spaces.get(var["id"])
+                if space is None:
+                    return self._reply(error="space not found")
+                token = cloud_token()
+                srv.tokens.add(token)
+                return self._reply({"manager_serviceAccount": {
+                    "namespace": space["namespace"], "server": CLOUD["server"],
+                    "caCert": base64.b64encode(b"smoke CA").decode(), "token": token}})
+            if "manager_registryAuth" in query:
+                return self._reply({"manager_registryAuth": {
+                    "registry": "registry.local", "username": "smoke", "password": "smoke"}})
+            return self._reply(error=f"unknown operation: {query[:60]}")
+
+    def log_message(self, *args):
+        pass
+
+
+@contextlib.contextmanager
+def fake_cloud():
+    """A :class:`FakeCloud` on a free local port: ``(server, url)``."""
+    server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), FakeCloud)
+    server.spaces, server.tokens, server.lock = {}, set(), threading.Lock()
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield server, f"http://127.0.0.1:{server.server_address[1]}"
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+
+
+def package_repo(root: str) -> str:
+    """A chart repo in ``root`` (``index.yaml`` and one chart dir) holding
+    CLOUD["package"] 1.0.0, whose one template is a ConfigMap."""
+    chart_dir = os.path.join(root, "charts", CLOUD["package"])
+    os.makedirs(os.path.join(chart_dir, "templates"))
+    files = {"chart.yaml": f"name: {CLOUD['package']}\nversion: 1.0.0\n",
+             "values.yaml": "greeting: hello\n",
+             os.path.join("templates", "configmap.yaml"): PACKAGE_TEMPLATE}
+    for name, text in files.items():
+        with open(os.path.join(chart_dir, name), "w") as fh:
+            fh.write(text)
+    with open(os.path.join(root, "index.yaml"), "w") as fh:
+        yaml.safe_dump({"entries": {CLOUD["package"]: [
+            {"version": "1.0.0", "description": "one ConfigMap",
+             "path": f"charts/{CLOUD['package']}"}]}}, fh)
+    return root
+
+
 def phase_cluster(dev, card) -> dict:
-    """The deploy phase's project applied to a cluster by the port's CLI,
-    as a user applies it: ``deploy`` (the lint preflight, ``FakeBuilder``,
-    ``deploy_all``: ``ChartDeployer.deploy`` applies into the fake, whose
-    pods are synthesized, ``_wait_ready`` passes, the release is
-    recorded), ``status deployments`` (a row for the StatefulSet) and
-    ``print --manifests`` (the applied objects, without the status
-    stamps), each a process in the project's dir with
-    ``DEVSPACE_FAKE_BACKEND``. From the objects the fake stored, the
-    StatefulSet and worker 0 (``slice_workers``; ``NODE_RANK=0`` in its
-    env, as the fake resolves chart-gpu's pod-index fieldRef): the
+    """The deploy phase's project applied by the port's CLI, as a user
+    applies it, into a cloud Space. On a fake cloud control plane
+    (:class:`FakeCloud`): ``add provider smoke --host URL
+    --use-as-default``, ``login --key K --no-browser``, ``create space
+    smoke`` (the Space bound: its context ``devspace-smoke`` in the
+    phase's kubeconfig, its namespace in the project's generated cache),
+    ``list spaces`` (its row active); ``add package settings --repo DIR``
+    (a one-ConfigMap chart vendored into chart-gpu) and ``list packages``.
+    Then ``deploy`` (the lint preflight, ``FakeBuilder``, ``deploy_all``:
+    ``ChartDeployer.deploy`` applies into the fake cluster in the Space's
+    namespace, the fake synthesizes pods, ``_wait_ready`` passes, the
+    release is recorded), ``status deployments`` (a row for the
+    StatefulSet) and ``print --manifests`` (the applied objects, without
+    the status stamps). Each call is a process in the project's dir with
+    ``DEVSPACE_FAKE_BACKEND`` and the phase's own ``DEVSPACE_CLOUD_CONFIG``,
+    ``KUBECONFIG`` and ``DOCKER_CONFIG``. From the objects the fake stored,
+    the StatefulSet and worker 0 (``slice_workers``; ``NODE_RANK=0`` in
+    its env, as the fake resolves chart-gpu's pod-index fieldRef): the
     StatefulSet's command runs in worker 0 through the fake's
     ``exec_stream`` with ``pod_command``'s substitutions but the pod's
     ``NODE_RANK``, in the pod's copy of the project (the image the fake
     builder does not build), and trains the MNIST example as the deploy
-    phase checks it. ``purge`` then leaves no object and no pod."""
+    phase checks it. ``purge`` then leaves no object and no pod, and
+    ``remove space smoke`` no Space on the fake cloud and no
+    ``devspace-smoke`` context."""
     from devspace_tpu_torch.kube.fake import FakeCluster
+    from devspace_tpu_torch.kube.kubeconfig import KubeConfig
 
     t0 = time.monotonic()
     root = tempfile.mkdtemp(prefix="cluster-")
     project, cluster = os.path.join(root, "proj"), os.path.join(root, "cluster")
+    kubeconfig = os.path.join(root, "kubeconfig")
+    extra = {"DEVSPACE_CLOUD_CONFIG": os.path.join(root, "clouds.yaml"),
+             "KUBECONFIG": kubeconfig, "DOCKER_CONFIG": os.path.join(root, "docker")}
     calls = []
 
     def cli(*args):
-        call = run_cli(list(args), project, cluster)
+        call = run_cli(list(args), project, cluster, extra)
         calls.append({k: call[k] for k in ("args", "rc", "s")})
         assert call["rc"] == 0, call
         return call
 
+    stack = contextlib.ExitStack()
     try:
+        cloud, url = stack.enter_context(fake_cloud())
         os.makedirs(project)
         deploy_project(project, ["train.py", "--steps", str(DEPLOY["steps"])], DEPLOY["gpu"])
+        repo = package_repo(os.path.join(root, "repo"))
+        space = CLOUD["space"]
+        cli("add", "provider", space, "--host", url, "--use-as-default")
+        cli("login", "--key", CLOUD["key"], "--no-browser")
+        cli("create", "space", space)
+        (bound,) = cloud.spaces.values()
+        namespace, context = bound["namespace"], f"devspace-{space}"
+        rows = [ln.split() for ln in cli("list", "spaces")["out"].splitlines()]
+        assert [space, str(bound["id"]), namespace, bound["domain"], "*"] in rows, rows
+        current_context = KubeConfig.load(kubeconfig).current_context
+        assert current_context == context, current_context
+        cli("add", "package", CLOUD["package"], "--repo", repo)
+        rows = [ln.split() for ln in cli("list", "packages")["out"].splitlines()]
+        assert [CLOUD["package"], "1.0.0", repo, "yes"] in rows, rows
         cli("deploy")
         status = cli("status", "deployments")
         with open(os.path.join(project, ".devspace", "config.yaml")) as fh:
@@ -2369,14 +2522,19 @@ def phase_cluster(dev, card) -> dict:
                    for ln in status["out"].splitlines()), status["out"]
         printed = [d for d in yaml.safe_load_all(cli("print", "--manifests")["out"]) if d]
         fc = FakeCluster(cluster, persist=True)
+        # every object, the release record and the package's ConfigMap too,
+        # lies in the Space's namespace
+        namespaces = {ns for _, ns, _ in fc.objects} | {ns for ns, _ in fc.pods}
+        assert namespaces == {namespace}, namespaces
         # the release record is the deployer's, not the chart's
         applied = {(kind, n): m for (kind, _, n), m in fc.objects.items()
                    if not n.startswith(RELEASE_CONFIGMAP_PREFIX)}
+        assert ("ConfigMap", f"{name}-{CLOUD['package']}") in applied, sorted(applied)
         assert {(d["kind"], d["metadata"]["name"]): d for d in printed} == \
             {k: without_status(m) for k, m in applied.items()}, (printed, applied)
-        sts = fc.get_object("apps/v1", "StatefulSet", name)
-        (worker,) = fc.slice_workers({"app": name}, expected=DEPLOY["gpu"]["workers"],
-                                     timeout=10)
+        sts = fc.get_object("apps/v1", "StatefulSet", name, namespace)
+        (worker,) = fc.slice_workers({"app": name}, namespace,
+                                     expected=DEPLOY["gpu"]["workers"], timeout=10)
         pod_env = worker.container_env()
         assert pod_env.get("NODE_RANK") == "0", (worker.name, pod_env)
         (c,) = sts["spec"]["template"]["spec"]["containers"]
@@ -2402,7 +2560,12 @@ def phase_cluster(dev, card) -> dict:
         after = FakeCluster(cluster, persist=True)
         left = {"objects": sorted(map(list, after.objects)), "pods": sorted(map(list, after.pods))}
         assert left == {"objects": [], "pods": []}, left
+        cli("remove", "space", space)
+        contexts = sorted(KubeConfig.load(kubeconfig).contexts)
+        left_cloud = {"spaces": list(cloud.spaces.values()), "contexts": contexts}
+        assert left_cloud == {"spaces": [], "contexts": []}, left_cloud
     finally:
+        stack.close()
         shutil.rmtree(root, ignore_errors=True)
     assert pod["rc"] == 0 and pod["done"], pod["tail"]
     backend = pmesh.backend_for(dev)
@@ -2413,11 +2576,14 @@ def phase_cluster(dev, card) -> dict:
     want = DEPLOY["steps"] if dev.type == "cuda" else 0
     assert pod["launches"] == want, (pod["launches"], want)
     return {"phase": "cluster", "card": card, "gpu": DEPLOY["gpu"], "cli": calls,
+            "space": {"name": space, "id": bound["id"], "namespace": namespace,
+                      "context": current_context},
+            "namespaces": sorted(namespaces), "package": f"{name}-{CLOUD['package']}",
             "applied_kinds": sorted(kind for kind, _ in applied), "worker": worker.name,
             "pod_env": pod_env, "argv": argv, "substitutions": subs, "world": pod["world"],
             "steps": DEPLOY["steps"], "losses_every_100": losses, "loss_at_check_step": at,
             "xent_launches": pod["launches"], "run_s": run_s, "left_after_purge": left,
-            "seconds": time.monotonic() - t0}
+            "left_after_remove_space": left_cloud, "seconds": time.monotonic() - t0}
 
 
 # -- the dev loop: the project synced into a two-worker job and trained there -----

@@ -20,8 +20,9 @@ devspace_tpu_torch.serve --port N``). The host side that takes a project
 to a cluster: ``config/``, ``generator/``, ``deploy/``, ``lint/``,
 ``kube/`` (the API-server client and a fake cluster), ``builder/``,
 ``analyze/``, ``sync/`` (the file sync engine), ``services/`` (the dev
-session's sync, port forwarding, logs and terminal) and ``cli/``
-(``python -m devspace_tpu_torch deploy``, ``... dev``).
+session's sync, port forwarding, logs and terminal), ``cloud/`` (cloud
+providers and their Spaces) and ``cli/`` (``python -m
+devspace_tpu_torch deploy``, ``... dev``).
 """
 
 __version__ = "0.1.0"

@@ -2,12 +2,13 @@
 
 The port's copy of ``devspace_tpu/cli/context.py`` (reference: the
 per-command preamble every cobra command runs — configutil.SetDevSpaceRoot,
-kubectl.NewClient, cmd/dev.go:130-160). Backend precedence: the
-``DEVSPACE_FAKE_BACKEND`` env (a local fake cluster for clusterless
-deploys and tests) > the inline cluster of config.yaml > a kubeconfig
-context (``--kube-context``, the config's ``cluster.kubeContext``, else
-the kubeconfig's current context). The reference's bound cloud Space
-(``cloud.configure``) waits for the port's ``cloud/`` (ROADMAP A22).
+cloud.Configure, kubectl.NewClient, cmd/dev.go:130-160). Backend
+precedence: the ``DEVSPACE_FAKE_BACKEND`` env (a local fake cluster for
+clusterless deploys and tests) > the inline cluster of config.yaml > a
+kubeconfig context (``--kube-context``, the config's
+``cluster.kubeContext``, else the bound cloud Space's ``devspace-<space>``
+context through ``cloud.configure``, else the kubeconfig's current
+context). A bound Space's namespace wins over the default namespace.
 With no backend it can reach, the context raises :class:`CLIError`; it
 never falls back to the fake.
 """
@@ -57,6 +58,12 @@ class Context:
             return flag
         if self.config is not None and self.config.cluster and self.config.cluster.namespace:
             return self.config.cluster.namespace
+        # Bound cloud Space: its service account is namespace-scoped, so the
+        # space namespace must win over the plain "default" fallback
+        # (reference: cloud.Configure re-binds config to the active space).
+        space = self.loader.generated.space
+        if space is not None and space.namespace:
+            return space.namespace
         if self.config is not None:
             return get_default_namespace(self.config)
         return "default"
@@ -103,6 +110,13 @@ class Context:
         context = getattr(self.args, "kube_context", None) or (
             cluster.kube_context if cluster else None
         )
+        if context is None:
+            # Bound cloud Space wins over the kubeconfig's current context
+            # (reference: cloud.Configure at the top of every command,
+            # cmd/dev.go:142 -> cloud/configure.go:79-118).
+            from ..cloud.configure import configure as cloud_configure
+
+            context = cloud_configure(self.loader.generated, self.log)
         try:
             transport = KubeTransport.from_kubeconfig(
                 context=context, namespace=self.namespace

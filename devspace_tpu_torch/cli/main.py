@@ -23,13 +23,19 @@ output and exit codes:
 - the project-editing commands: ``add``/``remove``
   ``sync|port|selector|deployment|image``, ``list
   deployments|images|ports|sync|selectors|vars|configs``, ``use
-  config|context|namespace`` and ``update config``.
-
-Not ported yet: the cloud commands (``login``, ``create space``, ``use
-space|registry``, ``list spaces|providers``, ``remove
-space|provider|context``, ``add provider``), the package commands
-(``add|remove|list package(s)``, ``update packages``), ``search``,
-``upgrade``, ``install`` and the start-up version notice.
+  config|context|namespace`` and ``update config``;
+- the cloud commands, over the port's ``cloud/`` and the same
+  ``~/.devspace/clouds.yaml`` as the reference's: ``add|remove
+  provider``, ``login``, ``create space``, ``use space|registry``, ``list
+  spaces|providers``, ``remove space`` and ``remove context [--all]``;
+- the package commands, over ``deploy/packages.py``: ``add|remove
+  package``, ``list packages``, ``search`` and ``update packages
+  [--apply]``;
+- ``upgrade`` and ``install`` and the start-up version notice, which act
+  on the port alone: ``upgrade --archive`` reads and swaps
+  ``devspace_tpu_torch/`` only, ``install`` writes a launcher named
+  ``devspace-tpu-torch``, and the notice stamps its daily check in
+  ``~/.devspace/version_check_torch.json``.
 """
 
 from __future__ import annotations
@@ -1420,6 +1426,12 @@ def cmd_remove(args) -> int:
 # -- list -------------------------------------------------------------------
 def cmd_list(args) -> int:
     """Reference: cmd/list/*.go."""
+    if args.what == "spaces":
+        return cmd_list_spaces(args)
+    if args.what == "providers":
+        return cmd_list_providers(args)
+    if args.what == "packages":
+        return cmd_list_packages(args)
     ctx = Context(args)
     cfg = ctx.config
     log = ctx.log
@@ -1521,6 +1533,313 @@ def cmd_use(args) -> int:
     return 0
 
 
+# -- packages ---------------------------------------------------------------
+def _chart_dir(ctx: Context) -> str:
+    """The first chart deployment's chart dir (default ./chart)."""
+    for d in ctx.config.deployments or []:
+        if d.chart and d.chart.path:
+            return os.path.join(ctx.root, d.chart.path)
+    return os.path.join(ctx.root, "chart")
+
+
+def _package_repo(args) -> str:
+    repo = getattr(args, "repo", None) or os.environ.get("DEVSPACE_CHART_REPO")
+    if not repo:
+        raise CLIError(
+            "no chart repo — pass --repo or set DEVSPACE_CHART_REPO"
+        )
+    return repo
+
+
+def cmd_add_package(args) -> int:
+    """Reference: cmd/add/package.go -> configure/package.go."""
+    from ..deploy.packages import PackageError, add_package, search_charts
+
+    ctx = Context(args)
+    try:
+        add_package(
+            _chart_dir(ctx), _package_repo(args), args.name, args.version, ctx.log
+        )
+    except PackageError as e:
+        ctx.log.error(str(e))
+        try:
+            hits = search_charts(_package_repo(args), args.name)
+            if hits:
+                ctx.log.info(
+                    "did you mean: %s", ", ".join(h.name for h in hits[:5])
+                )
+        except (PackageError, CLIError):
+            pass
+        return 1
+    return 0
+
+
+def cmd_remove_package(args) -> int:
+    from ..deploy.packages import remove_package
+
+    ctx = Context(args)
+    return 0 if remove_package(_chart_dir(ctx), args.name, ctx.log) else 1
+
+
+def cmd_list_packages(args) -> int:
+    from ..deploy.packages import list_packages
+
+    ctx = Context(args)
+    ctx.log.print_table(
+        ["NAME", "VERSION", "REPOSITORY", "VENDORED"],
+        [
+            [p["name"], p["version"], p["repository"], "yes" if p["vendored"] else "MISSING"]
+            for p in list_packages(_chart_dir(ctx))
+        ],
+    )
+    return 0
+
+
+def cmd_search(args) -> int:
+    """Reference: helm/search.go — chart repo search."""
+    from ..deploy.packages import PackageError, search_charts
+
+    log = logutil.get_logger()
+    try:
+        hits = search_charts(_package_repo(args), args.query or "")
+    except PackageError as e:
+        log.error(str(e))
+        return 1
+    log.print_table(
+        ["NAME", "VERSION", "DESCRIPTION"],
+        [[h.name, h.version, h.description] for h in hits],
+    )
+    return 0
+
+
+# -- cloud ------------------------------------------------------------------
+def _provider(args):
+    """Build a Provider from the registry honoring --provider."""
+    from ..cloud.config import ProviderRegistry
+    from ..cloud.provider import Provider
+
+    registry = ProviderRegistry.load()
+    try:
+        entry = registry.get(getattr(args, "provider", None))
+    except KeyError as e:
+        raise CLIError(str(e.args[0])) from e
+    return Provider(entry, registry, logutil.get_logger()), registry
+
+
+def cmd_login(args) -> int:
+    """Reference: cmd/login.go — store a cloud access key."""
+    from ..cloud.provider import CloudError
+
+    provider, _ = _provider(args)
+    try:
+        provider.login(key=args.key, open_browser=not args.no_browser)
+    except CloudError as e:
+        logutil.get_logger().error(str(e))
+        return 1
+    return 0
+
+
+def cmd_create(args) -> int:
+    """Reference: cmd/create/space.go — create and bind a cloud Space."""
+    from ..cloud.configure import bind_space
+    from ..cloud.provider import CloudError
+
+    log = logutil.get_logger()
+    provider, _ = _provider(args)
+    try:
+        provider.ensure_logged_in()
+        space = provider.create_space(args.name)
+        log.done("[cloud] created space '%s' (id %d)", space.name, space.space_id)
+        if not args.no_use:
+            ctx = Context(args, require_config=False)
+            context = bind_space(provider, space, ctx.loader.generated)
+            log.done("[cloud] switched kube context to %s", context)
+    except CloudError as e:
+        log.error(str(e))
+        return 1
+    return 0
+
+
+def cmd_use_space(args) -> int:
+    """Reference: cmd/use/space.go — bind an existing Space."""
+    from ..cloud.configure import bind_space
+    from ..cloud.provider import CloudError
+
+    log = logutil.get_logger()
+    provider, _ = _provider(args)
+    try:
+        provider.ensure_logged_in()
+        space = provider.get_space(args.name)
+        ctx = Context(args, require_config=False)
+        context = bind_space(provider, space, ctx.loader.generated)
+        log.done("[cloud] using space '%s' (kube context %s)", space.name, context)
+    except CloudError as e:
+        log.error(str(e))
+        return 1
+    return 0
+
+
+def cmd_remove_space(args) -> int:
+    """Reference: cmd/remove/space.go — delete Space + local binding."""
+    from ..cloud.configure import remove_kube_context
+    from ..cloud.provider import CloudError
+
+    log = logutil.get_logger()
+    provider, _ = _provider(args)
+    try:
+        space = provider.get_space(args.name)
+        provider.delete_space(space.space_id)
+        remove_kube_context(space.name)
+        ctx = Context(args, require_config=False)
+        gen = ctx.loader.generated
+        if gen.space and gen.space.name == space.name:
+            gen.space = None
+            gen.save()
+        log.done("[cloud] removed space '%s'", space.name)
+    except CloudError as e:
+        log.error(str(e))
+        return 1
+    return 0
+
+
+def cmd_remove_context(args) -> int:
+    """Reference: cmd/remove/context.go — delete devspace-created kube
+    contexts (one space's, or --all). Purely local: --all scans the
+    kubeconfig for the devspace- prefix, so stale contexts of
+    already-deleted spaces are cleaned up too and no login is needed."""
+    from ..cloud.configure import kube_context_name, remove_kube_context
+    from ..kube.kubeconfig import KubeConfig
+
+    log = logutil.get_logger()
+    if args.all:
+        prefix = kube_context_name("")
+        names = [
+            c[len(prefix):]
+            for c in KubeConfig.load().contexts
+            if c.startswith(prefix)
+        ]
+        for name in names:
+            remove_kube_context(name)
+            log.done("[cloud] deleted kube context for space '%s'", name)
+        if not names:
+            log.info("no devspace kube contexts found")
+        return 0
+    if not args.name:
+        log.error("specify a space name or --all")
+        return 1
+    remove_kube_context(args.name)
+    log.done("[cloud] deleted kube context for space '%s'", args.name)
+    return 0
+
+
+def cmd_use_registry(args) -> int:
+    """Reference: cmd/use/registry.go — docker login into the provider's
+    registry with cloud credentials."""
+    from ..builder.dockerclient import save_docker_auth
+    from ..cloud.provider import CloudError
+
+    log = logutil.get_logger()
+    provider, _ = _provider(args)
+    try:
+        provider.ensure_logged_in()
+        auth = provider.get_registry_auth()
+    except CloudError as e:
+        log.error(str(e))
+        return 1
+    if not auth:
+        log.error("provider has no registry credentials")
+        return 1
+    registry = args.name or auth.get("registry")
+    if not registry:
+        log.error("provider did not name a registry; pass one explicitly")
+        return 1
+    save_docker_auth(registry, auth["username"], auth["password"])
+    log.done("[cloud] logged into registry %s", registry)
+    return 0
+
+
+def cmd_add_provider(args) -> int:
+    """Reference: cmd/add/provider.go."""
+    from ..cloud.config import CloudProvider, ProviderRegistry
+
+    registry = ProviderRegistry.load()
+    existing = registry.providers.get(args.name)
+    if existing is not None:
+        # Re-adding updates the host but keeps the stored credentials.
+        existing.host = args.host
+    else:
+        registry.providers[args.name] = CloudProvider(name=args.name, host=args.host)
+    if args.use_as_default:
+        registry.default = args.name
+    registry.save()
+    logutil.get_logger().done("[cloud] provider '%s' added", args.name)
+    return 0
+
+
+def cmd_remove_provider(args) -> int:
+    """Reference: cmd/remove/provider.go."""
+    from ..cloud.config import ProviderRegistry
+
+    log = logutil.get_logger()
+    registry = ProviderRegistry.load()
+    if args.name not in registry.providers:
+        log.error("unknown provider '%s'", args.name)
+        return 1
+    del registry.providers[args.name]
+    if registry.default == args.name:
+        from ..cloud.config import DEFAULT_PROVIDER_NAME
+
+        registry.default = DEFAULT_PROVIDER_NAME
+    registry.save()
+    log.done("[cloud] provider '%s' removed", args.name)
+    return 0
+
+
+def cmd_list_spaces(args) -> int:
+    """Reference: cmd/list/spaces.go."""
+    from ..cloud.provider import CloudError
+
+    log = logutil.get_logger()
+    provider, _ = _provider(args)
+    try:
+        spaces = provider.get_spaces()
+    except CloudError as e:
+        log.error(str(e))
+        return 1
+    root = find_root(os.getcwd())
+    bound = None
+    if root:
+        from ..config.generated import GeneratedConfig
+
+        gen = GeneratedConfig.load(root)
+        bound = gen.space.name if gen.space else None
+    log.print_table(
+        ["NAME", "ID", "NAMESPACE", "DOMAIN", "ACTIVE"],
+        [
+            [s.name, str(s.space_id), s.namespace, s.domain or "-",
+             "*" if s.name == bound else ""]
+            for s in spaces
+        ],
+    )
+    return 0
+
+
+def cmd_list_providers(args) -> int:
+    """Reference: cmd/list/providers (v4) — provider registry table."""
+    from ..cloud.config import ProviderRegistry
+
+    registry = ProviderRegistry.load()
+    logutil.get_logger().print_table(
+        ["NAME", "HOST", "LOGGED IN", "DEFAULT"],
+        [
+            [p.name, p.host, "yes" if p.key else "no",
+             "*" if p.name == registry.default else ""]
+            for p in registry.providers.values()
+        ],
+    )
+    return 0
+
+
 # -- update ---------------------------------------------------------------
 def cmd_update(args) -> int:
     """Reference: cmd/update/config.go — rewrite config at latest schema."""
@@ -1528,6 +1847,71 @@ def cmd_update(args) -> int:
     ctx.loader.save(ctx.config)
     ctx.log.done("[update] config rewritten at schema %s", latest.VERSION)
     return 0
+
+
+def _chart_deployers(ctx):
+    """(deployment, ChartDeployer) for every chart deployment."""
+    from ..deploy.chart import ChartDeployer
+    from ..deploy.manifests import create_deployer
+
+    out = []
+    for d in ctx.config.deployments or []:
+        deployer = create_deployer(ctx.backend, d, ctx.namespace, ctx.root, ctx.log)
+        if isinstance(deployer, ChartDeployer):
+            out.append((d, deployer))
+    return out
+
+
+def cmd_update_packages(args) -> int:
+    """Refresh package repo indexes and report/apply newer vendored chart
+    versions (reference: helm/client.go:169 UpdateRepos; vendoring makes
+    the refresh an explicit command)."""
+    from ..deploy.packages import PackageError, check_updates, upgrade_package
+
+    ctx = Context(args)
+    log = ctx.log
+    rows = []
+    rc = 0
+    index_cache: dict = {}
+    matched = False
+    for d, deployer in _chart_deployers(ctx):
+        chart_dir = deployer.chart_path
+        for row in check_updates(chart_dir, index_cache=index_cache):
+            if args.name and row["name"] != args.name:
+                continue
+            matched = True
+            state = (
+                row["error"]
+                or ("update available" if row["update"] else "up to date")
+            )
+            current = row["current"]
+            if row["error"]:
+                rc = 1
+            elif row["update"] and getattr(args, "apply", False):
+                try:
+                    upgrade_package(
+                        chart_dir, row["name"], logger=log,
+                        index_cache=index_cache,
+                    )
+                    current = row["latest"]
+                    state = f"upgraded from {row['current']}"
+                except PackageError as e:
+                    log.error("[update] %s: %s", row["name"], e)
+                    state = f"upgrade failed: {e}"
+                    rc = 1
+            rows.append(
+                [d.name, row["name"], current, row["latest"], state]
+            )
+    if args.name and not matched:
+        log.error("[update] package '%s' is not vendored here", args.name)
+        return 1
+    if not rows:
+        log.info("[update] no vendored packages found")
+        return 0
+    logutil.get_logger().print_table(
+        ["DEPLOYMENT", "PACKAGE", "CURRENT", "LATEST", "STATE"], rows
+    )
+    return rc
 
 
 # -- lint -----------------------------------------------------------------
@@ -1613,6 +1997,247 @@ def cmd_lint(args) -> int:
     findings = filter_findings(findings, select, ignore)
     _emit_lint_report(log, findings, fmt, n_objects)
     return _lint_exit_code(findings, strict)
+
+
+def _checkout_root() -> str:
+    """Checkout containing the devspace_tpu_torch package (cli/ ->
+    package -> checkout)."""
+    return os.path.dirname(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    )
+
+
+_VERSION_RE = r"__version__\s*=\s*[\"']([^\"']+)[\"']"
+
+
+def _archive_version(tf) -> tuple[Optional[str], Optional[str]]:
+    """(version, package_root) read from devspace_tpu_torch/__init__.py
+    inside a release tarball. The SHALLOWEST match wins — a
+    vendored/fixture copy deeper in the tree
+    (tests/fixtures/devspace_tpu_torch/...) must never be mistaken for
+    the real package. A reference archive, which holds no
+    devspace_tpu_torch/, gives (None, None)."""
+    import re as _re
+
+    best: tuple[int, str, str] = None
+    for m in tf.getmembers():
+        parts = m.name.split("/")
+        if parts[-2:] == ["devspace_tpu_torch", "__init__.py"]:
+            text = tf.extractfile(m).read().decode("utf-8", "replace")
+            found = _re.search(_VERSION_RE, text)
+            if found and (best is None or len(parts) < best[0]):
+                best = (len(parts), found.group(1), "/".join(parts[:-1]))
+    if best is None:
+        return None, None
+    return best[1], best[2]
+
+
+def _installed_version(checkout: str) -> Optional[str]:
+    """Version of the package INSTALLED at the target checkout (which is
+    not necessarily the running module's __version__)."""
+    import re as _re
+
+    try:
+        with open(
+            os.path.join(checkout, "devspace_tpu_torch", "__init__.py"),
+            encoding="utf-8",
+        ) as fh:
+            found = _re.search(_VERSION_RE, fh.read())
+            return found.group(1) if found else None
+    except OSError:
+        return None
+
+
+def cmd_upgrade(args) -> int:
+    """Reference: cmd/upgrade.go — self-update via a release artifact
+    (upstream downloads a GitHub release binary and swaps it in). This
+    build's artifact is a source tarball: ``upgrade --archive PATH``
+    validates it, compares versions, and atomically replaces the
+    ``devspace_tpu_torch`` package (backup + rollback on failure) — the
+    egress-free equivalent of the release flow. Only that directory is
+    read from the archive and swapped; the checkout's ``devspace_tpu/``
+    is never touched. ``--apply`` keeps the git-checkout pull for
+    development installs. Git checkouts REFUSE --archive without
+    --force: swapping the package inside a working repo destroys
+    uncommitted work (development installs upgrade via git; release
+    installs have no .git)."""
+    import tarfile as _tarfile
+
+    log = logutil.get_logger()
+    checkout = _checkout_root()
+    archive = getattr(args, "archive", None)
+    if archive:
+        if os.path.exists(os.path.join(checkout, ".git")) and not getattr(
+            args, "force", False
+        ):
+            log.error(
+                "[upgrade] %s is a git checkout — use 'upgrade --apply' "
+                "(git pull) for development installs, or --force to "
+                "overwrite the package anyway (uncommitted changes in "
+                "devspace_tpu_torch/ WILL be lost)",
+                checkout,
+            )
+            return 1
+        pkg_dir = os.path.join(checkout, "devspace_tpu_torch")
+        import shutil as _shutil
+        import tempfile as _tempfile
+
+        current = _installed_version(checkout) or __version__
+        force = getattr(args, "force", False)
+        try:
+            with _tarfile.open(archive, "r:*") as tf:
+                new_version, pkg_root = _archive_version(tf)
+                if new_version is None:
+                    log.error(
+                        "[upgrade] %s contains no devspace_tpu_torch/__init__.py "
+                        "with a __version__", archive,
+                    )
+                    return 1
+                if new_version == current and not force:
+                    log.info(
+                        "[upgrade] already at %s (use --force to reinstall)",
+                        current,
+                    )
+                    return 0
+                from ..deploy.packages import _version_key
+
+                if _version_key(new_version) < _version_key(current) and not force:
+                    log.error(
+                        "[upgrade] %s is OLDER than the installed %s — "
+                        "refusing to downgrade (use --force to override)",
+                        new_version, current,
+                    )
+                    return 1
+                # stage INSIDE the checkout: same filesystem, so both
+                # swaps below are atomic os.rename (a cross-device move
+                # could fail half-copied)
+                staging = _tempfile.mkdtemp(
+                    prefix=".devspace-upgrade-", dir=checkout
+                )
+                try:
+                    members = [
+                        m
+                        for m in tf.getmembers()
+                        if m.name == pkg_root
+                        or m.name.startswith(pkg_root + "/")
+                    ]
+                    for m in members:  # refuse path escapes
+                        target = os.path.normpath(os.path.join(staging, m.name))
+                        if not target.startswith(os.path.abspath(staging)):
+                            log.error(
+                                "[upgrade] archive member escapes: %s", m.name
+                            )
+                            return 1
+                    tf.extractall(staging, members=members, filter="data")
+                    new_pkg = os.path.join(staging, pkg_root)
+                    backup = pkg_dir + ".bak"
+                    if os.path.isdir(backup):
+                        _shutil.rmtree(backup)
+                    os.rename(pkg_dir, backup)
+                    try:
+                        os.rename(new_pkg, pkg_dir)
+                    except BaseException:
+                        # clear any partial state, then restore
+                        if os.path.isdir(pkg_dir):
+                            _shutil.rmtree(pkg_dir, ignore_errors=True)
+                        os.rename(backup, pkg_dir)
+                        raise
+                    _shutil.rmtree(backup)
+                finally:
+                    _shutil.rmtree(staging, ignore_errors=True)
+        except (OSError, _tarfile.TarError, EOFError) as e:
+            # tarfile.open only reads the header: a truncated body fails
+            # later in getmembers/extractall — catch the whole flow
+            log.error("[upgrade] cannot read archive %s: %s", archive, e)
+            return 1
+        log.done("[upgrade] %s -> %s (from %s)", current, new_version, archive)
+        return 0
+    if not getattr(args, "apply", False):
+        log.info(
+            "devspace-tpu-torch %s — run 'devspace-tpu-torch upgrade --apply' "
+            "to git pull %s, or 'upgrade --archive <release.tgz>' to install "
+            "a release artifact",
+            __version__,
+            checkout,
+        )
+        return 0
+    import subprocess
+
+    # .git is a FILE for worktrees/submodules — only absence means non-git
+    if not os.path.exists(os.path.join(checkout, ".git")):
+        # degrade gracefully outside a git checkout (tarball installs)
+        # instead of letting git error out confusingly
+        log.warn(
+            "[upgrade] %s is not a git checkout — self-update is only "
+            "supported for git installs; re-install from a release "
+            "artifact instead",
+            checkout,
+        )
+        return 1
+    try:
+        out = subprocess.run(
+            ["git", "-C", checkout, "pull", "--ff-only"],
+            capture_output=True,
+            text=True,
+            timeout=120,
+            check=True,
+        )
+        lines = (out.stdout or "").strip().splitlines()
+        log.done("[upgrade] %s", lines[-1] if lines else "up to date")
+        return 0
+    except (OSError, subprocess.SubprocessError) as e:
+        detail = getattr(e, "stderr", "") or str(e)
+        log.error("[upgrade] git pull failed: %s", detail.strip())
+        return 1
+
+
+def cmd_install(args) -> int:
+    """Reference: cmd/install.go — put a launcher on PATH. It is named
+    ``devspace-tpu-torch`` and runs ``python -m devspace_tpu_torch``, so it
+    never overwrites the reference's ``devspace-tpu``."""
+    log = logutil.get_logger()
+    checkout = _checkout_root()
+    bin_dir = args.bin_dir or os.path.join(os.path.expanduser("~"), ".local", "bin")
+    os.makedirs(bin_dir, exist_ok=True)
+    launcher = os.path.join(bin_dir, "devspace-tpu-torch")
+    with open(launcher, "w", encoding="utf-8") as fh:
+        fh.write(
+            "#!/bin/sh\n"
+            f'export PYTHONPATH="{checkout}${{PYTHONPATH:+:$PYTHONPATH}}"\n'
+            f'exec "{sys.executable}" -m devspace_tpu_torch "$@"\n'
+        )
+    os.chmod(launcher, 0o755)
+    log.done("[install] wrote %s", launcher)
+    if getattr(args, "update_path", False):
+        # Persist the PATH addition to the shell rc — keyed off the rc
+        # file's content, not the live PATH, which may only transiently
+        # contain bin_dir (reference: pkg/util/envutil via cmd/install.go).
+        shell = os.path.basename(os.environ.get("SHELL", "sh"))
+        rc = {
+            "bash": "~/.bashrc",
+            "zsh": "~/.zshrc",
+            "fish": "~/.config/fish/config.fish",
+        }.get(shell, "~/.profile")
+        rc_path = os.path.expanduser(rc)
+        if shell == "fish":
+            line = f'set -gx PATH "{bin_dir}" $PATH'
+        else:
+            line = f'export PATH="{bin_dir}:$PATH"'
+        existing = ""
+        if os.path.isfile(rc_path):
+            with open(rc_path, "r", encoding="utf-8") as fh:
+                existing = fh.read()
+        if line not in existing:
+            os.makedirs(os.path.dirname(rc_path), exist_ok=True)
+            with open(rc_path, "a", encoding="utf-8") as fh:
+                fh.write(f"\n# added by devspace-tpu-torch install\n{line}\n")
+            log.done("[install] added %s to PATH via %s", bin_dir, rc)
+    elif bin_dir not in os.environ.get("PATH", "").split(os.pathsep):
+        log.warn(
+            "[install] %s is not on PATH — rerun with --update-path or add it manually",
+            bin_dir,
+        )
+    return 0
 
 
 def cmd_print_config(args) -> int:
@@ -2066,6 +2691,16 @@ def build_parser() -> argparse.ArgumentParser:
     q.add_argument("--dockerfile", default="Dockerfile")
     q.add_argument("--context", default=".")
     sp.set_defaults(fn=cmd_add)
+    q = add_sub.add_parser("provider", help="register a cloud provider")
+    q.add_argument("name")
+    q.add_argument("--host", required=True)
+    q.add_argument("--use-as-default", action="store_true")
+    q.set_defaults(fn=cmd_add_provider)
+    q = add_sub.add_parser("package", help="vendor a chart from a repo")
+    q.add_argument("name")
+    q.add_argument("--repo", help="chart repo (dir, file:// or http(s)://)")
+    q.add_argument("--version")
+    q.set_defaults(fn=cmd_add_package)
 
     sp = sub.add_parser("remove", help="remove config entries")
     rm_sub = sp.add_subparsers(dest="kind", required=True)
@@ -2084,28 +2719,80 @@ def build_parser() -> argparse.ArgumentParser:
     q = rm_sub.add_parser("image")
     q.add_argument("name")
     sp.set_defaults(fn=cmd_remove)
+    q = rm_sub.add_parser("space", help="delete a cloud space")
+    q.add_argument("name")
+    q.add_argument("--provider")
+    q.set_defaults(fn=cmd_remove_space)
+    q = rm_sub.add_parser("provider", help="deregister a cloud provider")
+    q.add_argument("name")
+    q.set_defaults(fn=cmd_remove_provider)
+    q = rm_sub.add_parser("package", help="remove a vendored chart")
+    q.add_argument("name")
+    q.set_defaults(fn=cmd_remove_package)
+    q = rm_sub.add_parser("context", help="remove a space's kube context")
+    q.add_argument("name", nargs="?")
+    q.add_argument("--all", action="store_true")
+    q.set_defaults(fn=cmd_remove_context)
 
     sp = sub.add_parser("list", help="list config entries")
     sp.add_argument(
         "what",
         choices=[
             "deployments", "images", "ports", "sync", "selectors", "vars",
-            "configs",
+            "configs", "spaces", "providers", "packages",
         ],
     )
+    sp.add_argument("--provider")
     sp.set_defaults(fn=cmd_list)
 
-    sp = sub.add_parser("use", help="select config/context/namespace")
+    sp = sub.add_parser("search", help="search a chart repo")
+    sp.add_argument("query", nargs="?")
+    sp.add_argument("--repo", help="chart repo (dir, file:// or http(s)://)")
+    sp.set_defaults(fn=cmd_search)
+
+    sp = sub.add_parser("use", help="select config/context/namespace/space")
     use_sub = sp.add_subparsers(dest="kind", required=True)
     for kind in ("config", "context", "namespace"):
         q = use_sub.add_parser(kind)
         q.add_argument("name")
+    q = use_sub.add_parser("space", help="bind a cloud space")
+    q.add_argument("name")
+    q.add_argument("--provider")
+    q.set_defaults(fn=cmd_use_space)
+    q = use_sub.add_parser("registry", help="docker login via cloud creds")
+    q.add_argument("name", nargs="?")
+    q.add_argument("--provider")
+    q.set_defaults(fn=cmd_use_registry)
     sp.set_defaults(fn=cmd_use)
 
-    sp = sub.add_parser("update", help="update config schema")
+    sp = sub.add_parser("login", help="log in to a cloud provider")
+    sp.add_argument("--key", help="access key (skips the browser flow)")
+    sp.add_argument("--provider")
+    sp.add_argument("--no-browser", action="store_true")
+    sp.set_defaults(fn=cmd_login)
+
+    sp = sub.add_parser("create", help="create cloud resources")
+    create_sub = sp.add_subparsers(dest="kind", required=True)
+    q = create_sub.add_parser("space")
+    q.add_argument("name")
+    q.add_argument("--provider")
+    q.add_argument("--no-use", action="store_true", help="create without binding")
+    q.set_defaults(fn=cmd_create)
+
+    sp = sub.add_parser(
+        "update", help="update config schema / refresh package indexes"
+    )
     up_sub = sp.add_subparsers(dest="kind")
     q = up_sub.add_parser("config", help="rewrite config at the latest schema")
     q.set_defaults(fn=cmd_update)
+    q = up_sub.add_parser(
+        "packages", help="check chart repos for newer vendored versions"
+    )
+    q.add_argument("name", nargs="?", help="limit to one package")
+    q.add_argument(
+        "--apply", action="store_true", help="re-vendor newer versions"
+    )
+    q.set_defaults(fn=cmd_update_packages)
     sp.set_defaults(fn=cmd_update)
 
     sp = sub.add_parser(
@@ -2137,6 +2824,29 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sp.set_defaults(fn=cmd_lint)
 
+    sp = sub.add_parser("upgrade", help="upgrade the framework checkout")
+    sp.add_argument("--apply", action="store_true", help="run git pull")
+    sp.add_argument(
+        "--archive", help="install a release tarball (source artifact)"
+    )
+    sp.add_argument(
+        "--force",
+        action="store_true",
+        help="reinstall same version / overwrite a git checkout",
+    )
+    sp.set_defaults(fn=cmd_upgrade)
+
+    sp = sub.add_parser(
+        "install", help="install a devspace-tpu-torch launcher on PATH"
+    )
+    sp.add_argument("--bin-dir", help="target dir (default ~/.local/bin)")
+    sp.add_argument(
+        "--update-path",
+        action="store_true",
+        help="append an export PATH line to your shell rc if the dir is not on PATH",
+    )
+    sp.set_defaults(fn=cmd_install)
+
     sp = sub.add_parser("print", help="print the resolved config")
     sp.add_argument(
         "--manifests",
@@ -2149,10 +2859,110 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _maybe_warn_newer_version(command: str) -> None:
+    """Startup newer-version notice (reference: cmd/root.go:42 ->
+    upgrade.CheckForNewerVersion — every invocation warns when a newer
+    CLI exists; upstream asks the GitHub releases API and skips
+    alpha/beta builds). Zero-egress equivalent: scan the release-channel
+    directory (``DEVSPACE_RELEASE_DIR``, the same artifacts ``upgrade
+    --archive`` consumes) for a newer stable archive, at most once per
+    day (stamped in ``~/.devspace/version_check_torch.json``, apart from
+    the reference's ``version_check.json``, so one package's check never
+    silences the other's notice), and print the reference's hint naming
+    the port's launcher. Only archives holding ``devspace_tpu_torch/``
+    count. Never raises — a broken channel must not break the command
+    being run."""
+    import json as _json
+    import tarfile as _tarfile
+    import time as _time
+
+    from .. import __version__
+
+    if command in ("upgrade", "print"):
+        return  # upgrade IS the action; print output is parsed by tools
+    if os.environ.get("DEVSPACE_SKIP_VERSION_CHECK") == "1":
+        return
+    if "-" in __version__:
+        return  # pre-release builds don't nag (reference: root.go:38)
+    release_dir = os.environ.get("DEVSPACE_RELEASE_DIR")
+    if not release_dir or not os.path.isdir(release_dir):
+        return
+    stamp_path = os.path.join(
+        os.path.expanduser("~"), ".devspace", "version_check_torch.json"
+    )
+    now = _time.time()
+    # the "never raises" guarantee is structural, not per-site: any
+    # surprise in the stamp file, a hostile tarball member, or the
+    # channel dir itself must degrade to "no notice", not a traceback
+    # before the user's actual command runs
+    try:
+        try:
+            with open(stamp_path, encoding="utf-8") as fh:
+                stamp = _json.load(fh)
+            if (
+                isinstance(stamp, dict)
+                and stamp.get("release_dir") == release_dir
+                and now - float(stamp.get("checked_at") or 0) < 86400
+            ):
+                return  # warned (or found nothing) within the last day
+        except (OSError, ValueError, TypeError):
+            pass
+        from ..deploy.packages import _version_key
+
+        import re as _re
+
+        newest: Optional[tuple] = None  # (key, version, path)
+        cur_key = _version_key(__version__)
+        for name in sorted(os.listdir(release_dir)):
+            if not name.endswith((".tar.gz", ".tgz")):
+                continue
+            path = os.path.join(release_dir, name)
+            # filename-first screening: decompressing every archive in
+            # the channel just to read __init__.py would stall the first
+            # command of the day on a channel of multi-hundred-MB
+            # tarballs; a version-looking filename that is not an
+            # upgrade skips the open. Only the LEADING numeric version
+            # is compared — a dash suffix may be a platform/build tag
+            # (2.0.0-linux-x86_64), not a pre-release, so anything
+            # numerically newer is opened and the archive's embedded
+            # version stays the truth (it rejects pre-releases below).
+            m = _re.search(r"(\d+(?:\.\d+)+)[^/]*\.(tar\.gz|tgz)$", name)
+            if m and _version_key(m.group(1)) <= cur_key:
+                continue
+            try:
+                with _tarfile.open(path, "r:gz") as tf:
+                    version, _ = _archive_version(tf)
+            except Exception:  # noqa: BLE001 — any malformed archive
+                continue
+            if not version or "-" in version:
+                continue  # pre-releases never count as upgrades
+            key = _version_key(version)
+            if key > cur_key and (newest is None or key > newest[0]):
+                newest = (key, version, path)
+        try:
+            os.makedirs(os.path.dirname(stamp_path), exist_ok=True)
+            with open(stamp_path, "w", encoding="utf-8") as fh:
+                _json.dump(
+                    {"checked_at": now, "release_dir": release_dir}, fh
+                )
+        except OSError:
+            pass  # stampless: worst case the scan repeats next run
+        if newest is not None:
+            logutil.get_logger().warn(
+                "There is a newer version of devspace-tpu-torch v%s. Run "
+                "`devspace-tpu-torch upgrade --archive %s` to update the cli.",
+                newest[1],
+                newest[2],
+            )
+    except Exception:  # noqa: BLE001
+        return
+
+
 def main(argv: Optional[list[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     if args.debug:
         logutil.get_logger().level = "debug"
+    _maybe_warn_newer_version(args.cmd)
     root = find_root(os.getcwd())
     if root is not None:
         # Mirror everything into .devspace/logs/default.log (reference:

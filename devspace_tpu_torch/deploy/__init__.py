@@ -1,5 +1,5 @@
-"""The port's deploy layer, render half: its own copy of the Go-template
-dialect (``gotemplate``), the chart renderer and ``ChartDeployer``'s
-render path (``chart``), and the raw-manifest render path
-(``manifests``). Applying to a cluster needs ``kube/``, which the port
-does not have yet."""
+"""The port's deploy layer: its own copy of the Go-template dialect
+(``gotemplate``), the chart renderer and ``ChartDeployer`` (``chart``),
+the raw-manifest deployer (``manifests``), both applying through a
+``kube/`` backend, the chart packages vendored from chart repos
+(``packages``) and the legacy list-of-strings lint shims (``lint``)."""

@@ -22,6 +22,8 @@ from .engine import (
     CHART_CATEGORIES,
     ERROR,
     INFO,
+    LEGACY_GPU_CATEGORIES,
+    LEGACY_MANIFEST_CATEGORIES,
     REGISTRY,
     SEVERITIES,
     WARNING,
@@ -64,6 +66,8 @@ __all__ = [
     "CHART_CATEGORIES",
     "ERROR",
     "INFO",
+    "LEGACY_GPU_CATEGORIES",
+    "LEGACY_MANIFEST_CATEGORIES",
     "REGISTRY",
     "SEVERITIES",
     "WARNING",

@@ -43,7 +43,8 @@ class Finding:
     line: int = 0  # 1-based source line for file-backed findings (0 = n/a)
 
     def legacy(self) -> str:
-        """``KIND/name: message``, the form the SARIF message carries."""
+        """``KIND/name: message``, the form the SARIF message carries and
+        the compat shims in ``deploy.lint`` return."""
         return f"{self.location}: {self.message}" if self.location else self.message
 
     def sort_key(self) -> tuple:
@@ -197,6 +198,10 @@ def count_by_severity(findings: Iterable[Finding]) -> dict[str, int]:
     return counts
 
 
+# Categories covered by the pre-engine deploy.lint API — the compat shims
+# run exactly these, as the reference's run its manifest and tpu sets.
+LEGACY_MANIFEST_CATEGORIES = frozenset({"manifest"})
+LEGACY_GPU_CATEGORIES = frozenset({"gpu"})
 # Everything the chart-level entry points run: the structural rules, the
 # GPU job rules and the advisory hygiene rules.
 CHART_CATEGORIES = frozenset({"manifest", "gpu", "hygiene"})

@@ -415,17 +415,31 @@ def test_deploy_phase_rehearsed_on_the_cpu(monkeypatch):
 
 def test_cluster_phase_rehearsed_on_the_cpu(monkeypatch):
     """The cluster phase's control flow and checks on the CPU: the port's
-    CLI deploys the project into its fake cluster, reports it and prints
-    the applied documents; the applied StatefulSet's command runs in
-    worker 0 through the fake's exec with ``NODE_RANK`` from the pod's
+    CLI adds a provider on the phase's fake cloud, logs in, creates and
+    binds a Space and vendors a one-ConfigMap package, then deploys the
+    project into its fake cluster in the Space's namespace, reports it and
+    prints the applied documents; the applied StatefulSet's command runs
+    in worker 0 through the fake's exec with ``NODE_RANK`` from the pod's
     env (and ``--device=cpu``), a gloo world of one training the MNIST
-    example to step 100 with no kernel launched; purge empties the fake."""
+    example to step 100 with no kernel launched; purge empties the fake
+    and ``remove space`` the fake cloud and the kubeconfig."""
     monkeypatch.setitem(cs.DEPLOY, "steps", 101)
     line = cs.phase_cluster(torch.device("cpu"), "cpu")
-    assert [c["args"] for c in line["cli"]] == [["deploy"], ["status", "deployments"],
-                                                ["print", "--manifests"], ["purge"]]
+    args = [c["args"] for c in line["cli"]]
+    assert args[0][:4] == ["add", "provider", "smoke", "--host"]
+    assert args[1:] == [["login", "--key", cs.CLOUD["key"], "--no-browser"],
+                        ["create", "space", "smoke"], ["list", "spaces"],
+                        ["add", "package", "settings", "--repo", args[4][4]],
+                        ["list", "packages"], ["deploy"], ["status", "deployments"],
+                        ["print", "--manifests"], ["purge"], ["remove", "space", "smoke"]]
     assert all(c["rc"] == 0 for c in line["cli"])
-    assert line["applied_kinds"] == ["PodDisruptionBudget", "Service", "StatefulSet"]
+    assert line["space"] == {"name": "smoke", "id": 1, "namespace": "space-smoke-1",
+                             "context": "devspace-smoke"}
+    assert line["namespaces"] == ["space-smoke-1"]
+    assert line["package"].endswith("-settings")
+    assert line["applied_kinds"] == ["ConfigMap", "PodDisruptionBudget", "Service",
+                                     "StatefulSet"]
+    assert line["left_after_remove_space"] == {"spaces": [], "contexts": []}
     assert line["worker"].endswith("-0") and line["pod_env"] == {"NODE_RANK": "0"}
     assert line["argv"][3] == "--node-rank=0"
     assert line["argv"][6:] == ["train.py", "--steps", "101", "--device=cpu"]

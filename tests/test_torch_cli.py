@@ -280,15 +280,28 @@ def test_no_project_and_the_parser(cli_env, monkeypatch, capsys):
     assert "no .devspace/ project found" in capsys.readouterr().out
     parser = build_parser()
     commands = set(parser._subparsers._group_actions[0].choices)
-    assert commands == {"init", "deploy", "dev", "enter", "logs", "analyze", "purge", "reset",
-                        "status", "lint", "print", "profile", "top", "debug", "collector",
-                        "fleet", "add", "remove", "list", "use", "update"}
+    from devspace_tpu.cli.main import build_parser as jbuild_parser
+
+    assert commands == set(jbuild_parser()._subparsers._group_actions[0].choices) == {
+        "init", "deploy", "dev", "enter", "logs", "analyze", "purge", "reset", "status", "lint",
+        "print", "profile", "top", "debug", "collector", "fleet", "add", "remove", "list", "use",
+        "update", "login", "create", "search", "upgrade", "install"}
     assert parser.parse_args(["status", "sync"]).what == "sync"
     assert parser.parse_args(["status", "serving"]).url == "http://127.0.0.1:8000"
-    for argv in (["login"], ["search"], ["list", "spaces"], ["use", "space", "s"],
-                 ["update", "packages"], ["add", "package", "p"]):
-        with pytest.raises(SystemExit):
-            parser.parse_args(argv)  # the cloud and package commands wait for the rest
+    from devspace_tpu_torch.cli import main as tcli
+
+    for argv, fn in ((["login"], tcli.cmd_login), (["search"], tcli.cmd_search),
+                     (["list", "spaces"], tcli.cmd_list), (["use", "space", "s"],
+                                                           tcli.cmd_use_space),
+                     (["update", "packages"], tcli.cmd_update_packages),
+                     (["add", "package", "p"], tcli.cmd_add_package),
+                     (["add", "provider", "p", "--host", "h"], tcli.cmd_add_provider),
+                     (["remove", "context", "--all"], tcli.cmd_remove_context),
+                     (["create", "space", "s"], tcli.cmd_create),
+                     (["use", "registry"], tcli.cmd_use_registry),
+                     (["upgrade", "--archive", "a.tgz"], tcli.cmd_upgrade),
+                     (["install", "--update-path"], tcli.cmd_install)):
+        assert parser.parse_args(argv).fn is fn, argv  # the cloud and package commands
     with pytest.raises(SystemExit) as ei:
         main(["--version"])
     assert ei.value.code == 0
