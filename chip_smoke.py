@@ -128,7 +128,14 @@ MNIST example on the card from worker 0's synced copy (an NCCL world of
 one, the deploy phase's checks); the losses file that run wrote comes back
 to the project, a local edit reaches both workers, ``status sync`` and
 ``logs`` answer, SIGINT stops ``dev`` with exit code 0 and no exec stream
-left, and ``purge`` leaves the fake empty.
+left, and ``purge`` leaves the fake empty. The synced path also holds
+bench.py's initial-sync tree of 10 000 small files: the ``dev`` child must
+have the port's libdevsync (g++-built from
+``devspace_tpu_torch/native/devsync.cc``) mapped once its initial sync is
+done, the whole tree must be on both workers, and in this process the
+tree's walk, snapshot tar and directory hash through the library must
+hold every file the seed wrote (timed; ``scripts/probe_dev_phase_torch.py
+--scan`` holds them equal to the Python path's and times both).
 
 The RMSNorm kernel lies on no model's path (as in the JAX package); it is
 built, held against its plain version and timed.
@@ -175,22 +182,27 @@ prints no result.
 from __future__ import annotations
 
 import base64
+import concurrent.futures
 import contextlib
 import copy
 import dataclasses
 import gc
+import gzip
 import hashlib
 import http.server
+import io
 import itertools
 import json
 import math
 import os
+import random
 import re
 import shlex
 import shutil
 import statistics
 import subprocess
 import sys
+import tarfile
 import tempfile
 import threading
 import time
@@ -239,6 +251,7 @@ from devspace_tpu_torch.training import data as tdata
 from devspace_tpu_torch.training import checkpoint as tckpt
 from devspace_tpu_torch.training import trainer as ttrainer
 from devspace_tpu_torch.inference.prefix_cache import fingerprint_chain
+from devspace_tpu_torch.utils import native
 from devspace_tpu_torch.training.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
@@ -2596,6 +2609,10 @@ DEV_TRAIN_PY = DEPLOY_TRAIN_PY + """\
 with open("losses.json", "w") as fh:
     json.dump(logged, fh)
 """
+# bench.py:728-766's initial-sync tree (100 dirs x 100 files of 100-400
+# bytes from random.Random(0)), put under the dev project's synced path
+SYNC_TREE = {"dirs": 100, "files": 100, "bytes": (100, 400), "seed": 0, "at": "tree",
+             "deep": "pkg099/m099.py"}
 # what parallel/mesh.multihost_initialize reads: none may be in a
 # worker's env, so `python train.py` there forms a world of one
 WORLD_ENV = ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT", "JAX_COORDINATOR_ADDRESS",
@@ -2690,6 +2707,110 @@ def worker_digests(out: str) -> dict:
     return {int(w): h for w, h in found}
 
 
+def sync_tree_sizes() -> dict:
+    """``{relpath: size}`` of every file ``write_sync_tree`` writes, from
+    the seed alone."""
+    rng = random.Random(SYNC_TREE["seed"])
+    return {f"pkg{d:03d}/m{f:03d}.py": rng.randrange(*SYNC_TREE["bytes"])
+            for d in range(SYNC_TREE["dirs"]) for f in range(SYNC_TREE["files"])}
+
+
+def write_sync_tree(root: str) -> None:
+    """``SYNC_TREE`` in ``root``, as bench.py's ``bench_initial_sync``
+    writes it."""
+    made = set()
+    for rel, size in sync_tree_sizes().items():
+        sub = rel.split("/")[0]
+        if sub not in made:
+            os.makedirs(os.path.join(root, sub))
+            made.add(sub)
+        # three system calls a file: on a host whose file system is slow
+        # per call, that is what writing the tree costs
+        fd = os.open(os.path.join(root, rel), os.O_WRONLY | os.O_CREAT, 0o644)
+        try:
+            os.write(fd, b"x" * size)
+        finally:
+            os.close(fd)
+
+
+def mapped_libraries(pid: int, part: str) -> list:
+    """The files mapped into process ``pid`` whose path holds ``part``."""
+    with open(f"/proc/{pid}/maps") as fh:
+        return sorted({ln.split(None, 5)[5].strip() for ln in fh
+                       if len(ln.split(None, 5)) == 6 and part in ln})
+
+
+def tar_members(raw: bytes) -> dict:
+    """``{name: (is dir, mode, uid, gid, mtime, size, bytes)}`` of a tar."""
+    out = {}
+    with tarfile.open(fileobj=io.BytesIO(raw)) as tf:
+        for m in tf:
+            data = tf.extractfile(m).read() if m.isfile() else b""
+            out[m.name.rstrip("/")] = (m.isdir(), m.mode, m.uid, m.gid, m.mtime, m.size, data)
+    return out
+
+
+def scan_tree(tree: str, python: bool = False) -> dict:
+    """The port's three scans of ``SYNC_TREE`` at ``tree`` through its
+    libdevsync: ``walk_local_tree``, the tar inside ``build_tar``'s gzip
+    for the whole snapshot, and ``directory_hash``; each timed once. The
+    walk and the tar must hold every dir and file the seed wrote, at its
+    size and with its bytes, and the run must go through the library
+    (two walks, one pack). With ``python`` the three run again with
+    ``DEVSPACE_NATIVE=0``, not through the library, and each result must
+    equal the native one (the tars member for member: the native one is
+    GNU format, tarfile's PAX, so their headers' magic and the end
+    padding differ)."""
+    from devspace_tpu_torch.sync.session import walk_local_tree
+    from devspace_tpu_torch.sync.shell import build_tar
+    from devspace_tpu_torch.utils.hashutil import directory_hash
+
+    results, seconds, calls = {}, {}, {}
+    saved = os.environ.pop("DEVSPACE_NATIVE", None)
+    try:
+        for mode in ("native", "python")[:2 if python else 1]:
+            if mode == "python":
+                os.environ["DEVSPACE_NATIVE"] = "0"
+            before = dict(native.CALLS)
+            t = time.perf_counter()
+            walk = walk_local_tree(tree)
+            walk_s = time.perf_counter() - t
+            entries = sorted(walk.values(), key=lambda e: e.name)
+            t = time.perf_counter()
+            gz = build_tar(tree, entries)
+            tar_s = time.perf_counter() - t
+            t = time.perf_counter()
+            digest = directory_hash(tree)
+            hash_s = time.perf_counter() - t
+            calls[mode] = {k: native.CALLS[k] - before[k] for k in before}
+            seconds[mode] = {"walk_local_tree": walk_s, "build_tar": tar_s,
+                             "directory_hash": hash_s}
+            results[mode] = (walk, tar_members(gzip.decompress(gz)), digest, len(gz))
+    finally:
+        os.environ.pop("DEVSPACE_NATIVE", None)
+        if saved is not None:
+            os.environ["DEVSPACE_NATIVE"] = saved
+    walk, members, digest, _ = results["native"]
+    sizes = sync_tree_sizes()
+    dirs = {f"pkg{d:03d}" for d in range(SYNC_TREE["dirs"])}
+    assert {k for k, v in walk.items() if v.is_directory} == dirs, "walk_local_tree: dirs"
+    assert {k: v.size for k, v in walk.items() if not v.is_directory} == sizes, \
+        "walk_local_tree: a file's size differs from the seed's"
+    assert {k for k, m in members.items() if m[0]} == dirs, "build_tar: dirs"
+    assert {k: m[-1] for k, m in members.items() if not m[0]} == \
+        {k: b"x" * n for k, n in sizes.items()}, "build_tar: a member's bytes differ"
+    want_calls = {"native": {"walk": 2, "pack_tar": 1}}
+    if python:
+        py_walk, py_members, py_digest, _ = results["python"]
+        assert walk == py_walk, "walk_local_tree: native and Python differ"
+        assert members == py_members, "build_tar: native and Python members differ"
+        assert digest == py_digest, (digest, py_digest)
+        want_calls["python"] = {"walk": 0, "pack_tar": 0}
+    assert calls == want_calls, calls
+    return {"entries": len(walk), "seconds": seconds, "library_calls": calls,
+            "gzip_bytes": {k: v[3] for k, v in results.items()}, "directory_hash": digest}
+
+
 def phase_dev(dev, card) -> dict:
     """The dev loop as a user drives it, on the deploy phase's project with
     ``gpu: {workers: 2, perWorker: 1}`` and the example's ``dev`` block
@@ -2707,10 +2828,26 @@ def phase_dev(dev, card) -> dict:
     sync`` shows both workers healthy, ``logs --worker 0`` answers, SIGINT
     stops ``dev`` with exit code 0 and no exec stream left, and ``purge``
     empties the fake. In the fake an exec runs in the pod's dir, where
-    ``/app`` is ``app``. Rehearsed on the CPU with ``--device=cpu``."""
+    ``/app`` is ``app``. Rehearsed on the CPU with ``--device=cpu``.
+
+    The synced path also holds bench.py's 10 000-file initial-sync tree
+    (``SYNC_TREE``, under ``tree/``): the port's libdevsync is built in
+    this process first, must be mapped in the ``dev`` child once its
+    initial sync is done, and every file of the tree must then be on
+    both workers (``pkg099/m099.py`` held by hash). The tree's walk,
+    snapshot tar and directory hash are taken in this process through
+    the library, held to the seed and timed (``scan_tree``, in
+    ``scanner``), while worker 0's run goes on beside them. Their Python
+    path (``DEVSPACE_NATIVE=0``) is held equal and timed by
+    ``scripts/probe_dev_phase_torch.py --scan``, outside this script's
+    time: the tree alone adds more to this phase than its budget."""
     from devspace_tpu_torch.kube.fake import FakeCluster
 
     t0 = time.monotonic()
+    t = time.monotonic()
+    lib = native.build()
+    assert lib is not None and native.available(), "libdevsync did not build"
+    scanner = {"library": str(lib), "build_s": time.monotonic() - t}
     root = tempfile.mkdtemp(prefix="dev-")
     project, cluster = os.path.join(root, "proj"), os.path.join(root, "cluster")
     calls = []
@@ -2732,6 +2869,12 @@ def phase_dev(dev, card) -> dict:
             config = yaml.safe_load(fh)
         (name,) = [d["name"] for d in config["deployments"]]
         local_py = os.path.join(project, "train.py")
+        tree = os.path.join(project, SYNC_TREE["at"])
+        t = time.monotonic()
+        write_sync_tree(tree)
+        scanner["write_s"] = time.monotonic() - t
+        with open(os.path.join(tree, SYNC_TREE["deep"]), "rb") as fh:
+            deep_digest = hashlib.sha256(fh.read()).hexdigest()
 
         def local_digest() -> str:
             with open(local_py, "rb") as fh:
@@ -2739,11 +2882,23 @@ def phase_dev(dev, card) -> dict:
 
         child = DevChild(project, cluster)
         initial_sync_s = child.wait_line("[sync] session ready", DEV["sync_timeout_s"])
+        scanner["mapped_in_dev_child"] = mapped_libraries(child.proc.pid, "libdevsync")
+        assert scanner["mapped_in_dev_child"] == [str(lib)], (scanner, child.tail())
         child.wait_line("[dev] session live", DEV["sync_timeout_s"])
         before = worker_digests(cli("enter", "--all", "--", "sha256sum", "app/train.py")["out"])
         assert before == {0: local_digest(), 1: local_digest()}, (before, local_digest())
         fc = FakeCluster(cluster, persist=True)
         workers = fc.slice_workers({"app": name}, expected=DEV["gpu"]["workers"], timeout=10)
+        on_workers = {}
+        for i, w in enumerate(workers):
+            remote = os.path.join(fc.pod_dir(w.name, w.namespace), "app", SYNC_TREE["at"])
+            with open(os.path.join(remote, SYNC_TREE["deep"]), "rb") as fh:
+                deep = hashlib.sha256(fh.read()).hexdigest()
+            on_workers[i] = {"files": sum(len(f) for _, _, f in os.walk(remote)),
+                             "deep_sha256": deep}
+        want = {"files": SYNC_TREE["dirs"] * SYNC_TREE["files"], "deep_sha256": deep_digest}
+        assert on_workers == {0: want, 1: want}, on_workers
+        scanner["tree_on_workers"] = on_workers
         pod_env = workers[0].container_env()
         assert not set(pod_env) & set(WORLD_ENV), pod_env
         argv = [sys.executable, "train.py", "--steps", str(DEV["steps"])]
@@ -2756,7 +2911,14 @@ def phase_dev(dev, card) -> dict:
             print(f"dev: substituted {sub}", flush=True)
         script = f"cd app && exec {shlex.join(argv)}"
         print(f"dev: enter --worker 0 -- sh -c {shlex.quote(script)}", flush=True)
-        run = cli("enter", "--worker", "0", "--", "sh", "-c", script)
+        # the run goes in a thread while this one scans the tree
+        # in-process: the scans take no wall time of their own
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            running = pool.submit(cli, "enter", "--worker", "0", "--", "sh", "-c", script)
+            t = time.monotonic()
+            scanner.update(scan_tree(tree))
+            scanner["compare_s"] = time.monotonic() - t
+            run = running.result()
         pod = parse_pod_output(run["rc"], run["out"])
         run_s = run["s"]
         # downstream: the losses file worker 0's run wrote comes back
@@ -2822,7 +2984,7 @@ def phase_dev(dev, card) -> dict:
             "xent_launches": pod["launches"], "run_s": run_s, "worker_health": health,
             "dev_rc": dev_rc, "stop_s": stop_s, "streams_before_stop": streams_before,
             "left_after_purge": left, "dev_log_tail": child.lines[-12:],
-            "seconds": time.monotonic() - t0}
+            "sync_tree": SYNC_TREE, "scanner": scanner, "seconds": time.monotonic() - t0}
 
 
 def vit_train_flop_per_image(hidden: int, depth: int, mlp_dim: int, patch: int, image: int,
@@ -5448,13 +5610,18 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.monotonic()
-    nvcc_s = _build.build(*SOURCES)
+    # the sync scanner's g++ build goes beside the nvcc builds
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        scanner_lib = pool.submit(native.build)
+        nvcc_s = _build.build(*SOURCES)
+        scanner_lib = scanner_lib.result()
+    assert scanner_lib is not None, "libdevsync did not build"
     ptxas = {name: [ln.strip() for ln in _build.BUILD_LOG.get(name, "").splitlines()
                     if any(w in ln for w in ("registers", "spill", "Compiling entry",
                                              "Performance Loss"))]
              for name in SOURCES}
     emit({"phase": "build", "seconds": time.monotonic() - t0, "nvcc_s": nvcc_s,
-          "ptxas": ptxas})
+          "ptxas": ptxas, "libdevsync": str(scanner_lib)})
 
     errs, head_rel = phase_parity(dev)
     emit({"phase": "kernel_parity", "card": card, "max_abs_err": errs,

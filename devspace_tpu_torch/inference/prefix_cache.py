@@ -25,7 +25,8 @@ step, O(prompt) a match) and eviction walks only the evicted subtree
 
 :class:`FlatPrefixCache` is the reference model behind the same API (an
 ``OrderedDict`` keyed by full token prefixes, a linear victim scan, a
-full-key descendant sweep); the engine does not use it.
+full-key descendant sweep); the engine does not use it, the tests and
+:func:`microbench` do.
 
 The cache owns no pool blocks: it maps block ids it is told about and
 mirrors the engine's table refcounts via :meth:`RadixPrefixCache.ref` /
@@ -590,3 +591,64 @@ class _FlatCursor:
         self._cache._published[blk] = key
         self._cache._refs[blk] = refs
         return blk
+
+
+def microbench(
+    n_entries: int = 10_000,
+    prompt_tokens: int = 4096,
+    block_size: int = 64,
+    n_match: int = 30,
+    n_evict: int = 50,
+    seed: int = 0,
+    include_flat: bool = False,
+) -> dict:
+    """Host-side cost of prefix-cache match and evict at serving scale:
+    a cache of ``n_entries`` published blocks built from distinct
+    ``prompt_tokens``-token prompts, then per-op mean microseconds for a
+    full-prompt match walk and for a victim eviction (which invalidates
+    the victim's whole descendant chain). ``include_flat=True`` also
+    measures :class:`FlatPrefixCache` — the flat-map implementation —
+    for the speedup ratio. Pure host Python — no torch, no devices."""
+    import random
+    import time as _time
+
+    rng = random.Random(seed)
+    blocks_per = max(1, prompt_tokens // block_size)
+    n_prompts = max(1, (n_entries + blocks_per - 1) // blocks_per)
+    prompts = [
+        [rng.randrange(1 << 15) for _ in range(blocks_per * block_size)]
+        for _ in range(n_prompts)
+    ]
+    impls = [("radix", RadixPrefixCache)]
+    if include_flat:
+        impls.append(("flat", FlatPrefixCache))
+    out: dict = {}
+    for name, cls in impls:
+        cache = cls()
+        blk = 1
+        for p in prompts:
+            cur = cache.cursor()
+            for i in range(blocks_per):
+                cur.publish(
+                    tuple(p[i * block_size : (i + 1) * block_size]), blk, 0
+                )
+                blk += 1
+        t0 = _time.perf_counter()
+        for j in range(n_match):
+            p = prompts[j % n_prompts]
+            cur = cache.cursor()
+            for i in range((len(p) - 1) // block_size):
+                if cur.step(tuple(p[i * block_size : (i + 1) * block_size])) is None:
+                    break
+        match_us = (_time.perf_counter() - t0) / n_match * 1e6
+        n_e = min(n_evict, n_prompts)  # each evict retires a whole chain
+        t0 = _time.perf_counter()
+        for _ in range(n_e):
+            cache.pop_victim()
+        evict_us = (_time.perf_counter() - t0) / n_e * 1e6
+        out[name] = {
+            "entries": blocks_per * n_prompts,
+            "match_us": round(match_us, 2),
+            "evict_us": round(evict_us, 2),
+        }
+    return out

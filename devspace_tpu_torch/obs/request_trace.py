@@ -31,8 +31,8 @@ GIL-atomic field reads. Traces attach to the Request object itself
 same trace.
 
 The port's copy of ``devspace_tpu/obs/request_trace.py``, with the same behaviour; it
-imports nothing of the JAX package. ``export_chrome`` is left out: the
-timeline's Chrome trace (``obs/tracing.py``) is the port's trace export.
+imports nothing of the JAX package. ``export_chrome`` writes the ring
+through the port's own ``utils/trace.write_chrome``.
 """
 
 from __future__ import annotations
@@ -394,3 +394,13 @@ class ServingTelemetry:
         for s in spans:
             s.setdefault("track", s.get("thread") or "serving")
         return spans[-max(0, limit):]
+
+    def export_chrome(self, dest: str) -> int:
+        """Chrome-trace (chrome://tracing / Perfetto) export of the
+        recent-request ring through the shared span writer."""
+        from ..utils import trace as trace_mod
+
+        with self._lock:
+            traces = list(self._ring)
+        spans = [s for t in traces for s in t.to_spans()]
+        return trace_mod.write_chrome(spans, dest)

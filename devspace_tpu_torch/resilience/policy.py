@@ -14,8 +14,8 @@ Design constraints, in order:
    or as ``execute(fn)``.
 
 The port's copy of ``devspace_tpu/resilience/policy.py``, with the same
-behaviour; it imports nothing of the JAX package. The reference's
-``@retry(policy)`` decorator is left out: nothing in the port uses it.
+behaviour, the ``@retry(policy)`` decorator included; it imports nothing
+of the JAX package.
 """
 
 from __future__ import annotations
@@ -175,6 +175,23 @@ class RetryPolicy:
             last=last,
             attempts=self.max_attempts,
         ) from last
+
+
+def retry(policy: RetryPolicy, describe: Optional[str] = None):
+    """Decorator form of :meth:`RetryPolicy.execute`."""
+
+    def wrap(fn):
+        import functools
+
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            return policy.execute(
+                fn, *args, describe=describe or fn.__name__, **kwargs
+            )
+
+        return inner
+
+    return wrap
 
 
 class CircuitOpenError(Exception):

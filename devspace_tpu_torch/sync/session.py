@@ -17,10 +17,10 @@ of the job; the downstream polls worker 0 (authoritative). Conflict rules preser
 Latency: defaults beat the reference's constants (~1s upstream debounce,
 1.3s downstream poll — BASELINE.md) while keeping the same safety rules.
 
-The port's copy of ``devspace_tpu/sync/session.py``, with one difference:
-``walk_local_tree`` always walks in Python, where the reference uses its
-native scanner when that is built (``utils/native.py``, not ported). The
-reference's Python walk, which the port keeps, gives the same entries.
+The port's copy of ``devspace_tpu/sync/session.py``, with the same
+behaviour: ``walk_local_tree`` walks through the port's native scanner
+(``utils/native.py``) when that is built, and in Python otherwise; both
+give the same entries.
 """
 
 from __future__ import annotations
@@ -56,7 +56,12 @@ def walk_local_tree(
     root: str, exclude: Optional[IgnoreMatcher] = None
 ) -> dict[str, FileInformation]:
     """Walk a local tree (following symlinks, cycle-guarded) into
-    {relpath: FileInformation}, honoring an exclude matcher."""
+    {relpath: FileInformation}, honoring an exclude matcher. Uses the
+    native scanner (utils/native.py, C++ readdir+lstat loop) when built;
+    both paths produce identical results (tested side by side)."""
+    native_out = _walk_local_tree_native(root, exclude)
+    if native_out is not None:
+        return native_out
     out: dict[str, FileInformation] = {}
     stack = [root]
     seen_dirs: set[tuple[int, int]] = set()
@@ -89,6 +94,40 @@ def walk_local_tree(
                     continue  # symlink cycle guard
                 seen_dirs.add(key)
                 stack.append(e.path)
+    return out
+
+
+def _walk_local_tree_native(
+    root: str, exclude: Optional[IgnoreMatcher]
+) -> Optional[dict[str, FileInformation]]:
+    """Native-walk variant of walk_local_tree; None when libdevsync is
+    unavailable. The C++ side emits every entry in parent-before-child
+    order; gitignore filtering stays here so semantics are identical."""
+    from ..utils import native
+
+    prune = native.prune_names(exclude.patterns) if exclude is not None else None
+    entries = native.walk(root, prune=prune, follow_symlinks=True)
+    if entries is None:
+        return None
+    out: dict[str, FileInformation] = {}
+    excluded_dirs: set[str] = set()
+    for e in entries:
+        parent = os.path.dirname(e.rel)
+        if parent and parent in excluded_dirs:
+            if e.is_dir:
+                excluded_dirs.add(e.rel)
+            continue
+        if exclude is not None and exclude.matches(e.rel, e.is_dir):
+            if e.is_dir:
+                excluded_dirs.add(e.rel)
+            continue
+        out[e.rel] = FileInformation(
+            name=e.rel,
+            size=0 if e.is_dir else e.size,
+            mtime=e.mtime,
+            is_directory=e.is_dir,
+            is_symlink=e.is_symlink,
+        )
     return out
 
 

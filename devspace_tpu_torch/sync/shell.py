@@ -13,11 +13,10 @@ container — no agent. Differences from the reference, on purpose:
 - handshake tokens are namespaced and sequenced so a token can never
   collide with file content or a stale command's output.
 
-The port's copy of ``devspace_tpu/sync/shell.py``, with one difference:
-``build_tar`` always assembles the archive in Python. The reference packs
-batches of 64 entries or more with its native ``libdevsync`` when that is
-built (``utils/native.py``, not ported); the port keeps the reference's
-Python path.
+The port's copy of ``devspace_tpu/sync/shell.py``, with the same
+behaviour: ``build_tar`` packs batches of 64 entries or more with the
+port's native ``libdevsync`` (``utils/native.py``) when that is built, and
+with ``tarfile`` otherwise.
 """
 
 from __future__ import annotations
@@ -323,8 +322,39 @@ def build_tar(
 ) -> bytes:
     """Gzipped tar of local files, paths relative to the sync root,
     preserving mtimes (so remote stat equals the index) and re-applying
-    recorded remote mode/uid/gid (reference: tar.go:246-292)."""
+    recorded remote mode/uid/gid (reference: tar.go:246-292).
+
+    Large batches (the initial-sync snapshot of a many-small-files tree)
+    assemble the tar in native code when libdevsync is available —
+    CPython's per-member TarInfo bookkeeping is the cost there — and
+    gzip here either way."""
     import os
+
+    from ..utils import native
+
+    if len(entries) >= 64:  # small batches: ctypes round-trip isn't worth it
+        raw = native.pack_tar(
+            local_root,
+            [
+                native.PackEntry(
+                    name=info.name,
+                    is_dir=bool(info.is_directory),
+                    mode=(
+                        info.remote_mode
+                        if info.remote_mode is not None
+                        else (0o755 if info.is_directory else -1)
+                    ),
+                    uid=info.remote_uid if info.remote_uid is not None else -1,
+                    gid=info.remote_gid if info.remote_gid is not None else -1,
+                    mtime=int(info.mtime),
+                )
+                for info in entries
+            ],
+        )
+        if raw is not None:
+            import gzip
+
+            return gzip.compress(raw, compresslevel=4)
 
     buf = io.BytesIO()
     with tarfile.open(fileobj=buf, mode="w:gz", compresslevel=4) as tf:
@@ -337,7 +367,7 @@ def build_tar(
                     ti.mode = (
                         info.remote_mode
                         if info.remote_mode is not None
-                        else 0o755
+                        else 0o755  # same default as the native PackEntry path
                     )
                     ti.mtime = info.mtime
                     tf.addfile(ti)
@@ -363,8 +393,9 @@ def build_tar(
                         # file that grew or shrank after indexing
                         # (concurrent writer) would otherwise abort addfile
                         # mid-copy and misalign every later member.
-                        # Truncate/zero-fill to the indexed size; the next
-                        # change event re-syncs the real content.
+                        # Truncate/zero-fill to the indexed size like the
+                        # native packer; the next change event re-syncs the
+                        # real content.
                         tf.addfile(ti, _ExactSizeReader(fh, info.size))
             except OSError:
                 continue  # raced with a concurrent delete; skip
@@ -375,7 +406,7 @@ class _ExactSizeReader:
     """Wraps a file object to deliver EXACTLY ``size`` bytes: truncates
     a file that grew, zero-pads one that shrank (never raises on EOF) —
     keeps the surrounding tar stream well-formed under concurrent
-    writes."""
+    writes, matching the native packer's behavior."""
 
     def __init__(self, fh, size: int):
         self._fh = fh

@@ -3,9 +3,9 @@
 The port's copy of ``devspace_tpu/utils/hashutil.py`` (reference:
 pkg/util/hash/hash.go, Directory / DirectoryExcludes): path, size and
 mtime-ns (or the bytes, ``content=True``) hashed with blake2b, with
-gitignore-style excludes. The reference also walks through a native
-scanner when it is built; its lines are the same as the Python walk's,
-which is the only walk here, so the digests agree.
+gitignore-style excludes. A metadata hash walks through the port's native
+scanner (``utils/native.py``) when it is built; its lines are the same as
+the Python walk's, so the digest does not depend on which walk ran.
 """
 
 from __future__ import annotations
@@ -42,6 +42,12 @@ def directory_hash(
             st = os.stat(root)
             h.update(f"{os.path.basename(root)}|{st.st_size}|{st.st_mtime_ns}".encode())
         return h.hexdigest()
+    if not content:
+        native_entries = _native_entries(root, matcher)
+        if native_entries is not None:
+            for line in sorted(native_entries):
+                h.update(line.encode() + b"\n")
+            return h.hexdigest()
     stack = [root]
     entries: list[str] = []
     while stack:
@@ -70,3 +76,34 @@ def directory_hash(
     for line in sorted(entries):
         h.update(line.encode() + b"\n")
     return h.hexdigest()
+
+
+def _native_entries(root: str, matcher: IgnoreMatcher) -> Optional[list[str]]:
+    """Metadata entry lines via the native scanner; None when unavailable.
+    Produces byte-identical lines to the Python walk above (the walk is the
+    expensive part — hashing the small entry buffer stays in Python)."""
+    from . import native
+
+    walk = native.walk(
+        root, prune=native.prune_names(matcher.patterns), follow_symlinks=False
+    )
+    if walk is None:
+        return None
+    entries: list[str] = []
+    excluded_dirs: set[str] = set()
+    for e in walk:
+        parent = os.path.dirname(e.rel)
+        if parent and parent in excluded_dirs:
+            if e.is_dir:
+                excluded_dirs.add(e.rel)
+            continue
+        if matcher.matches(e.rel, e.is_dir):
+            if e.is_dir:
+                excluded_dirs.add(e.rel)
+            continue
+        if e.is_dir:
+            entries.append(f"{e.rel}/|dir")
+        else:
+            mtime_ns = e.mtime * 1_000_000_000 + e.mtime_ns
+            entries.append(f"{e.rel}|{e.size}|{mtime_ns}")
+    return entries

@@ -71,7 +71,8 @@ def test_every_module_imports_with_jax_blocked():
     # the dev loop: the sync engine and the dev-session services
     for name in ("sync", "sync.file_info", "sync.index", "sync.artifacts", "sync.shell",
                  "sync.watcher", "sync.pipeline", "sync.session", "services",
-                 "services.selectors", "services.watch", "services.sessions"):
+                 "services.selectors", "services.watch", "services.sessions",
+                 "utils.native", "utils.hashutil"):
         assert f"devspace_tpu_torch.{name}" in MODULES
 
 
@@ -94,7 +95,8 @@ def test_no_source_imports_jax_or_the_jax_package():
         for name in ("draft_pair", "resnet", "mnist", "long_context")] + [
         REPO / "scripts" / f"{name}_torch.py"
         for name in ("analysis_gate", "chaos_serving_check", "chaos_check",
-                     "fsdp_step_profile", "chaos_repeat", "port_teardown_probe")] + [
+                     "fsdp_step_profile", "chaos_repeat", "port_teardown_probe",
+                     "probe_dev_phase")] + [
         REPO / "tests" / f"torch_parallel_{name}.py" for name in ("world", "workers")]
     bad = {
         str(f.relative_to(REPO)): name
